@@ -1,0 +1,93 @@
+#!/usr/bin/env python3
+"""Device-time breakdown of one ``-cw0`` scan of the PyTorch port on one GPU.
+
+Run from the root of a checkout on a machine with an NVIDIA card:
+
+    python3 chip_profile.py [trace.json]
+
+It writes chip_smoke.py's bench scan (2000 x 2048 x 300, stored wide), runs
+the CLI once to build the kernels and warm the allocator, then once more
+under torch.profiler, and prints: that run's wall time (profiler on) and
+its StageTimer stages, the device-busy time (the union of the kernel, copy
+and memset intervals of the trace) with the card's idle share of the wall
+time, and the device time by kernel or copy name.  The Chrome trace is
+copied to ``trace.json`` when a path is given.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import shutil
+import sys
+import tempfile
+import time
+
+import chip_smoke
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def main(argv) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        chip_smoke.fail("torch.cuda.is_available() is False")
+    card = chip_smoke.card_line()
+    sys.path.insert(0, chip_smoke.ROOT)
+    from solex_ser_recon_en_torch.cli import main as cli_main
+
+    tmp = tempfile.mkdtemp(prefix="solex_profile_")
+    try:
+        path = os.path.join(tmp, "scan.ser")
+        chip_smoke.make_scan(path)
+        args = ["-cw0", path, "--output-dir", os.path.join(tmp, "out")]
+        if cli_main.main(args) != 0:
+            chip_smoke.fail("warm-up run failed")
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            rc = cli_main.main(args)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        if rc != 0:
+            chip_smoke.fail("profiled run failed")
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("cat") in DEVICE_CATS]
+        if not events:
+            chip_smoke.fail("the profiler recorded no device activity")
+        busy_ms = busy_us((e["ts"], e["ts"] + e["dur"]) for e in events) / 1e3
+        by_name = collections.defaultdict(lambda: [0, 0.0])
+        for e in events:
+            by_name[e["name"]][0] += 1
+            by_name[e["name"]][1] += e["dur"]
+        print(f"profiled run: wall {wall_ms:.1f} ms, device busy "
+              f"{busy_ms:.1f} ms, idle {100 * (1 - busy_ms / wall_ms):.1f}% "
+              f"[{card}]")
+        print("device time by name (us, launches):")
+        for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
+            print(f"  {us:10.1f} {n:5d}  {name[:100]}")
+        if argv:
+            shutil.copy(trace, argv[0])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,344 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (solex_ser_recon_en_torch).
+
+Run from the root of a checkout on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases; any failure exits non-zero before the final result line:
+
+1. device: CUDA present; the card's name and power limit (nvidia-smi).
+2. build: the kernels of csrc/ compiled from the checkout (nvcc).
+3. scan: the benchmark scan of bench.py (SyntheticScan, seed 5, stored
+   wide) written as SER to a temporary directory.
+4. end to end: ``cli.main.main(["-cw0", scan])`` twice.  The first run
+   goes through capture hooks (kernel inputs, stage results); the second,
+   timed, runs with no hook.  The launch counts of kernels B3 (recon),
+   B4 (hresample) and B5 (tile_hist) over the second run must all be > 0;
+   the line fit, mean/max, shift-0 disk, fitted ratio and the corrected
+   disk are checked against the scan's ground truth, and
+   ``_shift=0_clahe.png`` against the corrected disk.
+5. kernels vs plain: each kernel against its plain PyTorch version on the
+   inputs the main path gave it in the first run (B3, B5 bit-identical; B4
+   bit-identical), both timed with CUDA events (median of repeats).
+
+The last line is ``{"ok": true, "device": {...}}``; the line before it
+holds the card's name and power limit, and the one before that the
+per-kernel JSON record.  The script imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# benchmark scan (bench.py:49-50, 79-87)
+FRAMES, IH, IW = 2000, 2048, 300
+SQUASH, SHEAR = 1.08, 0.02
+
+REPLACES = {
+    "recon": ("solex_ser_recon_en_torch/csrc/recon.cu",
+              "solex_ser_recon_en_tpu/ops/pallas_recon.py:31"),
+    "hresample": ("solex_ser_recon_en_torch/csrc/warp.cu",
+                  "solex_ser_recon_en_tpu/ops/warp_fast.py:76"),
+    "tile_hist": ("solex_ser_recon_en_torch/csrc/hist.cu",
+                  "solex_ser_recon_en_tpu/ops/clahe.py:54"),
+}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke FAILED: {msg}", flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if res.returncode != 0 or not res.stdout.strip():
+        fail(f"nvidia-smi failed: {res.stderr.strip()}")
+    return res.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median milliseconds of ``fn()`` over ``reps`` CUDA-event timings."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def make_scan(path: str):
+    import numpy as np
+    from solex_ser_recon_en_tpu.io.ser import write_ser
+    from solex_ser_recon_en_tpu.io.synthetic import SyntheticScan
+
+    scan = SyntheticScan(
+        ih=IH, iw=IW, frames=FRAMES, depth=16,
+        line_poly=(150.0, 0.005, -2e-6, 1e-9),
+        squash_y=SQUASH, shear=SHEAR,
+        disk_radius=int(0.42 * FRAMES),
+        trans_stripes=0.08, noise=0.002, seed=5,
+    )
+    full = scan.generate()                      # (F, ih, iw) normalised
+    write_ser(path, np.rot90(full, k=-1, axes=(1, 2)))   # stored wide
+    return scan, full
+
+
+def ground_truth_checks(scan, full, res, frame) -> dict:
+    """The port's intermediate results against the synthetic truth."""
+    import numpy as np
+
+    out = {}
+    sr = res["scan"]
+    lf = sr.linefit
+    ys = np.arange(lf.y1, lf.y2)
+    dev = float(np.max(np.abs(lf.curve[ys] - scan.line_center(ys))))
+    out["line_fit_max_px"] = dev
+    if dev > 1.0:
+        fail(f"line fit off the true line by {dev:.3f} px")
+
+    total = full.sum(axis=0, dtype=np.int64)
+    mean_truth = (total.astype(np.float64) / full.shape[0]).astype(np.uint16)
+    if not np.array_equal(sr.mean_img, mean_truth):
+        fail("mean image differs from the exact frame mean")
+    if not np.array_equal(res["max_img"], full.max(axis=0)):
+        fail("max image differs from the exact frame max")
+
+    zi = sr.shifts.index(0)
+    disk = sr.disk_list[zi].cpu().numpy().astype(np.int64)
+    l = np.clip(lf.floor, 0, full.shape[2] - 2)
+    w = (1.0 - lf.frac).astype(np.float32).astype(np.float64)
+    yi = np.arange(full.shape[1])
+    ref = full[:, yi, l] * w + full[:, yi, l + 1] * (1.0 - w)   # (F, ih)
+    ref = np.clip(ref, 0, 65535).astype(np.int64).T
+    lsb = int(np.abs(disk - ref).max())
+    out["disk_max_lsb_vs_float64"] = lsb
+    if lsb > 1:
+        fail(f"shift-0 disk differs from the float64 lerp by {lsb} LSB")
+    corr = float(np.corrcoef(disk.ravel(), scan.disk_brightness().ravel())[0, 1])
+    out["disk_corr_vs_truth"] = corr
+    if corr < 0.98:
+        fail(f"shift-0 disk correlates {corr:.4f} with the true disk")
+
+    ratio = res["opts"].ratio_fixe
+    out["ratio"] = ratio
+    if res["opts"].slant_fix is None or abs(ratio - SQUASH) > SQUASH * (
+            0.05 + abs(SHEAR)):
+        fail(f"fitted Y/X ratio {ratio} vs injected {SQUASH}")
+    img = frame.cpu().numpy().astype(np.float64)
+    yy, xx = np.nonzero(img > 0.4 * img.max())
+    round_ = (yy.max() - yy.min()) / (xx.max() - xx.min())
+    out["corrected_extent_ratio"] = float(round_)
+    if abs(round_ - 1.0) > 0.05:
+        fail(f"corrected disk is not round: extent ratio {round_:.4f}")
+    return out
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(ROOT, "solex_ser_recon_en_torch")):
+        fail("solex_ser_recon_en_torch not found beside chip_smoke.py")
+    sys.path.insert(0, ROOT)
+    import torch
+
+    # 1. device
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False")
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}", flush=True)
+
+    # 2. build
+    from solex_ser_recon_en_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    cuda_build.lib()
+    print(f"build: {time.perf_counter() - t0:.2f} s "
+          f"(nvcc {cuda_build.build_seconds:.2f} s) -> "
+          f"{os.path.relpath(cuda_build.library_path(), ROOT)}", flush=True)
+    log = (cuda_build.build_dir() / "build.log")
+    if log.exists():
+        for line in log.read_text().splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                print("  ptxas:", line.strip().split("ptxas info    : ")[-1])
+
+    # 3. scan
+    tmp = tempfile.mkdtemp(prefix="solex_smoke_")
+    try:
+        path = os.path.join(tmp, "scan.ser")
+        t0 = time.perf_counter()
+        scan, full = make_scan(path)
+        print(f"scan: {FRAMES} x {IH} x {IW} u16, "
+              f"{os.path.getsize(path) / 1e9:.3f} GB, generated in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        # 4. end to end through the CLI entry point: run 1 with capture
+        # hooks, run 2 timed with none
+        from solex_ser_recon_en_torch.cli import main as cli_main
+        from solex_ser_recon_en_torch.ops import clahe, fused, warp_fast
+        from solex_ser_recon_en_torch.pipeline import run as run_mod
+
+        res, caps = {}, {"recon": [], "hresample": [], "tile_hist": {}}
+        targets = {"read_scan": cli_main, "mean_max": fused.RawScanProcessor,
+                   "single_image_process": run_mod, "recon": fused,
+                   "hresample": warp_fast, "tile_histograms": clahe}
+        orig = {name: getattr(obj, name) for name, obj in targets.items()}
+
+        def read_scan(file, opts, dev, timer=None):
+            res["opts"] = opts
+            res["scan"] = orig["read_scan"](file, opts, dev, timer)
+            return res["scan"]
+
+        def mean_max(self):
+            out = orig["mean_max"](self)
+            res["max_img"] = out[1]
+            return out
+
+        def single_image_process(frame, *a, **k):
+            res["frame"] = frame
+            return orig["single_image_process"](frame, *a, **k)
+
+        def recon(*a):
+            caps["recon"].append(a)
+            return orig["recon"](*a)
+
+        def hresample(*a):
+            caps["hresample"] = [t.clone() for t in a]
+            return orig["hresample"](*a)
+
+        def tile_histograms(tiles, hs):
+            caps["tile_hist"][tuple(tiles.shape)] = (tiles.clone(), hs)
+            return orig["tile_histograms"](tiles, hs)
+
+        hooks = {"read_scan": read_scan, "mean_max": mean_max,
+                 "single_image_process": single_image_process,
+                 "recon": recon, "hresample": hresample,
+                 "tile_histograms": tile_histograms}
+        for name, obj in targets.items():
+            setattr(obj, name, hooks[name])
+
+        outdir = os.path.join(tmp, "out")
+        args = ["-cw0", path, "--output-dir", outdir]
+        t0 = time.perf_counter()
+        rc = cli_main.main(args)
+        wall1 = time.perf_counter() - t0
+        for name, obj in targets.items():
+            setattr(obj, name, orig[name])
+        if rc != 0:
+            fail("first end-to-end run failed")
+        for k in cuda_build.LAUNCHES:
+            cuda_build.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        rc = cli_main.main(args)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        launches = dict(cuda_build.LAUNCHES)
+        if rc != 0:
+            fail("second end-to-end run failed")
+        print(f"end to end: run 1 {wall1:.3f} s, run 2 {wall2:.3f} s "
+              f"[{card}]", flush=True)
+        print(f"launches in run 2: {launches}", flush=True)
+        for name, n in launches.items():
+            if n <= 0:
+                fail(f"kernel {name} was not launched by the main path")
+
+        png = os.path.join(outdir, "scan_shift=0_clahe.png")
+        if not os.path.exists(png):
+            fail(f"{png} missing")
+        from solex_ser_recon_en_torch.io.png import read_png
+
+        cc = read_png(png)
+        frame = res["frame"]
+        if cc.shape != tuple(frame.shape):
+            fail(f"clahe png shape {cc.shape} != corrected disk "
+                 f"{tuple(frame.shape)}")
+        if cc.max() == 0:
+            fail("clahe png is empty")
+        truth = ground_truth_checks(scan, full, res, frame)
+        print("ground truth: " + json.dumps(truth), flush=True)
+        del full
+
+        # 5. kernels vs plain versions on the main path's inputs
+        from solex_ser_recon_en_torch.ops.clahe import tile_histograms_plain
+        from solex_ser_recon_en_torch.ops.dtypes import widen
+        from solex_ser_recon_en_torch.ops.recon import recon_plain
+
+        reps = 20
+        records = []
+
+        def max_abs_err(x, y):
+            if not x.dtype.is_floating_point:
+                x, y = widen(x), widen(y)
+            return (x - y).abs().max().item()
+
+        rc_args = caps["recon"]
+        err = max(max_abs_err(orig["recon"](*a), recon_plain(*a))
+                  for a in rc_args)
+        ms = cuda_ms(lambda: [orig["recon"](*a) for a in rc_args], reps)
+        pms = cuda_ms(lambda: [recon_plain(*a) for a in rc_args], reps)
+        records.append(("recon", err, ms, pms, f"{len(rc_args)} calls on "
+                        f"chunks of {tuple(rc_args[0][0].shape)}"))
+
+        a = caps["hresample"]
+        out = orig["hresample"](*a)
+        err = max_abs_err(out, warp_fast.hresample_plain(*a))
+        ms = cuda_ms(lambda: orig["hresample"](*a), reps)
+        pms = cuda_ms(lambda: warp_fast.hresample_plain(*a), reps)
+        records.append(("hresample", err, ms, pms,
+                        f"V {tuple(a[0].shape)} -> {tuple(out.shape)}"))
+
+        err, ms, pms = 0, 0.0, 0.0
+        hist_args = sorted(caps["tile_hist"].items())
+        for _, (tiles, hs) in hist_args:
+            err = max(err, max_abs_err(orig["tile_histograms"](tiles, hs),
+                                       tile_histograms_plain(tiles, hs)))
+            ms += cuda_ms(lambda: orig["tile_histograms"](tiles, hs), reps)
+            pms += cuda_ms(lambda: tile_histograms_plain(tiles, hs), reps)
+        records.append(("tile_hist", err, ms, pms,
+                        f"tiles {[shape for shape, _ in hist_args]}"))
+        for name, err, *_ in records:
+            if err != 0:
+                fail(f"kernel {name} differs from its plain version by {err}")
+
+        kernels = []
+        for name, err, ms, pms, note in records:
+            print(f"{name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                  f"max_abs_err {err} ({note}) [{card}]", flush=True)
+            src, rep = REPLACES[name]
+            kernels.append({"name": name, "route": "cuda", "source": src,
+                            "replaces": rep, "launches": launches[name],
+                            "max_abs_err": err, "ms": ms, "plain_ms": pms})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

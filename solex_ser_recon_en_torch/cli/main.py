@@ -1,0 +1,62 @@
+"""Command line driver: ``python -m solex_ser_recon_en_torch.cli -c file.ser``.
+
+Counterpart of solex_ser_recon_en_tpu/cli/main.py for the ported ``-c``
+path: files are processed one after the other on ``--device`` (default
+``cuda``; asking for CUDA where it is absent is an error, never a silent
+CPU run).
+"""
+
+from __future__ import annotations
+
+import sys
+import traceback
+from typing import List, Optional
+
+from solex_ser_recon_en_tpu.config import Options
+from solex_ser_recon_en_tpu.utils.timer import StageTimer
+
+from ..pipeline.run import check_supported, process_scan, read_scan
+from ..utils.device import resolve_device
+from .flags import parse_cli, usage
+
+
+def handle_files(files: List[str], options: Options, device) -> int:
+    """Process each file with its own options copy (SHG_MAIN.py:129
+    semantics); returns the number of files fully processed."""
+    done = 0
+    for file in files:
+        print(f"file {file} is processing")
+        opts = options.copy()
+        timer = StageTimer()
+        try:
+            scan = read_scan(file, opts, device, timer)
+            process_scan(scan, opts, timer)
+        except Exception:
+            print("ERROR ENCOUNTERED")
+            traceback.print_exc()
+            continue
+        done += 1
+        print(f"{file} done:\n{timer.summary()}")
+    return done
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    options = Options()
+    files, device_name = parse_cli(options, argv)
+    if not files:
+        print(usage())
+        return 1
+    try:
+        device = resolve_device(device_name)
+        options.validate()
+        check_supported(options)
+    except (RuntimeError, ValueError, NotImplementedError) as e:
+        print(f"ERROR: {e}")
+        return 2
+    n = handle_files(files, options, device)
+    return 0 if n == len(files) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,136 @@
+"""Build, load and launch-check the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into ONE shared library with a plain C interface, at first use, under
+``build/solex_torch_kernels/`` (``SOLEX_TORCH_BUILD_DIR`` overrides).  The
+library name carries a hash of the sources and flags, so an edited source
+builds anew and a stale library is never loaded.  ``ctypes`` loads it: each
+entry point takes device pointers (``tensor.data_ptr()``) and PyTorch's
+current stream, and returns the ``cudaGetLastError()`` of its launch, which
+``check`` turns into an exception.
+
+There is no fallback: a missing ``nvcc``, a failed build or a refused
+launch raises.  ``LAUNCHES`` counts the kernel launches of each wrapper, so
+a run can show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "--fmad=false", "-std=c++17", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+#: kernel launches per wrapper (ops/recon_cuda.py, ops/warp_fast.py,
+#: ops/clahe.py); reset by callers that want to count one run
+LAUNCHES = {"recon": 0, "hresample": 0, "tile_hist": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # raw, elem_bytes, ind_l, left_w, out, S, F, H, W, ih, rotate, upscale, stream
+    "solex_recon": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # V, loc, w0, w1, cadd, out, K, H, Wp, OW, stream
+    "solex_hresample": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # tiles, T, n, hist_size, chunk, out, stream
+    "solex_tile_hist": [_P, _I, _I, _I, _I, _P, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+#: seconds the last build took (0.0 when the library was already built)
+build_seconds = 0.0
+
+
+def build_dir() -> Path:
+    env = os.environ.get("SOLEX_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return CSRC.parents[1] / "build" / "solex_torch_kernels"
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
+        "solex_ser_recon_en_torch cannot be built"
+    )
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return build_dir() / f"solex_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the shared library unless it exists."""
+    global build_seconds
+    so = library_path()
+    if so.exists():
+        build_seconds = 0.0
+        return so
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    (so.parent / "build.log").write_text(
+        " ".join(cmd) + "\n" + res.stdout + res.stderr
+    )
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (rc {res.returncode}):\n{res.stderr[-4000:]}"
+        )
+    os.replace(tmp, so)
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+        return _lib
+
+
+def stream_handle(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a non-zero cudaError_t returned by an entry point."""
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed: cudaError_t {rc}")

@@ -1,0 +1,70 @@
+"""Multi-shift disk reconstruction — indices and the plain gather-lerp.
+
+reference: solex_util.py:93-144 — for every frame f and shift s,
+
+    out[s][y, f] = img_f[y, l] * w(y) + img_f[y, l+1] * (1 - w(y))
+    l(s, y) = clip(floor(curve(y)) + shift_s, 0, iw-2)
+
+``recon_plain`` is the plain PyTorch version of kernel B3
+(csrc/recon.cu, wrapped by ops/recon_cuda.py): the gather-lerp of
+solex_ser_recon_en_tpu/ops/recon.py:_recon_gather on the RAW SER layout,
+with the rot90 and the 8-bit x256 upscale taken into the indexing exactly
+as solex_ser_recon_en_tpu/ops/fused.py:_recon_raw_lerp does.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .dtypes import as_int16, to_u16, widen
+
+
+def build_shift_indices(
+    fit_floor: np.ndarray, fit_frac: np.ndarray, shifts, iw: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-shift left-neighbour columns and left weights.
+
+    reference: solex_util.py:113-123 — indices clipped to [0, iw-2]; the
+    left weight is 1-frac and does NOT depend on the shift.
+
+    Returns (ind_l (S, ih) int32, left_w (ih,) float32).
+    """
+    shifts = np.asarray(shifts, dtype=np.int64)
+    ind_l = fit_floor.astype(np.int64)[None, :] + shifts[:, None]
+    ind_l = np.clip(ind_l, 0, iw - 2).astype(np.int32)
+    left_w = (1.0 - np.asarray(fit_frac)).astype(np.float32)
+    return ind_l, left_w
+
+
+def recon_plain(raw: torch.Tensor, ind_l: torch.Tensor, left_w: torch.Tensor,
+                rotate: bool, upscale: bool) -> torch.Tensor:
+    """raw (F, H, W) u16/u8, ind_l (S, ih) i32, left_w (ih,) f32 ->
+    disks (S, ih, F) u16 in normalised orientation.
+
+    norm[f, y, x] = raw[f, x, W-1-y] when ``rotate``; only the two taps of
+    every (s, y) are gathered, never the whole slab.  ``ind_l`` is clipped
+    to [0, iw-2] as build_shift_indices does, so both taps are in range.
+    """
+    F, H, W = raw.shape
+    ih = ind_l.shape[1]
+    iw = H if rotate else W
+    src = as_int16(raw)
+    ys = torch.arange(ih, device=raw.device)
+    l = ind_l.long().clamp(0, iw - 2)
+    if rotate:
+        col = W - 1 - ys
+        g0, g1 = src[:, l, col], src[:, l + 1, col]        # (F, S, ih)
+    else:
+        g0, g1 = src[:, ys, l], src[:, ys, l + 1]
+    g0 = widen(g0.view(raw.dtype)).to(torch.float32)
+    g1 = widen(g1.view(raw.dtype)).to(torch.float32)
+    if upscale:
+        g0 = g0 * 256.0
+        g1 = g1 * 256.0
+    w = left_w
+    out = w * g0 + (1.0 - w) * g1                          # (F, S, ih)
+    out = to_u16(out.clamp(0, 65535))
+    return out.permute(1, 2, 0).contiguous()               # (S, ih, F)

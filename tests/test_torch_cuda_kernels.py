@@ -1,0 +1,107 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU (a CUDA kernel has no interpret mode)
+and skips elsewhere.  The file imports no jax, so it runs on a machine
+that has only PyTorch:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+Tolerance: bit-identical — the kernels and their plain versions round
+every float32 step the same way (no FMA, same order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from solex_ser_recon_en_torch.geometry.ellipse import get_correction_matrix
+from solex_ser_recon_en_torch.ops.clahe import (
+    tile_histograms,
+    tile_histograms_plain,
+)
+from solex_ser_recon_en_torch.ops.recon import build_shift_indices, recon_plain
+from solex_ser_recon_en_torch.ops.recon_cuda import recon
+from solex_ser_recon_en_torch.ops.warp_fast import (
+    hresample,
+    hresample_plain,
+    warp_inputs,
+)
+
+from torch_parity import cuda_device, t  # noqa: F401
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(7)
+
+
+@pytest.mark.parametrize("rotate,upscale", [(True, False), (False, False),
+                                            (True, True), (False, True)])
+def test_recon_kernel_matches_plain(rng, cuda_device, rotate, upscale):
+    H, W = (24, 64) if rotate else (64, 24)
+    raw = rng.integers(0, 256 if upscale else 65536, (70, H, W)).astype(
+        np.uint8 if upscale else np.uint16)
+    ih, iw = (W, H) if rotate else (H, W)
+    curve = iw / 2 + 0.05 * np.arange(ih)
+    floor = np.floor(curve)
+    ind_l, left_w = build_shift_indices(floor, curve - floor, [-30, 0, 3],
+                                        iw)
+    args = (t(raw, cuda_device), t(ind_l, cuda_device),
+            t(left_w, cuda_device), rotate, upscale)
+    out = recon(*args)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(out.cpu().numpy(),
+                                  recon_plain(*args).cpu().numpy())
+
+
+def test_recon_clips_taps_like_plain(rng, cuda_device):
+    """Tap columns outside [0, iw-2] are clipped (the kernel never reads
+    outside the frame), exactly as the plain version does."""
+    raw = rng.integers(0, 65536, (3, 8, 16)).astype(np.uint16)
+    ind_l = np.array([np.arange(-4, 12)], dtype=np.int32)   # iw = 8
+    left_w = np.linspace(0, 1, 16).astype(np.float32)
+    args = (t(raw, cuda_device), t(ind_l, cuda_device),
+            t(left_w, cuda_device), True, False)
+    np.testing.assert_array_equal(recon(*args).cpu().numpy(),
+                                  recon_plain(*args).cpu().numpy())
+
+
+def test_hresample_kernel_matches_plain(rng, cuda_device):
+    mat, _ = get_correction_matrix(0.15, 0.93)
+    m3 = np.eye(3)
+    m3[:2, :2] = mat
+    m3 = m3 @ np.array([[1, 0, -13.4], [0, 1, 7.3], [0, 0, 1.0]])
+    imgs = rng.integers(0, 65536, (2, 300, 257)).astype(np.uint16)
+    f01 = t(imgs, cuda_device).to(torch.int32).to(torch.float32) / 65536.0
+    args = warp_inputs(f01, m3, 310, 270, f01[:, 0, 0])
+    out = hresample(*args)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(out.cpu().numpy(),
+                                  hresample_plain(*args).cpu().numpy())
+
+
+@pytest.mark.parametrize("hist_size", [65536, 256, 70000])
+def test_hist_kernel_matches_plain(rng, cuda_device, hist_size):
+    tiles = rng.integers(-1, hist_size + 3, (4, 300000)).astype(np.int32)
+    tiles[0, :200000] = 7   # one hot bin: heavy atomic contention
+    tt = t(tiles, cuda_device)
+    out = tile_histograms(tt, hist_size)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(
+        out.cpu().numpy(), tile_histograms_plain(tt, hist_size).cpu().numpy())
+
+
+def test_feeder_pinned_upload_matches_file(tmp_path, rng, cuda_device):
+    from solex_ser_recon_en_tpu.io.ser import SerReader, write_ser
+    from solex_ser_recon_en_torch.io.feeder import raw_device_chunks
+
+    raw = rng.integers(0, 65536, (23, 16, 40)).astype(np.uint16)
+    path = str(tmp_path / "raw.ser")
+    write_ser(path, raw)
+    it, _, _ = raw_device_chunks(SerReader(path), 4, cuda_device)
+    chunks = [c for _, c in it]
+    assert all(c.device.type == "cuda" for c in chunks)
+    got = np.concatenate([c.cpu().numpy() for c in chunks])
+    np.testing.assert_array_equal(got, raw)
