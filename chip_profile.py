@@ -10,8 +10,11 @@ the CLI once to build the kernels and warm the allocator, then once more
 under torch.profiler, and prints: that run's wall time (profiler on) and
 its StageTimer stages, the device-busy time (the union of the kernel, copy
 and memset intervals of the trace) with the card's idle share of the wall
-time, and the device time by kernel or copy name.  The Chrome trace is
-copied to ``trace.json`` when a path is given.
+time, and the device time by kernel or copy name.  It then makes the same
+scan resident and normalised (bench_device.resident_frames) and profiles
+one warm call of the fused step (models/shg.py:shg_forward, kernel B1,
+shifts [10, 0]) the same way.  The Chrome trace of the -cw0 run is copied
+to ``trace.json`` when a path is given.
 """
 
 from __future__ import annotations
@@ -37,6 +40,27 @@ def busy_us(intervals) -> float:
             total += e - max(s, end)
             end = e
     return total
+
+
+def report(prof, trace: str, wall_ms: float, label: str, card: str) -> None:
+    """Print the device-busy time, idle share and device time by name of a
+    finished profile (its Chrome trace written to ``trace``)."""
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") in DEVICE_CATS]
+    if not events:
+        chip_smoke.fail(f"{label}: the profiler recorded no device activity")
+    busy_ms = busy_us((e["ts"], e["ts"] + e["dur"]) for e in events) / 1e3
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in events:
+        by_name[e["name"]][0] += 1
+        by_name[e["name"]][1] += e["dur"]
+    print(f"{label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
+          f"idle {100 * (1 - busy_ms / wall_ms):.1f}% [{card}]")
+    print("device time by name (us, launches):")
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
+        print(f"  {us:10.1f} {n:5d}  {name[:100]}")
 
 
 def main(argv) -> int:
@@ -65,25 +89,35 @@ def main(argv) -> int:
         if rc != 0:
             chip_smoke.fail("profiled run failed")
         trace = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(trace)
-        with open(trace) as f:
-            events = [e for e in json.load(f)["traceEvents"]
-                      if e.get("cat") in DEVICE_CATS]
-        if not events:
-            chip_smoke.fail("the profiler recorded no device activity")
-        busy_ms = busy_us((e["ts"], e["ts"] + e["dur"]) for e in events) / 1e3
-        by_name = collections.defaultdict(lambda: [0, 0.0])
-        for e in events:
-            by_name[e["name"]][0] += 1
-            by_name[e["name"]][1] += e["dur"]
-        print(f"profiled run: wall {wall_ms:.1f} ms, device busy "
-              f"{busy_ms:.1f} ms, idle {100 * (1 - busy_ms / wall_ms):.1f}% "
-              f"[{card}]")
-        print("device time by name (us, launches):")
-        for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
-            print(f"  {us:10.1f} {n:5d}  {name[:100]}")
+        report(prof, trace, wall_ms, "profiled run", card)
         if argv:
             shutil.copy(trace, argv[0])
+
+        import numpy as np
+
+        from solex_ser_recon_en_tpu.io.ser import SerReader
+        from solex_ser_recon_en_torch import bench_device
+        from solex_ser_recon_en_torch.models import shg_forward
+        from solex_ser_recon_en_torch.ops.recon import build_shift_indices
+
+        r = SerReader(path)
+        frames, _ = bench_device.resident_frames(r, r.frame_count,
+                                                 torch.device("cuda"))
+        curve = r.iw / 2 + 0.001 * np.arange(r.ih)
+        floor = np.floor(curve)
+        ind_l, left_w = build_shift_indices(floor, curve - floor,
+                                            bench_device.SHIFTS, r.iw)
+        step = (frames, torch.from_numpy(ind_l).cuda(),
+                torch.from_numpy(left_w).cuda())
+        shg_forward(*step)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            shg_forward(*step)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        report(prof, trace, wall_ms, f"fused step {tuple(frames.shape)}",
+               card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return 0

@@ -19,8 +19,19 @@ Phases; any failure exits non-zero before the final result line:
    disk are checked against the scan's ground truth, and
    ``_shift=0_clahe.png`` against the corrected disk.
 5. kernels vs plain: each kernel against its plain PyTorch version on the
-   inputs the main path gave it in the first run (B3, B5 bit-identical; B4
-   bit-identical), both timed with CUDA events (median of repeats).
+   inputs the main path gave it in the first run (B3, B4, B5 bit-identical),
+   both timed with CUDA events (median of repeats).  B1's row is taken
+   after phase 6, on the normalised slab phase 6 left resident, at S = 2
+   (bit-identical).
+6. resident path: ``bench_device.device_attached_decomposition`` on the
+   phase-3 scan (upload, normalise, pass A, host line fit, the fused step
+   of kernel B1, the real process_scan), its stage times printed with the
+   card's name.  The launch counts of B1, B4 and B5 over it must be > 0;
+   B1's mean and max must equal phase 4's pass-A mean and max, and its
+   shift-10/0 disks phase 4's B3 disks, bit for bit; its _clahe.png must
+   not be empty.  Information lines, no pass/fail: B1 against the two-pass
+   route (torch sum/max + B3) at S = 2, 7, 21 on the same slab, and the
+   peak device memory of the run.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the
@@ -51,7 +62,12 @@ REPLACES = {
                   "solex_ser_recon_en_tpu/ops/warp_fast.py:76"),
     "tile_hist": ("solex_ser_recon_en_torch/csrc/hist.cu",
                   "solex_ser_recon_en_tpu/ops/clahe.py:54"),
+    "shg_fused": ("solex_ser_recon_en_torch/csrc/fused.cu",
+                  "solex_ser_recon_en_tpu/ops/fused_pallas.py:81, :42"),
 }
+#: the kernels of each driven path: phase 4 (-cw0) and phase 6 (resident)
+CW0_KERNELS = ("recon", "hresample", "tile_hist")
+RESIDENT_KERNELS = ("shg_fused", "hresample", "tile_hist")
 
 
 def fail(msg: str) -> None:
@@ -159,6 +175,7 @@ def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "solex_ser_recon_en_torch")):
         fail("solex_ser_recon_en_torch not found beside chip_smoke.py")
     sys.path.insert(0, ROOT)
+    import numpy as np
     import torch
 
     # 1. device
@@ -180,7 +197,8 @@ def main() -> int:
     log = (cuda_build.build_dir() / "build.log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if any(k in line for k in ("registers", "spill",
+                                       "Compiling entry")):
                 print("  ptxas:", line.strip().split("ptxas info    : ")[-1])
 
     # 3. scan
@@ -259,9 +277,9 @@ def main() -> int:
         print(f"end to end: run 1 {wall1:.3f} s, run 2 {wall2:.3f} s "
               f"[{card}]", flush=True)
         print(f"launches in run 2: {launches}", flush=True)
-        for name, n in launches.items():
-            if n <= 0:
-                fail(f"kernel {name} was not launched by the main path")
+        for name in CW0_KERNELS:
+            if launches[name] <= 0:
+                fail(f"kernel {name} was not launched by the -cw0 path")
 
         png = os.path.join(outdir, "scan_shift=0_clahe.png")
         if not os.path.exists(png):
@@ -317,6 +335,69 @@ def main() -> int:
             pms += cuda_ms(lambda: tile_histograms_plain(tiles, hs), reps)
         records.append(("tile_hist", err, ms, pms,
                         f"tiles {[shape for shape, _ in hist_args]}"))
+
+        # 6. the resident path on the phase-3 scan
+        from solex_ser_recon_en_torch import bench_device
+        from solex_ser_recon_en_torch.models.shg import shg_forward_plain
+        from solex_ser_recon_en_torch.ops import fused_cuda
+        from solex_ser_recon_en_torch.ops.dtypes import as_int16
+        from solex_ser_recon_en_torch.ops.recon import build_shift_indices
+
+        for k in cuda_build.LAUNCHES:
+            cuda_build.LAUNCHES[k] = 0
+        dec = bench_device.device_attached_decomposition(
+            path, torch.device("cuda"), os.path.join(tmp, "out_resident"))
+        torch.cuda.synchronize()
+        launches6 = dict(cuda_build.LAUNCHES)
+        print("resident path: " + json.dumps(dec.stages) + f" [{card}]",
+              flush=True)
+        print(f"launches in the resident path: {launches6}", flush=True)
+        for name in RESIDENT_KERNELS:
+            if launches6[name] <= 0:
+                fail(f"kernel {name} was not launched by the resident path")
+        sr = res["scan"]
+        if not np.array_equal(dec.mean.cpu().numpy(), sr.mean_img):
+            fail("B1 mean differs from the -cw0 pass-A mean")
+        if not np.array_equal(dec.max.cpu().numpy(), res["max_img"]):
+            fail("B1 max differs from the -cw0 pass-A max")
+        if sr.shifts != bench_device.SHIFTS or not torch.equal(
+                as_int16(dec.disks), as_int16(sr.disk_list)):
+            fail(f"B1 disks (shifts {bench_device.SHIFTS}) differ from the "
+                 f"-cw0 B3 disks (shifts {sr.shifts})")
+        png = os.path.join(dec.out_dir, "decomp_shift=0_clahe.png")
+        if not os.path.exists(png) or read_png(png).max() == 0:
+            fail(f"{png} missing or empty")
+        print("resident path: B1 mean, max and shift-10/0 disks equal the "
+              "-cw0 pass A and B3 bit for bit", flush=True)
+
+        # 5, B1's row: kernel vs plain on the resident slab at S = 2
+        a = (dec.frames, dec.ind_l, dec.left_w)
+        err = max(max_abs_err(x, y) for x, y in zip(
+            fused_cuda.shg_fused(*a), fused_cuda.shg_fused_plain(*a)))
+        ms = cuda_ms(lambda: fused_cuda.shg_fused(*a), reps)
+        pms = cuda_ms(lambda: fused_cuda.shg_fused_plain(*a), reps)
+        records.append(("shg_fused", err, ms, pms,
+                        f"frames {tuple(dec.frames.shape)}, S=2"))
+
+        # information: fused step vs the two-pass route, by shift count
+        lf = dec.linefit
+        iw = dec.frames.shape[2]
+        for S in (2, 7, 21):
+            ind_l, left_w = build_shift_indices(
+                lf.floor, lf.frac, list(range(-(S // 2), S - S // 2)), iw)
+            b = (dec.frames, torch.from_numpy(ind_l).cuda(),
+                 torch.from_numpy(left_w).cuda())
+            diff = max(max_abs_err(x, y) for x, y in zip(
+                fused_cuda.shg_fused(*b), shg_forward_plain(*b)))
+            fms = cuda_ms(lambda: fused_cuda.shg_fused(*b), reps)
+            tms = cuda_ms(lambda: shg_forward_plain(*b), reps)
+            print(f"fused vs two-pass S={S}: B1 {fms:.4f} ms, sum/max + B3 "
+                  f"{tms:.4f} ms, max_abs_err {diff} [{card}]", flush=True)
+        del dec, a, b
+        print(f"peak device memory: "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+              f"[{card}]", flush=True)
+
         for name, err, *_ in records:
             if err != 0:
                 fail(f"kernel {name} differs from its plain version by {err}")
@@ -326,8 +407,9 @@ def main() -> int:
             print(f"{name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
                   f"max_abs_err {err} ({note}) [{card}]", flush=True)
             src, rep = REPLACES[name]
+            n = launches6[name] if name == "shg_fused" else launches[name]
             kernels.append({"name": name, "route": "cuda", "source": src,
-                            "replaces": rep, "launches": launches[name],
+                            "replaces": rep, "launches": n,
                             "max_abs_err": err, "ms": ms, "plain_ms": pms})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

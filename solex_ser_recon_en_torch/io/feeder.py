@@ -1,13 +1,14 @@
-"""Raw SER chunks to the device.
+"""Raw SER chunks to the device, and their normalisation there.
 
-Counterpart of solex_ser_recon_en_tpu/io/feeder.py:raw_device_chunks.  The
-chunks keep the on-disk layout (the consumers, ops/fused.py, index the raw
-layout directly).  On CUDA, each memmap slice is copied into one of two
-pinned staging buffers and uploaded with ``copy_(non_blocking=True)`` on a
-side stream; the consumer's stream waits on the upload's event before it
-uses the chunk, and the host refills a staging buffer only after the
-upload that last read it has finished — so reading chunk k+1 from the
-file overlaps the upload and the use of chunk k.
+Counterpart of solex_ser_recon_en_tpu/io/feeder.py:raw_device_chunks and
+normalize_frames.  The chunks keep the on-disk layout (the consumers,
+ops/fused.py, index the raw layout directly).  On CUDA, each memmap slice
+is copied into one of two pinned staging buffers and uploaded with
+``copy_(non_blocking=True)`` on a side stream; the consumer's stream waits
+on the upload's event before it uses the chunk, and the host refills a
+staging buffer only after the upload that last read it has finished — so
+reading chunk k+1 from the file overlaps the upload and the use of chunk
+k.
 
 SER only (the AVI demuxer needs OpenCV).
 """
@@ -21,6 +22,8 @@ import torch
 
 from solex_ser_recon_en_tpu.io.ser import SerReader
 
+from ..ops.dtypes import as_int16, to_u16, widen
+
 TARGET_CHUNK_BYTES = 96 * 1024 * 1024
 
 
@@ -28,6 +31,25 @@ def auto_chunk_frames(frame_bytes: int, requested: int) -> int:
     """Frames per host->device transfer, capped to ~96 MB per chunk."""
     cap = max(1, TARGET_CHUNK_BYTES // max(frame_bytes, 1))
     return max(1, min(requested, cap))
+
+
+def normalize_frames(raw: torch.Tensor, rotate: bool,
+                     upscale: bool) -> torch.Tensor:
+    """(F, H, W) raw frames -> (F, ih, iw) uint16, on raw's device.
+
+    rotate: np.rot90 over the spatial axes (wavelength axis -> X),
+    out[f, i, j] = raw[f, j, W-1-i].  upscale: 8-bit -> 16-bit x256.
+    Either one makes a new contiguous slab (the shape changes, so it
+    cannot be done in place): one slab of device memory beside ``raw``
+    until the caller drops it.  With neither, ``raw`` is returned as is.
+    """
+    out = raw
+    if upscale:
+        out = to_u16(widen(out) << 8)
+    if rotate:
+        out = as_int16(out).transpose(1, 2).flip(1).contiguous().view(
+            out.dtype)
+    return out
 
 
 def raw_device_chunks(

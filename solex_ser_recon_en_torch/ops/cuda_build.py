@@ -1,7 +1,8 @@
 """Build, load and launch-check the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into ONE shared library with a plain C interface, at first use, under
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process for
+Hopper (``sm_90a``), all started together, and the objects are linked into
+ONE shared library with a plain C interface, at first use, under
 ``build/solex_torch_kernels/`` (``SOLEX_TORCH_BUILD_DIR`` overrides).  The
 library name carries a hash of the sources and flags, so an edited source
 builds anew and a stale library is never loaded.  ``ctypes`` loads it: each
@@ -29,12 +30,13 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "--fmad=false", "-std=c++17", "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 #: kernel launches per wrapper (ops/recon_cuda.py, ops/warp_fast.py,
-#: ops/clahe.py); reset by callers that want to count one run
-LAUNCHES = {"recon": 0, "hresample": 0, "tile_hist": 0}
+#: ops/clahe.py, ops/fused_cuda.py); reset by callers that want to count
+#: one run
+LAUNCHES = {"recon": 0, "hresample": 0, "tile_hist": 0, "shg_fused": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +47,8 @@ _SIGNATURES = {
     "solex_hresample": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # tiles, T, n, hist_size, chunk, out, stream
     "solex_tile_hist": [_P, _I, _I, _I, _I, _P, _P],
+    # frames, ind_l, left_w, sum, max, disks, S, F, ih, iw, stream
+    "solex_shg_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -86,26 +90,46 @@ def library_path() -> Path:
     return build_dir() / f"solex_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list, log: list) -> None:
+    """Run the commands in parallel; log each; raise if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, p in zip(cmds, procs):
+        out = p.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if p.returncode != 0:
+            failed.append(f"{' '.join(cmd)} (rc {p.returncode}):\n"
+                          f"{out[-4000:]}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+
+
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library unless it exists."""
+    """Compile csrc/*.cu (one nvcc per source, in parallel) and link the
+    shared library, unless it exists."""
     global build_seconds
     so = library_path()
     if so.exists():
         build_seconds = 0.0
         return so
     so.parent.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [so.parent / f"{tag}.{src.stem}.o" for src in sources()]
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    nvcc = _nvcc()
+    log: list = []
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    (so.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr
-    )
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc {res.returncode}):\n{res.stderr[-4000:]}"
-        )
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                  for src, o in zip(sources(), objs)], log)
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]], log)
+    finally:
+        build_seconds = time.perf_counter() - t0
+        (so.parent / "build.log").write_text("\n".join(log))
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, so)
     return so
 

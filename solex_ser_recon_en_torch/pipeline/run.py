@@ -45,6 +45,7 @@ from ..geometry.linefit import fit_spectral_line
 from ..io.feeder import raw_device_chunks
 from ..ops.dtypes import as_int16
 from ..ops.fused import RawScanProcessor
+from ..utils.device import synchronize
 from .products import image_process
 from .transversalium import transversalium_gain
 
@@ -86,11 +87,6 @@ def check_supported(options: Options) -> None:
             "solex_ser_recon_en_torch runs the -c path only; not ported: "
             + ", ".join(bad)
         )
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def read_scan(file: str, options: Options, device: torch.device,
@@ -143,7 +139,7 @@ def read_scan(file: str, options: Options, device: torch.device,
                                                device)
             disk_list = proc.reconstruct_streaming(raw_iter, lf.floor,
                                                    lf.frac, shifts)
-        _sync(device)
+        synchronize(device)
 
     if options.flip_x:
         disk_list = as_int16(disk_list).flip(2).view(torch.uint16)

@@ -21,3 +21,9 @@ def resolve_device(name: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(name)!r} (cuda|cpu)")
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work (CUDA); nothing on the CPU."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

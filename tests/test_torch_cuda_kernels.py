@@ -15,10 +15,14 @@ import pytest
 import torch
 
 from solex_ser_recon_en_torch.geometry.ellipse import get_correction_matrix
+from solex_ser_recon_en_torch.io.feeder import normalize_frames
+from solex_ser_recon_en_torch.models.shg import shg_forward, shg_forward_plain
+from solex_ser_recon_en_torch.ops import cuda_build
 from solex_ser_recon_en_torch.ops.clahe import (
     tile_histograms,
     tile_histograms_plain,
 )
+from solex_ser_recon_en_torch.ops.fused_cuda import shg_fused, shg_fused_plain
 from solex_ser_recon_en_torch.ops.recon import build_shift_indices, recon_plain
 from solex_ser_recon_en_torch.ops.recon_cuda import recon
 from solex_ser_recon_en_torch.ops.warp_fast import (
@@ -105,3 +109,49 @@ def test_feeder_pinned_upload_matches_file(tmp_path, rng, cuda_device):
     assert all(c.device.type == "cuda" for c in chunks)
     got = np.concatenate([c.cpu().numpy() for c in chunks])
     np.testing.assert_array_equal(got, raw)
+
+
+# (F, ih, iw, S): odd shapes; F not a multiple of the kernel's 32-frame
+# store group; rows wider than one block (iw > 2048: column chunks); a
+# shift count that shrinks the row tile (S = 121) and one that needs more
+# than 48 KB of shared memory (S = 800); the narrowest frame (iw = 2)
+B1_SHAPES = [(37, 100, 60, 3), (37, 100, 60, 1), (70, 13, 2500, 2),
+             (40, 20, 300, 121), (33, 3, 300, 800), (5, 3, 2, 1),
+             (64, 64, 300, 2)]
+
+
+@pytest.mark.parametrize("F,ih,iw,S", B1_SHAPES)
+def test_fused_kernel_matches_plain(rng, cuda_device, F, ih, iw, S):
+    frames = rng.integers(0, 65536, (F, ih, iw)).astype(np.uint16)
+    ind_l = rng.integers(-3, iw + 3, (S, ih)).astype(np.int32)
+    ind_l[0, : min(ih, 2)] = iw - 2            # taps at the last columns
+    if iw > 2048:
+        ind_l[0, 2:4] = (2046, 2047)           # around a column-chunk edge
+    left_w = rng.random(ih).astype(np.float32)
+    args = (t(frames, cuda_device), t(ind_l, cuda_device),
+            t(left_w, cuda_device))
+    before = cuda_build.LAUNCHES["shg_fused"]
+    out = shg_fused(*args)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["shg_fused"] == before + 1
+    for a, b in zip(out, shg_fused_plain(*args)):
+        assert a.dtype == b.dtype == torch.uint16 and a.shape == b.shape
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+def test_fused_step_equals_two_pass(rng, cuda_device):
+    """shg_forward (kernel B1) equals the two-pass route (torch reductions +
+    kernel B3) bit for bit: the same lerp arithmetic."""
+    raw = rng.integers(0, 65536, (45, 40, 130)).astype(np.uint16)
+    frames = normalize_frames(t(raw, cuda_device), True, False)
+    ih, iw = frames.shape[1:]
+    curve = iw / 2 + 0.05 * np.arange(ih)
+    floor = np.floor(curve)
+    ind_l, left_w = build_shift_indices(floor, curve - floor, [10, 0, -7],
+                                        iw)
+    args = (frames, t(ind_l, cuda_device), t(left_w, cuda_device))
+    for a, b in zip(shg_forward(*args), shg_forward_plain(*args)):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    np.testing.assert_array_equal(
+        frames.cpu().numpy(),
+        normalize_frames(t(raw), True, False).numpy())

@@ -1,0 +1,227 @@
+"""The fused single-pass step of the PyTorch port vs the JAX package (CPU).
+
+Kernel B1 (csrc/fused.cu) runs only on the card; on the CPU its wrapper
+takes the plain version, which these tests hold against the JAX step: the
+Pallas kernels in interpret mode (windowed ``_kernel_win`` through the
+public entry, full-width ``_kernel`` through ``_shg_fused(..., win=0)``)
+and the XLA step ``shg_forward_xla``.  Inputs are made with numpy from a
+seed.
+
+Tolerances: mean and max bit-exact (integer sums and maxima).  Disks
+within 1 LSB on at most 1% of pixels: XLA:CPU contracts the lerp's
+``w*a + (1-w)*b`` into an FMA in the vector body of its loops, while the
+port rounds each product and the sum separately (ROADMAP C).  The Pallas
+kernels in interpret mode run through XLA:CPU too, with the same effect
+(measured on these cases: at most 1 LSB on at most 0.2% of pixels).
+Against the port's own ``recon_plain`` the disks are bit-exact (the same
+arithmetic).
+"""
+
+import json
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from solex_ser_recon_en_tpu.io.feeder import (
+    normalize_frames as jax_normalize_frames,
+)
+from solex_ser_recon_en_tpu.models.shg import (
+    example_inputs as jax_example_inputs,
+    shg_forward_xla,
+)
+from solex_ser_recon_en_tpu.ops.fused_pallas import (
+    _shg_fused,
+    _window_for_indices,
+    shg_fused_pallas,
+)
+from solex_ser_recon_en_torch import bench_device
+from solex_ser_recon_en_torch import models as port_models
+from solex_ser_recon_en_torch.io.feeder import normalize_frames
+from solex_ser_recon_en_torch.models.shg import (
+    example_inputs,
+    shg_forward,
+    shg_forward_plain,
+)
+from solex_ser_recon_en_torch.ops import cuda_build
+from solex_ser_recon_en_torch.ops.fused_cuda import shg_fused, shg_fused_plain
+from solex_ser_recon_en_torch.ops.recon import build_shift_indices, recon_plain
+from solex_ser_recon_en_torch.pipeline import run as port_run
+from solex_ser_recon_en_tpu.config import Options
+
+from torch_parity import lsb_diff, t
+
+CPU = torch.device("cpu")
+FB, YB = 8, 32   # the JAX tests' Pallas block sizes (tests/test_fused_pallas.py)
+
+# (F, ih, iw, shifts, line): tests/test_fused_pallas.py:23-29 and :44-57,
+# plus a 300-px spectral window on which the JAX entry takes the 128-lane
+# windowed kernel
+CASES = {
+    "unaligned": (37, 100, 60, [-2, 0, 3], "cubic"),
+    "aligned_s1": (16, 128, 32, [0], "cubic"),
+    "s5": (9, 40, 24, [10, 0, -5, 5, 7], "cubic"),
+    "edge_clipping": (12, 48, 20, [-30, 0, 30], "edge"),
+    "windowed": (24, 256, 300, [-3, 0, 4], "cubic"),
+}
+
+
+def _case(name, seed=11):
+    F, ih, iw, shifts, line = CASES[name]
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 65536, (F, ih, iw), dtype=np.uint16)
+    y = np.arange(ih)
+    curve = (iw / 2 + 0.03 * y - 1e-4 * y ** 2 if line == "cubic"
+             else 1.0 + 0.02 * y)
+    floor = np.floor(curve)
+    ind_l, left_w = build_shift_indices(floor, curve - floor, shifts, iw)
+    return frames, ind_l, left_w
+
+
+def _jax_step(ref, frames, ind_l, left_w):
+    if ref == "pallas":
+        return shg_fused_pallas(frames, ind_l, left_w, fb=FB, yb=YB)
+    if ref == "pallas_full":
+        w2 = jnp.asarray(left_w)[None, :]
+        return _shg_fused(jnp.asarray(frames), jnp.asarray(ind_l), w2, FB,
+                          YB, 0)
+    return shg_forward_xla(frames, ind_l, left_w)
+
+
+@pytest.mark.parametrize("ref", ["pallas", "pallas_full", "xla"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_fused_plain_matches_jax(name, ref):
+    frames, ind_l, left_w = _case(name)
+    mean, mx, disks = shg_fused_plain(t(frames), t(ind_l), t(left_w))
+    jm, jx, jd = (np.asarray(a) for a in _jax_step(ref, frames, ind_l,
+                                                   left_w))
+    np.testing.assert_array_equal(mean.numpy(), jm)
+    np.testing.assert_array_equal(mx.numpy(), jx)
+    assert disks.shape == jd.shape == (ind_l.shape[0],) + frames.shape[1::-1]
+    d_max, d_frac = lsb_diff(disks.numpy(), jd)
+    assert d_max <= 1 and d_frac <= 0.01
+
+
+def test_windowed_case_takes_the_window():
+    """The JAX entry runs the 128-lane windowed body (_kernel_win) on the
+    'windowed' case, so the comparison above covers B1's TPU body."""
+    _, ind_l, _ = _case("windowed")
+    assert _window_for_indices(ind_l, CASES["windowed"][2], YB) == 128
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_fused_disks_equal_recon_plain(name):
+    frames, ind_l, left_w = _case(name)
+    _, _, disks = shg_fused_plain(t(frames), t(ind_l), t(left_w))
+    ref = recon_plain(t(frames), t(ind_l), t(left_w), False, False)
+    np.testing.assert_array_equal(disks.numpy(), ref.numpy())
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_shg_forward_matches_plain_on_cpu(name):
+    """On the CPU shg_forward takes B1's plain version without a launch,
+    and equals the two-pass route."""
+    frames, ind_l, left_w = _case(name)
+    args = (t(frames), t(ind_l), t(left_w))
+    before = dict(cuda_build.LAUNCHES)
+    out = shg_forward(*args)
+    assert cuda_build.LAUNCHES == before
+    for a, b in zip(out, shg_forward_plain(*args)):
+        assert a.dtype == b.dtype == torch.uint16
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("kwargs", [{}, dict(F=9, ih=40, iw=24, S=5, seed=3)])
+def test_example_inputs_match_jax(kwargs):
+    for a, b in zip(example_inputs(**kwargs), jax_example_inputs(**kwargs)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_models_package_exports():
+    assert port_models.shg_forward is shg_forward
+    assert port_models.example_inputs is example_inputs
+
+
+@pytest.mark.parametrize("rotate,upscale", [(False, False), (True, False),
+                                            (False, True), (True, True)])
+def test_normalize_frames_matches_jax(rotate, upscale):
+    rng = np.random.default_rng(5)
+    raw = rng.integers(0, 256 if upscale else 65536, (6, 9, 14)).astype(
+        np.uint8 if upscale else np.uint16)
+    out = normalize_frames(t(raw), rotate, upscale)
+    ref = np.asarray(jax_normalize_frames(raw, rotate, upscale))
+    assert out.is_contiguous()
+    assert str(out.dtype).endswith(str(ref.dtype))
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def _bad_inputs():
+    frames = torch.zeros((4, 6, 5), dtype=torch.uint16)
+    ind_l = torch.zeros((2, 6), dtype=torch.int32)
+    left_w = torch.zeros((6,), dtype=torch.float32)
+    big = torch.zeros((32768, 1, 2), dtype=torch.uint16)
+    return {
+        "frames_dtype": ((frames.to(torch.int32), ind_l, left_w), TypeError),
+        "ind_l_rows": ((frames, ind_l[:, :5].contiguous(), left_w),
+                       TypeError),
+        "left_w_dtype": ((frames, ind_l, left_w.double()), TypeError),
+        "not_contiguous": ((frames.transpose(1, 2).transpose(1, 2)[:, :, :4],
+                            ind_l, left_w), ValueError),
+        "too_many_frames": ((big, torch.zeros((1, 1), dtype=torch.int32),
+                             torch.zeros((1,), dtype=torch.float32)),
+                            ValueError),
+        "meta_device": ((frames.to("meta"), ind_l.to("meta"),
+                         left_w.to("meta")), ValueError),
+    }
+
+
+@pytest.mark.parametrize("case", list(_bad_inputs()))
+def test_shg_fused_rejects(case):
+    args, exc = _bad_inputs()[case]
+    with pytest.raises(exc):
+        shg_fused(*args)
+
+
+STAGE_KEYS = {"n_frames", "slab_mb", "feed_s_measured", "link_gbps_measured",
+              "device_meanmax_s", "host_linefit_s", "device_recon_s",
+              "post_s", "post_stages_ms", "device_resident_e2e_s"}
+
+
+def test_decomposition_cpu_matches_read_scan(basic_scan, tmp_path):
+    """The resident legs on the CPU: the fused step's mean and disks equal
+    the -c path's read_scan on the same file bit for bit, and the post
+    stage writes the product."""
+    path = basic_scan["path"]
+    dec = bench_device.device_attached_decomposition(
+        path, CPU, out_dir=str(tmp_path / "decomp"))
+    assert set(dec.stages) == STAGE_KEYS
+    assert dec.stages["n_frames"] == basic_scan["frames"].shape[0]
+    assert all(v > 0 for k, v in dec.stages.items()
+               if k.endswith("_s") or k == "slab_mb")
+    scan = port_run.read_scan(path, Options(shift=[0], clahe_only=True,
+                                            output_dir=str(tmp_path)), CPU)
+    assert scan.shifts == bench_device.SHIFTS
+    np.testing.assert_array_equal(dec.mean.numpy(), scan.mean_img)
+    np.testing.assert_array_equal(dec.disks.numpy(), scan.disk_list.numpy())
+    np.testing.assert_array_equal(dec.max.numpy(),
+                                  basic_scan["frames"].max(axis=0))
+    png = tmp_path / "decomp" / "decomp_shift=0_clahe.png"
+    assert png.exists() and png.stat().st_size > 0
+
+
+def test_bench_device_cli_prints_one_json_line(basic_scan, tmp_path, capsys):
+    rc = bench_device.main([basic_scan["path"], "--device", "cpu",
+                            "--output-dir", str(tmp_path)])
+    assert rc == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    stages = json.loads(lines[-1])
+    assert STAGE_KEYS <= set(stages) and stages["device"] == "cpu"
+    assert os.path.exists(tmp_path / "decomp_shift=0_clahe.png")
+
+
+def test_device_only_fps_cpu(basic_scan):
+    fps = bench_device.device_only_fps(basic_scan["path"], CPU)
+    assert np.isfinite(fps) and fps > 0
