@@ -13,7 +13,8 @@ and memset intervals of the trace) with the card's idle share of the wall
 time, and the device time by kernel or copy name.  It then makes the same
 scan resident and normalised (bench_device.resident_frames) and profiles
 one warm call of the fused step (models/shg.py:shg_forward, kernel B1,
-shifts [10, 0]) the same way.  The Chrome trace of the -cw0 run is copied
+shifts [10, 0]) the same way, and one of the same step on kernel B6
+(``shg_fused(..., mxu=True)``).  The Chrome trace of the -cw0 run is copied
 to ``trace.json`` when a path is given.
 """
 
@@ -95,9 +96,10 @@ def main(argv) -> int:
 
         import numpy as np
 
-        from solex_ser_recon_en_tpu.io.ser import SerReader
         from solex_ser_recon_en_torch import bench_device
+        from solex_ser_recon_en_torch.io.ser import SerReader
         from solex_ser_recon_en_torch.models import shg_forward
+        from solex_ser_recon_en_torch.ops.fused_cuda import shg_fused
         from solex_ser_recon_en_torch.ops.recon import build_shift_indices
 
         r = SerReader(path)
@@ -109,15 +111,17 @@ def main(argv) -> int:
                                             bench_device.SHIFTS, r.iw)
         step = (frames, torch.from_numpy(ind_l).cuda(),
                 torch.from_numpy(left_w).cuda())
-        shg_forward(*step)
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            shg_forward(*step)
+        for label, fn in (("B1", shg_forward),
+                          ("B6", lambda *x: shg_fused(*x, mxu=True))):
+            fn(*step)
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        report(prof, trace, wall_ms, f"fused step {tuple(frames.shape)}",
-               card)
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                fn(*step)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            report(prof, trace, wall_ms,
+                   f"fused step {label} {tuple(frames.shape)}", card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return 0

@@ -20,9 +20,14 @@ Phases; any failure exits non-zero before the final result line:
    ``_shift=0_clahe.png`` against the corrected disk.
 5. kernels vs plain: each kernel against its plain PyTorch version on the
    inputs the main path gave it in the first run (B3, B4, B5 bit-identical),
-   both timed with CUDA events (median of repeats).  B1's row is taken
-   after phase 6, on the normalised slab phase 6 left resident, at S = 2
-   (bit-identical).
+   both timed with CUDA events (median of repeats), with its bound (bytes
+   once over 3.35 TB/s or operations over peak, the larger) and, where one
+   PyTorch call computes the same function, that call's time.  The rows of
+   B1 and B6 are taken after phase 6, on the normalised slab phase 6 left
+   resident: B1 at S = 2, B6 at S = 2 and at the S = 7 sweep of the
+   shoot-out (both bit-identical).  B6's mean and max must equal B1's, its
+   disks lie within 1 LSB of B1's (the share of differing pixels is
+   printed), and its shift-0 disk within 1 LSB of a float64 lerp.
 6. resident path: ``bench_device.device_attached_decomposition`` on the
    phase-3 scan (upload, normalise, pass A, host line fit, the fused step
    of kernel B1, the real process_scan), its stage times printed with the
@@ -32,6 +37,10 @@ Phases; any failure exits non-zero before the final result line:
    not be empty.  Information lines, no pass/fail: B1 against the two-pass
    route (torch sum/max + B3) at S = 2, 7, 21 on the same slab, and the
    peak device memory of the run.
+7. shoot-out: ``bench_kernels.run`` at full size (2000 x 2048 x 300, S = 2
+   and 7; the post-processing rows on a 2074 x 2100 image), every row
+   printed with the card's name.  The launch counts of all five kernels
+   over it must be > 0; a row that raises stops the script.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the
@@ -49,6 +58,8 @@ import sys
 import tempfile
 import time
 
+import numpy as np
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # benchmark scan (bench.py:49-50, 79-87)
@@ -64,10 +75,74 @@ REPLACES = {
                   "solex_ser_recon_en_tpu/ops/clahe.py:54"),
     "shg_fused": ("solex_ser_recon_en_torch/csrc/fused.cu",
                   "solex_ser_recon_en_tpu/ops/fused_pallas.py:81, :42"),
+    "shg_fused_mxu": ("solex_ser_recon_en_torch/csrc/fused_mxu.cu",
+                      "solex_ser_recon_en_tpu/ops/fused_pallas.py:137"),
 }
-#: the kernels of each driven path: phase 4 (-cw0) and phase 6 (resident)
+#: the kernels of each driven path: phase 4 (-cw0), phase 6 (resident) and
+#: phase 7 (the shoot-out)
 CW0_KERNELS = ("recon", "hresample", "tile_hist")
 RESIDENT_KERNELS = ("shg_fused", "hresample", "tile_hist")
+SHOOTOUT_KERNELS = ("shg_fused", "shg_fused_mxu", "recon", "hresample",
+                    "tile_hist")
+
+#: H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): HBM bytes/s and
+#: operations/s by type.  The data sheet lists no int32 rate; integer adds
+#: and maxima are counted at the float32 rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f32": 67e12, "int32": 67e12, "f64_tensor": 67e12}
+
+
+def bound(nbytes: int, ops: dict):
+    """(least ms the card could take, "bytes" or "operations"): the larger
+    of the bytes over the memory rate and the slowest type's operations
+    over its peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(n / PEAK_OPS_PER_S[k] for k, n in ops.items())
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def tap_columns(ind_l, iw: int) -> int:
+    """Distinct tap columns over all rows: what a two-tap recon must read
+    of each frame (taps clipped to [0, iw-2] as the kernels do)."""
+    import torch
+
+    l = ind_l.long().clamp(0, iw - 2)
+    cols = torch.cat([l, l + 1]).sort(dim=0).values
+    return int(cols.shape[1] + (cols.diff(dim=0) != 0).sum().item())
+
+
+def mxu_chunks(ind_l, iw: int) -> int:
+    """The 4-column K chunks kernel B6 contracts per 8 frames, summed over
+    rows and groups of 8 shifts (its window: csrc/fused_mxu.cu)."""
+    l = ind_l.long()
+    lo, hi = l.clamp(0, iw - 1), (l + 1).clamp(0, iw - 1)
+    total = 0
+    for g in range(0, l.shape[0], 8):
+        a = lo[g:g + 8].min(dim=0).values
+        b = hi[g:g + 8].max(dim=0).values
+        total += int(((b - (a & ~3)) // 4 + 1).sum().item())
+    return total
+
+
+def float64_lerp(frames, floor, frac):
+    """The shift-0 disk (ih, F) of a normalised u16 slab (a tensor on any
+    device) by a float64 lerp of its frames, clipped and truncated
+    (int32)."""
+    import torch
+
+    from solex_ser_recon_en_torch.ops.dtypes import as_int16, widen
+
+    F, ih, iw = frames.shape
+    dev = frames.device
+    l = torch.from_numpy(np.clip(floor, 0, iw - 2)).long().to(dev)
+    w = torch.from_numpy((1.0 - frac).astype(np.float32).astype(np.float64)
+                         ).to(dev)
+    ys = torch.arange(ih, device=dev)
+    src = as_int16(frames)
+    a = widen(src[:, ys, l].view(torch.uint16)).double()
+    b = widen(src[:, ys, l + 1].view(torch.uint16)).double()
+    return (a * w + b * (1.0 - w)).clamp(0, 65535).to(torch.int32).T
 
 
 def fail(msg: str) -> None:
@@ -105,9 +180,8 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def make_scan(path: str):
-    import numpy as np
-    from solex_ser_recon_en_tpu.io.ser import write_ser
-    from solex_ser_recon_en_tpu.io.synthetic import SyntheticScan
+    from solex_ser_recon_en_torch.io.ser import write_ser
+    from solex_ser_recon_en_torch.io.synthetic import SyntheticScan
 
     scan = SyntheticScan(
         ih=IH, iw=IW, frames=FRAMES, depth=16,
@@ -123,7 +197,7 @@ def make_scan(path: str):
 
 def ground_truth_checks(scan, full, res, frame) -> dict:
     """The port's intermediate results against the synthetic truth."""
-    import numpy as np
+    import torch
 
     out = {}
     sr = res["scan"]
@@ -143,11 +217,7 @@ def ground_truth_checks(scan, full, res, frame) -> dict:
 
     zi = sr.shifts.index(0)
     disk = sr.disk_list[zi].cpu().numpy().astype(np.int64)
-    l = np.clip(lf.floor, 0, full.shape[2] - 2)
-    w = (1.0 - lf.frac).astype(np.float32).astype(np.float64)
-    yi = np.arange(full.shape[1])
-    ref = full[:, yi, l] * w + full[:, yi, l + 1] * (1.0 - w)   # (F, ih)
-    ref = np.clip(ref, 0, 65535).astype(np.int64).T
+    ref = float64_lerp(torch.from_numpy(full), lf.floor, lf.frac).numpy()
     lsb = int(np.abs(disk - ref).max())
     out["disk_max_lsb_vs_float64"] = lsb
     if lsb > 1:
@@ -175,7 +245,6 @@ def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "solex_ser_recon_en_torch")):
         fail("solex_ser_recon_en_torch not found beside chip_smoke.py")
     sys.path.insert(0, ROOT)
-    import numpy as np
     import torch
 
     # 1. device
@@ -315,33 +384,61 @@ def main() -> int:
                   for a in rc_args)
         ms = cuda_ms(lambda: [orig["recon"](*a) for a in rc_args], reps)
         pms = cuda_ms(lambda: [recon_plain(*a) for a in rc_args], reps)
-        records.append(("recon", err, ms, pms, f"{len(rc_args)} calls on "
-                        f"chunks of {tuple(rc_args[0][0].shape)}"))
+        nbytes, flops = 0, 0
+        for raw, ind_l, left_w, rotate, _ in rc_args:
+            n, S, ih = raw.shape[0], ind_l.shape[0], ind_l.shape[1]
+            iw = raw.shape[1] if rotate else raw.shape[2]
+            nbytes += (tap_columns(ind_l, iw) * n * raw.element_size()
+                       + S * ih * n * 2 + ind_l.nbytes + left_w.nbytes)
+            flops += 3 * S * ih * n
+        records.append(dict(
+            name="recon", err=err, ms=ms, plain_ms=pms, library_ms=None,
+            bound=bound(nbytes, {"f32": flops}),
+            note=f"{len(rc_args)} calls on chunks of "
+                 f"{tuple(rc_args[0][0].shape)}"))
 
         a = caps["hresample"]
         out = orig["hresample"](*a)
         err = max_abs_err(out, warp_fast.hresample_plain(*a))
         ms = cuda_ms(lambda: orig["hresample"](*a), reps)
         pms = cuda_ms(lambda: warp_fast.hresample_plain(*a), reps)
-        records.append(("hresample", err, ms, pms,
-                        f"V {tuple(a[0].shape)} -> {tuple(out.shape)}"))
+        records.append(dict(
+            name="hresample", err=err, ms=ms, plain_ms=pms, library_ms=None,
+            bound=bound(sum(t.nbytes for t in a) + out.nbytes,
+                        {"f32": 4 * out.numel()}),
+            note=f"V {tuple(a[0].shape)} -> {tuple(out.shape)}"))
 
-        err, ms, pms = 0, 0.0, 0.0
+        err, ms, pms, lms, nbytes, nvals = 0, 0.0, 0.0, 0.0, 0, 0
         hist_args = sorted(caps["tile_hist"].items())
         for _, (tiles, hs) in hist_args:
             err = max(err, max_abs_err(orig["tile_histograms"](tiles, hs),
                                        tile_histograms_plain(tiles, hs)))
             ms += cuda_ms(lambda: orig["tile_histograms"](tiles, hs), reps)
             pms += cuda_ms(lambda: tile_histograms_plain(tiles, hs), reps)
-        records.append(("tile_hist", err, ms, pms,
-                        f"tiles {[shape for shape, _ in hist_args]}"))
+            # library yardstick: one bincount over tile-offset values (the
+            # main path's values all lie in [0, hs))
+            T = tiles.shape[0]
+            flat = (tiles.long() + hs * torch.arange(
+                T, device=tiles.device)[:, None]).reshape(-1)
+            lms += cuda_ms(lambda: torch.bincount(flat, minlength=T * hs),
+                           reps)
+            nbytes += tiles.nbytes + T * hs * 4
+            nvals += tiles.numel()
+        records.append(dict(
+            name="tile_hist", err=err, ms=ms, plain_ms=pms, library_ms=lms,
+            bound=bound(nbytes, {"int32": nvals}),
+            note=f"tiles {[shape for shape, _ in hist_args]}"))
 
         # 6. the resident path on the phase-3 scan
         from solex_ser_recon_en_torch import bench_device
         from solex_ser_recon_en_torch.models.shg import shg_forward_plain
+        from solex_ser_recon_en_torch.bench_kernels import SWEEP
         from solex_ser_recon_en_torch.ops import fused_cuda
         from solex_ser_recon_en_torch.ops.dtypes import as_int16
-        from solex_ser_recon_en_torch.ops.recon import build_shift_indices
+        from solex_ser_recon_en_torch.ops.recon import (
+            build_shift_indices,
+            onehot_weights,
+        )
 
         for k in cuda_build.LAUNCHES:
             cuda_build.LAUNCHES[k] = 0
@@ -370,18 +467,70 @@ def main() -> int:
         print("resident path: B1 mean, max and shift-10/0 disks equal the "
               "-cw0 pass A and B3 bit for bit", flush=True)
 
-        # 5, B1's row: kernel vs plain on the resident slab at S = 2
+        # 5, the rows of B1 and B6 on the resident slab: S = 2 (shifts
+        # [10, 0]) and the S = 7 sweep of the shoot-out, from the line fit
+        lf = dec.linefit
+        F, ih, iw = dec.frames.shape
         a = (dec.frames, dec.ind_l, dec.left_w)
+        ind7, w7 = build_shift_indices(lf.floor, lf.frac, SWEEP, iw)
+        a7 = (dec.frames, torch.from_numpy(ind7).cuda(),
+              torch.from_numpy(w7).cuda())
+        step_bytes = (dec.frames.nbytes + dec.ind_l.nbytes
+                      + dec.left_w.nbytes + 2 * ih * iw * 4 + 2 * ih * F * 2)
+        W = onehot_weights(dec.ind_l, dec.left_w, iw)
+        X = widen(dec.frames).to(torch.float32).permute(1, 2, 0)
+        # library yardstick of the disks: one float32 bmm of the one-hot
+        # weights with a float32 copy of the slab made beforehand
+        bmm_ms = cuda_ms(lambda: torch.bmm(W, X), reps)
+        del W, X
+
         err = max(max_abs_err(x, y) for x, y in zip(
             fused_cuda.shg_fused(*a), fused_cuda.shg_fused_plain(*a)))
         ms = cuda_ms(lambda: fused_cuda.shg_fused(*a), reps)
         pms = cuda_ms(lambda: fused_cuda.shg_fused_plain(*a), reps)
-        records.append(("shg_fused", err, ms, pms,
-                        f"frames {tuple(dec.frames.shape)}, S=2"))
+        records.append(dict(
+            name="shg_fused", err=err, ms=ms, plain_ms=pms,
+            library_ms=bmm_ms,
+            bound=bound(step_bytes, {"int32": 2 * F * ih * iw,
+                                     "f32": 3 * 2 * ih * F}),
+            note=f"frames {tuple(dec.frames.shape)}, S=2"))
+
+        b1 = fused_cuda.shg_fused(*a)
+        b6 = fused_cuda.shg_fused_mxu(*a)
+        err = max(max_abs_err(x, y) for args in (a, a7) for x, y in zip(
+            fused_cuda.shg_fused_mxu(*args),
+            fused_cuda.shg_fused_mxu_plain(*args)))
+        if not (torch.equal(b6[0], b1[0]) and torch.equal(b6[1], b1[1])):
+            fail("B6 mean or max differs from B1's")
+        d = (widen(b6[2]) - widen(b1[2])).abs()
+        if d.max().item() > 1:
+            fail(f"B6 disks differ from B1's by {d.max().item()} LSB")
+        zi = bench_device.SHIFTS.index(0)
+        lsb = (widen(b6[2][zi]) - float64_lerp(
+            dec.frames, lf.floor, lf.frac)).abs().max().item()
+        if lsb > 1:
+            fail(f"B6 shift-0 disk differs from the float64 lerp by {lsb} LSB")
+        print(f"B6 vs B1 (S=2): mean and max equal, disks max "
+              f"{d.max().item()} LSB on {100 * (d > 0).float().mean().item():.4f}"
+              f"% of pixels; B6 shift-0 disk vs float64 lerp: {lsb} LSB",
+              flush=True)
+        del b1, b6, d
+        ms = cuda_ms(lambda: fused_cuda.shg_fused_mxu(*a), reps)
+        pms = cuda_ms(lambda: fused_cuda.shg_fused_mxu_plain(*a), reps)
+        records.append(dict(
+            name="shg_fused_mxu", err=err, ms=ms, plain_ms=pms,
+            library_ms=bmm_ms,
+            bound=bound(step_bytes, {
+                "int32": 2 * F * ih * iw,
+                "f64_tensor": 512 * -(-F // 8) * mxu_chunks(dec.ind_l, iw)}),
+            note=f"frames {tuple(dec.frames.shape)}, S=2; bit-identical "
+                 f"at S=2 and S={len(SWEEP)}"))
+        print(f"B6 S={len(SWEEP)}: kernel "
+              f"{cuda_ms(lambda: fused_cuda.shg_fused_mxu(*a7), reps):.4f} "
+              f"ms, B1 {cuda_ms(lambda: fused_cuda.shg_fused(*a7), reps):.4f}"
+              f" ms [{card}]", flush=True)
 
         # information: fused step vs the two-pass route, by shift count
-        lf = dec.linefit
-        iw = dec.frames.shape[2]
         for S in (2, 7, 21):
             ind_l, left_w = build_shift_indices(
                 lf.floor, lf.frac, list(range(-(S // 2), S - S // 2)), iw)
@@ -393,24 +542,50 @@ def main() -> int:
             tms = cuda_ms(lambda: shg_forward_plain(*b), reps)
             print(f"fused vs two-pass S={S}: B1 {fms:.4f} ms, sum/max + B3 "
                   f"{tms:.4f} ms, max_abs_err {diff} [{card}]", flush=True)
-        del dec, a, b
+        del dec, a, a7, b
         print(f"peak device memory: "
               f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
               f"[{card}]", flush=True)
 
-        for name, err, *_ in records:
-            if err != 0:
-                fail(f"kernel {name} differs from its plain version by {err}")
+        # 7. the kernel shoot-out at full size, through its entry point
+        from solex_ser_recon_en_torch import bench_kernels
+
+        torch.cuda.empty_cache()
+        for k in cuda_build.LAUNCHES:
+            cuda_build.LAUNCHES[k] = 0
+        rows = bench_kernels.run(device=torch.device("cuda"),
+                                 out=lambda line: print(f"{line} [{card}]",
+                                                        flush=True))
+        torch.cuda.synchronize()
+        launches7 = dict(cuda_build.LAUNCHES)
+        print(f"launches in the shoot-out: {launches7}", flush=True)
+        print("shoot-out: " + json.dumps(rows), flush=True)
+        for name in SHOOTOUT_KERNELS:
+            if launches7[name] <= 0:
+                fail(f"kernel {name} was not launched by the shoot-out")
+
+        for r in records:
+            if r["err"] != 0:
+                fail(f"kernel {r['name']} differs from its plain version "
+                     f"by {r['err']}")
 
         kernels = []
-        for name, err, ms, pms, note in records:
-            print(f"{name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                  f"max_abs_err {err} ({note}) [{card}]", flush=True)
+        path_launches = {"shg_fused": launches6, "shg_fused_mxu": launches7}
+        for r in records:
+            name = r["name"]
+            bms, by = r["bound"]
+            print(f"{name}: kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by}), "
+                  f"library {r['library_ms']} ms, max_abs_err {r['err']} "
+                  f"({r['note']}) [{card}]", flush=True)
             src, rep = REPLACES[name]
-            n = launches6[name] if name == "shg_fused" else launches[name]
-            kernels.append({"name": name, "route": "cuda", "source": src,
-                            "replaces": rep, "launches": n,
-                            "max_abs_err": err, "ms": ms, "plain_ms": pms})
+            kernels.append({
+                "name": name, "route": "cuda", "source": src,
+                "replaces": rep,
+                "launches": path_launches.get(name, launches)[name],
+                "max_abs_err": r["err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
+                "library_ms": r["library_ms"]})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -4,28 +4,26 @@ in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 The PyTorch counterpart of ``solex_ser_recon_en_tpu`` (the JAX package,
 which stays the reference).  Layout and module names mirror it:
 
-- ``io/``        the device feed of raw SER chunks (pinned staging buffers
-                 and a copy stream).
-- ``ops/``       device operations on tensors; ``recon_cuda``, ``warp_fast``
-                 and ``clahe`` wrap the CUDA kernels of ``csrc/`` and keep
-                 their plain PyTorch versions beside them.
+- ``config.py``  ``Options`` and ``output_path``.
+- ``io/``        SER reading and writing, the device feed of raw SER chunks
+                 (pinned staging buffers and a copy stream), PNG encode and
+                 decode, the product-write pool, the synthetic scan.
+- ``ops/``       device operations on tensors; ``recon_cuda``, ``warp_fast``,
+                 ``clahe`` and ``fused_cuda`` wrap the CUDA kernels of
+                 ``csrc/`` and keep their plain PyTorch versions beside them.
 - ``geometry/``  spectral-line fit, limb edges, ellipse fit, warp geometry.
+- ``models/``    the fused device step (``shg_forward``).
 - ``pipeline/``  read_scan -> process_scan -> products (``shg -c`` path).
 - ``cli/``       ``python -m solex_ser_recon_en_torch.cli -c file.ser``.
+- ``bench_device.py``, ``bench_kernels.py``  the device-resident legs and
+                 the kernel shoot-out.
 - ``interop.py`` turns the JAX package's stage results into this
                  package's stage inputs (parity tests).
 
-The package never imports jax.  It reuses a few jax-free leaf modules of
-the JAX package (config, SER/FITS I/O, the run log, the timer); importing
-those runs the JAX package's ``__init__``, whose compile-cache setup
-loads jax unless ``SOLEX_NO_COMPILE_CACHE=1``; this module sets that
-variable before any such import.
+The package imports neither jax nor anything of the JAX package: the few
+jax-free modules it needs from there (config, SER I/O, the run log, the
+timer, the PNG encoder, the write pool, the synthetic scan) are copies of
+its own.
 """
 
-import os as _os
-
-_os.environ.setdefault("SOLEX_NO_COMPILE_CACHE", "1")
-
 __version__ = "0.1.0"
-
-from solex_ser_recon_en_tpu.config import Options  # noqa: E402,F401

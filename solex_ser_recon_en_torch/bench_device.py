@@ -43,17 +43,16 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from solex_ser_recon_en_tpu.config import Options
-from solex_ser_recon_en_tpu.io.ser import SerReader
-from solex_ser_recon_en_tpu.utils.timer import StageTimer
-
+from .config import Options
 from .geometry.linefit import LineFit, fit_spectral_line
 from .io.feeder import normalize_frames, raw_device_chunks
+from .io.ser import SerReader
 from .models.shg import shg_forward
 from .ops.fused_cuda import mean_max_plain
 from .ops.recon import build_shift_indices
 from .pipeline.run import ScanResult, process_scan
 from .utils.device import resolve_device, synchronize
+from .utils.timer import StageTimer
 
 SHIFTS = [10, 0]
 

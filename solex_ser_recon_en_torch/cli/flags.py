@@ -14,7 +14,7 @@ import os
 import sys
 from typing import List, Tuple
 
-from solex_ser_recon_en_tpu.config import Options
+from ..config import Options
 
 
 def usage() -> str:

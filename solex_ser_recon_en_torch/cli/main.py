@@ -12,11 +12,10 @@ import sys
 import traceback
 from typing import List, Optional
 
-from solex_ser_recon_en_tpu.config import Options
-from solex_ser_recon_en_tpu.utils.timer import StageTimer
-
+from ..config import Options
 from ..pipeline.run import check_supported, process_scan, read_scan
 from ..utils.device import resolve_device
+from ..utils.timer import StageTimer
 from .flags import parse_cli, usage
 
 

@@ -1,8 +1,9 @@
 """Carry stage state from the JAX package's results into this package.
 
 The system has no learned weights; what passes from one stage to the next
-is the ``Options`` dataclass (the same class in both packages), the line
-fit, the ellipse geometry, the transversalium gains and the disks.  These
+is the ``Options`` dataclass (each package has its own copy, with the same
+fields), the line fit, the ellipse geometry, the transversalium gains and
+the disks.  These
 helpers turn the JAX package's results (numpy fields, or arrays that
 ``np.asarray`` accepts) into this package's stage inputs, so a test can
 feed each port stage exactly what the JAX stage before it produced.  No

@@ -20,9 +20,8 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
-from solex_ser_recon_en_tpu.io.ser import SerReader
-
 from ..ops.dtypes import as_int16, to_u16, widen
+from .ser import SerReader
 
 TARGET_CHUNK_BYTES = 96 * 1024 * 1024
 

@@ -1,9 +1,12 @@
-"""Grayscale PNG decode without OpenCV or PIL.
+"""Grayscale PNG encode and decode with the standard library alone.
 
-The products are written by the JAX package's stdlib encoder
-(solex_ser_recon_en_tpu/io/png.py:write_png_streaming, jax-free), which
-stores filter type 0 scanlines; ``read_png`` decodes such files, so the
-checks of the products need neither OpenCV nor PIL either.
+``write_png_streaming`` is the port's copy of the stdlib encoder of
+solex_ser_recon_en_tpu/io/png.py (without its OpenCV, PIL and native
+branches): 8/16-bit grayscale, filter type 0 scanlines, zlib level 0 in
+stored blocks, as the reference's ``cv2.imwrite`` compression-0 products
+(solex_util.py:556-566).  Its bytes equal the JAX package's.  ``read_png``
+decodes such files, so the checks of the products need neither OpenCV nor
+PIL.
 """
 
 from __future__ import annotations
@@ -14,6 +17,68 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
+#: row bands of the image, each framed as its own run of stored blocks (the
+#: JAX encoder's default, which fixes the byte layout of the file)
+_BANDS = 8
+
+
+def _png_chunk(f, tag: bytes, parts) -> None:
+    """One PNG chunk assembled from buffer pieces (length prefix and CRC
+    computed over the pieces, no joining copy)."""
+    f.write(struct.pack(">I", sum(len(p) for p in parts)))
+    f.write(tag)
+    crc = zlib.crc32(tag)
+    for p in parts:
+        f.write(p)
+        crc = zlib.crc32(p, crc)
+    f.write(struct.pack(">I", crc & 0xFFFFFFFF))
+
+
+def _stored_parts(payload: bytes, first: bool, final: bool, adler: int):
+    """zlib stored-block framing of one band's scanlines: blocks of at most
+    65535 bytes, the stream header on the first band, BFINAL on the image's
+    last block and the adler32 trailer after it."""
+    mv = memoryview(payload)
+    n = len(mv)
+    parts = [b"\x78\x01"] if first else []
+    pos = 0
+    while True:
+        blk = min(65535, n - pos)
+        last = final and pos + blk == n
+        parts.append(struct.pack("<BHH", 1 if last else 0, blk, blk ^ 0xFFFF))
+        parts.append(mv[pos:pos + blk])
+        pos += blk
+        if pos >= n:
+            break
+    if final:
+        parts.append(struct.pack(">I", adler & 0xFFFFFFFF))
+    return parts
+
+
+def write_png_streaming(path: str, img: np.ndarray) -> None:
+    """Write a host (h, w) image as an 8-bit (uint8) or 16-bit grayscale PNG
+    (other dtypes are clipped to [0, 65535] and stored as uint16)."""
+    img = np.asarray(img)
+    if img.dtype not in (np.uint8, np.uint16):
+        img = np.clip(img, 0, 65535).astype(np.uint16)
+    depth, be = (8, "|u1") if img.dtype == np.uint8 else (16, ">u2")
+    h, w = img.shape
+    nb = max(1, min(_BANDS, h))
+    adler = 1
+    with open(path, "wb") as f:
+        f.write(_SIGNATURE)
+        _png_chunk(f, b"IHDR",
+                   [struct.pack(">IIBBBBB", w, h, depth, 0, 0, 0, 0)])
+        for k in range(nb):
+            rows = img[h * k // nb:h * (k + 1) // nb]
+            line = np.ascontiguousarray(rows).astype(be, copy=False)
+            raw = np.zeros((rows.shape[0], 1 + w * line.itemsize), np.uint8)
+            raw[:, 1:] = line.view(np.uint8).reshape(rows.shape[0], -1)
+            payload = raw.tobytes()
+            adler = zlib.adler32(payload, adler)
+            _png_chunk(f, b"IDAT", _stored_parts(payload, k == 0,
+                                                  k == nb - 1, adler))
+        _png_chunk(f, b"IEND", [b""])
 
 
 def read_png(path: str) -> np.ndarray:

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..ops.fused_cuda import Step, mean_max_plain, shg_fused
-from ..ops.recon import build_shift_indices
+from ..ops.recon import build_shift_indices, recon_onehot
 from ..ops.recon_cuda import recon
 
 
@@ -28,19 +28,29 @@ def shg_forward(frames: torch.Tensor, ind_l: torch.Tensor,
     B1's plain version.  The JAX package crosses over to its one-hot matmul
     at large S (solex_ser_recon_en_tpu/models/shg.py:55-65) because the
     TPU's mask contraction costs O(S * iw) per tile; two indexed loads per
-    output do not, so there is no second route to pick.
+    output do not, so there is no second route to pick.  Kernel B6 (the
+    tensor-core extraction, ``shg_fused(..., mxu=True)``) is never selected
+    here, as the JAX package never selects its MXU kernel on its own.
     """
     return shg_fused(frames, ind_l, left_w)
 
 
 def shg_forward_plain(frames: torch.Tensor, ind_l: torch.Tensor,
                       left_w: torch.Tensor) -> Step:
-    """The two-pass route, counterpart of ``shg_forward_xla``: separate
-    torch reductions, then the recon.  XLA's one-hot float32 matmul becomes
-    the two-tap gather-lerp (kernel B3 on the card, its plain version on
-    the CPU), which is the same sum of two non-zero terms."""
+    """The two-pass gather route: separate torch reductions, then the
+    two-tap gather-lerp recon (kernel B3 on the card, its plain version on
+    the CPU) — the JAX package's reductions plus ``_recon_gather``."""
     mean, mx = mean_max_plain(frames)
     return mean, mx, recon(frames, ind_l, left_w, False, False)
+
+
+def shg_forward_onehot(frames: torch.Tensor, ind_l: torch.Tensor,
+                       left_w: torch.Tensor) -> Step:
+    """Counterpart of ``shg_forward_xla`` (solex_ser_recon_en_tpu/models/
+    shg.py:22-34): torch sum and max, then the one-hot float32 matmul
+    recon (ops/recon.py:recon_onehot)."""
+    mean, mx = mean_max_plain(frames)
+    return mean, mx, recon_onehot(frames, ind_l, left_w)
 
 
 def example_inputs(

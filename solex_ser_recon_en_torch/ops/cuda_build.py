@@ -36,7 +36,8 @@ NVCC_FLAGS = [
 #: kernel launches per wrapper (ops/recon_cuda.py, ops/warp_fast.py,
 #: ops/clahe.py, ops/fused_cuda.py); reset by callers that want to count
 #: one run
-LAUNCHES = {"recon": 0, "hresample": 0, "tile_hist": 0, "shg_fused": 0}
+LAUNCHES = {"recon": 0, "hresample": 0, "tile_hist": 0, "shg_fused": 0,
+            "shg_fused_mxu": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +50,8 @@ _SIGNATURES = {
     "solex_tile_hist": [_P, _I, _I, _I, _I, _P, _P],
     # frames, ind_l, left_w, sum, max, disks, S, F, ih, iw, stream
     "solex_shg_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # the same arguments
+    "solex_shg_fused_mxu": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

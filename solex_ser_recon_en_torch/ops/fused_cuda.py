@@ -1,11 +1,15 @@
-"""The fused single-pass step on the card: wrapper of kernel B1 (csrc/fused.cu).
+"""The fused single-pass step on the card: wrappers of kernels B1
+(csrc/fused.cu) and B6 (csrc/fused_mxu.cu).
 
-Counterpart of solex_ser_recon_en_tpu/ops/fused_pallas.py:shg_fused_pallas
-(the VPU kernels _kernel_win and _kernel, which are bit-identical; B1 folds
-both).  One read of the normalised frame slab gives the int32 frame sum,
-the frame max and the multi-shift disks.  A CUDA tensor launches the
-kernel; a CPU tensor takes the plain version (``shg_fused_plain``); any
-other device raises.
+Counterpart of solex_ser_recon_en_tpu/ops/fused_pallas.py:shg_fused_pallas.
+One read of the normalised frame slab gives the int32 frame sum, the frame
+max and the multi-shift disks.  ``shg_fused`` runs B1, the counterpart of
+the VPU kernels _kernel_win and _kernel (which are bit-identical; B1 folds
+both): a two-tap gather-lerp in float32.  ``shg_fused(..., mxu=True)`` runs
+B6, the counterpart of the MXU kernel _kernel_mxu: the disks as one
+contraction over the spectral axis on the FP64 tensor cores.  A CUDA tensor
+launches the kernel; a CPU tensor takes the plain version
+(``shg_fused_plain``, ``shg_fused_mxu_plain``); any other device raises.
 """
 
 from __future__ import annotations
@@ -15,37 +19,42 @@ from typing import Tuple
 import torch
 
 from . import cuda_build
-from .dtypes import to_u16, widen
+from .dtypes import as_int16, to_u16, widen
 from .recon import recon_plain
 
 #: int32 sum bound: 65535 * 32767 < 2**31 (ops/fused_pallas.py:21)
 MAX_FRAMES = 32767
+#: B6 holds whole rows of 8 frames in shared memory: rows up to 3072
+#: columns (csrc/fused_mxu.cu)
+MXU_MAX_IW = 3072
 
 Step = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def _check(frames: torch.Tensor, ind_l: torch.Tensor,
-           left_w: torch.Tensor) -> None:
+           left_w: torch.Tensor, name: str = "shg_fused") -> None:
+    if frames.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {frames.device}")
     if frames.ndim != 3 or frames.dtype != torch.uint16:
-        raise TypeError(f"shg_fused: frames must be (F, ih, iw) uint16, got "
+        raise TypeError(f"{name}: frames must be (F, ih, iw) uint16, got "
                         f"{tuple(frames.shape)} {frames.dtype}")
     F, ih, iw = frames.shape
     if ind_l.ndim != 2 or ind_l.dtype != torch.int32 or ind_l.shape[1] != ih:
-        raise TypeError(f"shg_fused: ind_l must be (S, {ih}) int32, got "
+        raise TypeError(f"{name}: ind_l must be (S, {ih}) int32, got "
                         f"{tuple(ind_l.shape)} {ind_l.dtype}")
     if left_w.dtype != torch.float32 or tuple(left_w.shape) != (ih,):
-        raise TypeError(f"shg_fused: left_w must be ({ih},) float32, got "
+        raise TypeError(f"{name}: left_w must be ({ih},) float32, got "
                         f"{tuple(left_w.shape)} {left_w.dtype}")
-    for name, t in (("frames", frames), ("ind_l", ind_l), ("left_w", left_w)):
+    for arg, t in (("frames", frames), ("ind_l", ind_l), ("left_w", left_w)):
         if t.device != frames.device or not t.is_contiguous():
             raise ValueError(
-                f"shg_fused: {name} must be contiguous on {frames.device}")
+                f"{name}: {arg} must be contiguous on {frames.device}")
     S = ind_l.shape[0]
     if not 1 <= F <= MAX_FRAMES:
-        raise ValueError(f"shg_fused: F={F} outside [1, {MAX_FRAMES}] "
+        raise ValueError(f"{name}: F={F} outside [1, {MAX_FRAMES}] "
                          "(the int32 frame sum would overflow)")
     if not 1 <= S <= 65535 or not 1 <= ih <= 65535 or iw < 2:
-        raise ValueError(f"shg_fused: S={S}, ih={ih}, iw={iw} out of range")
+        raise ValueError(f"{name}: S={S}, ih={ih}, iw={iw} out of range")
 
 
 def mean_max_plain(frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -64,19 +73,32 @@ def shg_fused_plain(frames: torch.Tensor, ind_l: torch.Tensor,
     return mean, mx, recon_plain(frames, ind_l, left_w, False, False)
 
 
-def shg_fused(frames: torch.Tensor, ind_l: torch.Tensor,
-              left_w: torch.Tensor) -> Step:
-    """frames (F, ih, iw) u16, ind_l (S, ih) i32, left_w (ih,) f32
-    -> (mean u16 (ih, iw), max u16 (ih, iw), disks u16 (S, ih, F)).
+def shg_fused_mxu_plain(frames: torch.Tensor, ind_l: torch.Tensor,
+                        left_w: torch.Tensor) -> Step:
+    """Plain version of kernel B6: int32 sum and amax, then the two taps
+    gathered and combined in float64, ``a * w + b * f32(1 - w)`` (exact
+    products, one rounding: what the FP64 contraction gives in any order),
+    rounded to float32, clipped and truncated to u16.  A tap outside
+    [0, iw) is absent (contributes 0), as in the TPU kernel's comb."""
+    mean, mx = mean_max_plain(frames)
+    F, ih, iw = frames.shape
+    src = as_int16(frames)
+    ys = torch.arange(ih, device=frames.device)
+    l = ind_l.long()
 
-    The contract of solex_ser_recon_en_tpu/ops/fused_pallas.py:326-329.
-    Tap columns are clipped to [0, iw-2], as build_shift_indices does.
-    """
-    if frames.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"shg_fused: unsupported device {frames.device}")
-    _check(frames, ind_l, left_w)
-    if frames.device.type == "cpu":
-        return shg_fused_plain(frames, ind_l, left_w)
+    def tap(col):                                  # (F, S, ih) float64
+        ok = (col >= 0) & (col < iw)
+        v = widen(src[:, ys, col.clamp(0, iw - 1)].view(torch.uint16))
+        return torch.where(ok, v, 0).to(torch.float64)
+
+    w1 = (1.0 - left_w).to(torch.float64)          # 1 - w rounded in f32
+    out = tap(l) * left_w.to(torch.float64) + tap(l + 1) * w1
+    out = to_u16(out.to(torch.float32).clamp(0, 65535))
+    return mean, mx, out.permute(1, 2, 0).contiguous()
+
+
+def _launch(entry: str, frames: torch.Tensor, ind_l: torch.Tensor,
+            left_w: torch.Tensor) -> Step:
     F, ih, iw = frames.shape
     S = ind_l.shape[0]
     dev = frames.device
@@ -84,13 +106,44 @@ def shg_fused(frames: torch.Tensor, ind_l: torch.Tensor,
     mx = torch.empty((ih, iw), dtype=torch.int32, device=dev)
     disks = torch.empty((S, ih, F), dtype=torch.uint16, device=dev)
     with torch.cuda.device(dev):
-        rc = cuda_build.lib().solex_shg_fused(
+        rc = getattr(cuda_build.lib(), "solex_" + entry)(
             frames.data_ptr(), ind_l.data_ptr(), left_w.data_ptr(),
             total.data_ptr(), mx.data_ptr(), disks.data_ptr(), S, F, ih, iw,
             cuda_build.stream_handle(dev),
         )
-    cuda_build.check(rc, "shg_fused")
-    cuda_build.LAUNCHES["shg_fused"] += 1
+    cuda_build.check(rc, entry)
+    cuda_build.LAUNCHES[entry] += 1
     # as in the JAX package, the mean division and the u16 casts sit
-    # outside the kernel (ops/fused_pallas.py:290-291)
+    # outside the kernel (ops/fused_pallas.py:232-233, :290-291)
     return to_u16(total // F), to_u16(mx), disks
+
+
+def shg_fused_mxu(frames: torch.Tensor, ind_l: torch.Tensor,
+                  left_w: torch.Tensor) -> Step:
+    """Kernel B6 on CUDA tensors, ``shg_fused_mxu_plain`` on CPU tensors;
+    the contract of ``shg_fused``, for iw <= MXU_MAX_IW."""
+    _check(frames, ind_l, left_w, "shg_fused_mxu")
+    if frames.shape[2] > MXU_MAX_IW:
+        raise ValueError(f"shg_fused_mxu: iw={frames.shape[2]} > "
+                         f"{MXU_MAX_IW} (B6 holds whole rows in shared "
+                         "memory)")
+    if frames.device.type == "cpu":
+        return shg_fused_mxu_plain(frames, ind_l, left_w)
+    return _launch("shg_fused_mxu", frames, ind_l, left_w)
+
+
+def shg_fused(frames: torch.Tensor, ind_l: torch.Tensor,
+              left_w: torch.Tensor, mxu: bool = False) -> Step:
+    """frames (F, ih, iw) u16, ind_l (S, ih) i32, left_w (ih,) f32
+    -> (mean u16 (ih, iw), max u16 (ih, iw), disks u16 (S, ih, F)).
+
+    The contract of solex_ser_recon_en_tpu/ops/fused_pallas.py:326-337:
+    ``mxu`` selects kernel B6 (``shg_fused_mxu``), else kernel B1, whose
+    tap columns are clipped to [0, iw-2] as build_shift_indices does.
+    """
+    if mxu:
+        return shg_fused_mxu(frames, ind_l, left_w)
+    _check(frames, ind_l, left_w)
+    if frames.device.type == "cpu":
+        return shg_fused_plain(frames, ind_l, left_w)
+    return _launch("shg_fused", frames, ind_l, left_w)

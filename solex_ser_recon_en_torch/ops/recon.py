@@ -10,6 +10,11 @@ reference: solex_util.py:93-144 — for every frame f and shift s,
 solex_ser_recon_en_tpu/ops/recon.py:_recon_gather on the RAW SER layout,
 with the rot90 and the 8-bit x256 upscale taken into the indexing exactly
 as solex_ser_recon_en_tpu/ops/fused.py:_recon_raw_lerp does.
+
+``recon_onehot`` is the counterpart of
+solex_ser_recon_en_tpu/ops/recon.py:_recon_onehot: the recon as one
+float32 matrix product batched over rows, which the JAX package leaves to
+XLA and this package to ``torch.bmm``.
 """
 
 from __future__ import annotations
@@ -68,3 +73,37 @@ def recon_plain(raw: torch.Tensor, ind_l: torch.Tensor, left_w: torch.Tensor,
     out = w * g0 + (1.0 - w) * g1                          # (F, S, ih)
     out = to_u16(out.clamp(0, 65535))
     return out.permute(1, 2, 0).contiguous()               # (S, ih, F)
+
+
+def onehot_weights(ind_l: torch.Tensor, left_w: torch.Tensor,
+                   iw: int) -> torch.Tensor:
+    """The recon's weights as a (ih, S, iw) float32 matrix per row:
+    w[y] at x = l(s, y), 1 - w[y] at x = l(s, y) + 1, else 0."""
+    cols = torch.arange(iw, device=ind_l.device)
+    l = ind_l.t().long()[:, :, None]                        # (ih, S, 1)
+    w = left_w[:, None, None]                               # (ih, 1, 1)
+    return (torch.where(cols == l, w, 0.0)
+            + torch.where(cols == l + 1, 1.0 - w, 0.0))
+
+
+def recon_onehot(frames: torch.Tensor, ind_l: torch.Tensor,
+                 left_w: torch.Tensor) -> torch.Tensor:
+    """frames (F, ih, iw) u16 normalised, ind_l (S, ih) i32, left_w (ih,)
+    f32 -> disks (S, ih, F) u16, as one row-batched float32 matmul:
+
+        W[y, s, x] = w[y]·1[x = l(s, y)] + (1 - w[y])·1[x = l(s, y) + 1]
+        out[y, s, f] = sum_x W[y, s, x] · frames[f, y, x]
+
+    It makes a float32 copy of the slab.  TF32 is switched off for the
+    call, the counterpart of JAX's Precision.HIGHEST: TF32 keeps 10
+    mantissa bits, which would break the 1-LSB disk contract.
+    """
+    W = onehot_weights(ind_l, left_w, frames.shape[2])
+    x = widen(frames).to(torch.float32).permute(1, 2, 0)    # (ih, iw, F)
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if (torch.get_float32_matmul_precision() != "highest"
+            or torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError("recon_onehot: float32 matmuls would run in TF32")
+    out = torch.bmm(W, x)                                   # (ih, S, F)
+    return to_u16(out.clamp(0, 65535)).permute(1, 0, 2).contiguous()

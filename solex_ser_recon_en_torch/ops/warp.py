@@ -5,9 +5,11 @@ ellipse_to_circle.py:112-114 — ``skimage.transform.warp`` with the 3x3
 correction matrix (maps OUTPUT (x, y) = (col, row) to INPUT coordinates),
 bilinear, ``cval = image[0, 0]``.
 
-``warp_projective_u16`` is the general four-term path, taken for matrices
-the separable kernel (ops/warp_fast.py) refuses; same float32 expressions
-as the JAX package, so tap positions and weights round identically.
+``warp_projective`` is the general four-term path on a float image;
+``warp_projective_u16`` runs it on a uint16 image scaled by 1/65536, and is
+taken for matrices the separable kernel (ops/warp_fast.py) refuses.  Same
+float32 expressions as the JAX package, so tap positions and weights round
+identically.
 """
 
 from __future__ import annotations
@@ -30,24 +32,21 @@ def _grid(mat3: np.ndarray, out_h: int, out_w: int, device):
     return sx / w, sy / w
 
 
-def warp_projective_u16(image_u16: torch.Tensor, mat3: np.ndarray,
-                        out_h: int, out_w: int, cval: float = 0.0
-                        ) -> torch.Tensor:
-    """Warp a uint16 image scaled by 1/65536 -> float32 [0, 1) image.
-
-    Each of the four neighbours contributes ``cval`` (on the [0, 1) scale)
-    when it falls outside the image (scipy/skimage 'constant').
-    """
-    h, w_in = image_u16.shape
-    sx, sy = _grid(mat3, out_h, out_w, image_u16.device)
+def warp_projective(image: torch.Tensor, mat3: np.ndarray, out_h: int,
+                    out_w: int, cval: float = 0.0) -> torch.Tensor:
+    """Warp a float image (h, w) by the inverse map ``mat3`` -> float32
+    (out_h, out_w).  Each of the four neighbours contributes ``cval`` when
+    it falls outside the image (scipy/skimage 'constant')."""
+    h, w_in = image.shape
+    sx, sy = _grid(mat3, out_h, out_w, image.device)
     x0 = torch.floor(sx)
     y0 = torch.floor(sy)
     dx = sx - x0
     dy = sy - y0
     x0i = x0.to(torch.int32)
     y0i = y0.to(torch.int32)
-    flat = widen(image_u16).reshape(-1).to(torch.float32) * np.float32(1 / 65536)
-    cv = torch.tensor(cval, dtype=torch.float32, device=image_u16.device)
+    flat = image.to(torch.float32).reshape(-1)
+    cv = torch.tensor(cval, dtype=torch.float32, device=image.device)
 
     def sample(yi, xi):
         valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w_in)
@@ -60,6 +59,15 @@ def warp_projective_u16(image_u16: torch.Tensor, mat3: np.ndarray,
         + sample(y0i + 1, x0i) * dy * (1 - dx)
         + sample(y0i + 1, x0i + 1) * dy * dx
     )
+
+
+def warp_projective_u16(image_u16: torch.Tensor, mat3: np.ndarray,
+                        out_h: int, out_w: int, cval: float = 0.0
+                        ) -> torch.Tensor:
+    """Warp a uint16 image scaled by 1/65536 -> float32 [0, 1) image
+    (``cval`` on the [0, 1) scale)."""
+    image = widen(image_u16).to(torch.float32) * np.float32(1 / 65536)
+    return warp_projective(image, mat3, out_h, out_w, cval)
 
 
 def warp_to_u16(warped01: torch.Tensor) -> torch.Tensor:

@@ -15,8 +15,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from solex_ser_recon_en_tpu.config import Options, output_path
-from solex_ser_recon_en_tpu.io.png import write_png_streaming
+from ..config import Options, output_path
+from ..io.png import write_png_streaming
+from ..io.writers import submit
 from ..ops.clahe import _clahe, percentile_from_hist, value_histogram
 from ..ops.dtypes import as_int16, to_u16, widen
 from ..ops.rowstats import apply_row_gain
@@ -79,8 +80,6 @@ def _save_png_sync(path: str, img: torch.Tensor) -> None:
 
 def _save_png(path: str, img: torch.Tensor) -> None:
     """PNG write on the writer pool; pipeline/run.py joins it."""
-    from solex_ser_recon_en_tpu.io.writers import submit
-
     submit(_save_png_sync, path, img)
 
 

@@ -29,11 +29,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from solex_ser_recon_en_tpu.config import Options
-from solex_ser_recon_en_tpu.io.ser import SerReader
-from solex_ser_recon_en_tpu.utils.log import RunLog
-from solex_ser_recon_en_tpu.utils.timer import StageTimer
-
+from ..config import Options
 from ..geometry.correct import (
     NO_CIRCLE,
     Circle,
@@ -43,9 +39,13 @@ from ..geometry.correct import (
 )
 from ..geometry.linefit import fit_spectral_line
 from ..io.feeder import raw_device_chunks
+from ..io.ser import SerReader
+from ..io.writers import barrier as write_barrier
 from ..ops.dtypes import as_int16
 from ..ops.fused import RawScanProcessor
 from ..utils.device import synchronize
+from ..utils.log import RunLog
+from ..utils.timer import StageTimer
 from .products import image_process
 from .transversalium import transversalium_gain
 
@@ -279,8 +279,6 @@ def process_scan(scan: ScanResult, options: Options,
         results.append((s, out))
         log.complete()
 
-    from solex_ser_recon_en_tpu.io.writers import barrier as write_barrier
-
     with timer.stage("products"):
         write_barrier()
     return results
@@ -290,8 +288,6 @@ def process_file(file: str, options: Options, device: torch.device,
                  timer: Optional[StageTimer] = None):
     """Full single-file pipeline (read + process).  Like the reference it
     mutates ``options`` (shift bookkeeping, fitted ratio/slant)."""
-    from solex_ser_recon_en_tpu.io.writers import barrier as write_barrier
-
     timer = timer or StageTimer()
     try:
         scan = read_scan(file, options, device, timer)

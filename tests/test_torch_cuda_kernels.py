@@ -7,7 +7,10 @@ that has only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerance: bit-identical — the kernels and their plain versions round
-every float32 step the same way (no FMA, same order).
+every float32 step the same way (no FMA, same order); B6's FP64
+contraction and its plain version both form round_f64(a*w + b*(1-w)) from
+exact products.  B6 against B1: mean and max equal, disks within 1 LSB
+(float64 vs float32 sums of the same two products).
 """
 
 import numpy as np
@@ -22,7 +25,12 @@ from solex_ser_recon_en_torch.ops.clahe import (
     tile_histograms,
     tile_histograms_plain,
 )
-from solex_ser_recon_en_torch.ops.fused_cuda import shg_fused, shg_fused_plain
+from solex_ser_recon_en_torch.ops.fused_cuda import (
+    shg_fused,
+    shg_fused_mxu,
+    shg_fused_mxu_plain,
+    shg_fused_plain,
+)
 from solex_ser_recon_en_torch.ops.recon import build_shift_indices, recon_plain
 from solex_ser_recon_en_torch.ops.recon_cuda import recon
 from solex_ser_recon_en_torch.ops.warp_fast import (
@@ -98,7 +106,7 @@ def test_hist_kernel_matches_plain(rng, cuda_device, hist_size):
 
 
 def test_feeder_pinned_upload_matches_file(tmp_path, rng, cuda_device):
-    from solex_ser_recon_en_tpu.io.ser import SerReader, write_ser
+    from solex_ser_recon_en_torch.io.ser import SerReader, write_ser
     from solex_ser_recon_en_torch.io.feeder import raw_device_chunks
 
     raw = rng.integers(0, 65536, (23, 16, 40)).astype(np.uint16)
@@ -155,3 +163,51 @@ def test_fused_step_equals_two_pass(rng, cuda_device):
     np.testing.assert_array_equal(
         frames.cpu().numpy(),
         normalize_frames(t(raw), True, False).numpy())
+
+
+# (F, ih, iw, S): S = 1, 2, 7, 8, 9, 21 around the N = 8 shift tile; iw =
+# 2, 5, 60, 300 (K not a multiple of 4) and 3072 (the widest row B6 takes,
+# past 48 KB of shared memory); F not a multiple of the 8-frame M tile; odd
+# ih.  Taps anywhere in [-3, iw + 3): out-of-range taps are absent.
+B6_SHAPES = [(37, 101, 300, 1), (37, 101, 300, 2), (45, 33, 60, 7),
+             (45, 33, 60, 8), (45, 33, 60, 9), (13, 7, 5, 21),
+             (21, 9, 2, 2), (64, 64, 300, 21), (9, 5, 3072, 3)]
+
+
+@pytest.mark.parametrize("F,ih,iw,S", B6_SHAPES)
+def test_fused_mxu_kernel_matches_plain(rng, cuda_device, F, ih, iw, S):
+    frames = rng.integers(0, 65536, (F, ih, iw)).astype(np.uint16)
+    ind_l = rng.integers(-3, iw + 3, (S, ih)).astype(np.int32)
+    ind_l[0, : min(ih, 2)] = iw - 2            # taps at the last columns
+    left_w = rng.random(ih).astype(np.float32)
+    args = (t(frames, cuda_device), t(ind_l, cuda_device),
+            t(left_w, cuda_device))
+    before = cuda_build.LAUNCHES["shg_fused_mxu"]
+    out = shg_fused_mxu(*args)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["shg_fused_mxu"] == before + 1
+    for a, b in zip(out, shg_fused_mxu_plain(*args)):
+        assert a.dtype == b.dtype == torch.uint16 and a.shape == b.shape
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+@pytest.mark.parametrize("shifts", [[10, 0], list(range(-10, 11, 3))])
+def test_fused_mxu_against_b1(rng, cuda_device, shifts):
+    """On a real line fit's indices (the windowed K path): B6 equals its
+    plain version bit for bit, and B1 in mean and max, its disks within
+    1 LSB of B1's."""
+    frames = rng.integers(0, 65536, (70, 130, 300)).astype(np.uint16)
+    curve = 150 + 0.03 * np.arange(130) - 1e-4 * np.arange(130) ** 2
+    floor = np.floor(curve)
+    ind_l, left_w = build_shift_indices(floor, curve - floor, shifts, 300)
+    args = (t(frames, cuda_device), t(ind_l, cuda_device),
+            t(left_w, cuda_device))
+    m6, x6, d6 = shg_fused(*args, mxu=True)
+    m1, x1, d1 = shg_fused(*args)
+    for a, b in zip((m6, x6, d6), shg_fused_mxu_plain(*args)):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    np.testing.assert_array_equal(m6.cpu().numpy(), m1.cpu().numpy())
+    np.testing.assert_array_equal(x6.cpu().numpy(), x1.cpu().numpy())
+    diff = (d6.cpu().numpy().astype(np.int64)
+            - d1.cpu().numpy().astype(np.int64))
+    assert np.abs(diff).max() <= 1

@@ -39,6 +39,7 @@ from solex_ser_recon_en_tpu.ops.fused_pallas import (
 )
 from solex_ser_recon_en_torch import bench_device
 from solex_ser_recon_en_torch import models as port_models
+from solex_ser_recon_en_torch.config import Options
 from solex_ser_recon_en_torch.io.feeder import normalize_frames
 from solex_ser_recon_en_torch.models.shg import (
     example_inputs,
@@ -49,7 +50,6 @@ from solex_ser_recon_en_torch.ops import cuda_build
 from solex_ser_recon_en_torch.ops.fused_cuda import shg_fused, shg_fused_plain
 from solex_ser_recon_en_torch.ops.recon import build_shift_indices, recon_plain
 from solex_ser_recon_en_torch.pipeline import run as port_run
-from solex_ser_recon_en_tpu.config import Options
 
 from torch_parity import lsb_diff, t
 

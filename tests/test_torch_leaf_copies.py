@@ -1,0 +1,168 @@
+"""The port's own copies of the JAX package's jax-free leaf modules (config,
+SER I/O, synthetic scan, PNG encoder, run log, write pool) against the
+originals: the same inputs give the same fields, bytes and arrays."""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+
+from solex_ser_recon_en_tpu import config as jax_config
+from solex_ser_recon_en_tpu.io import png as jax_png
+from solex_ser_recon_en_tpu.io import ser as jax_ser
+from solex_ser_recon_en_tpu.io.synthetic import SyntheticScan as JaxScan
+from solex_ser_recon_en_tpu.utils.log import RunLog as JaxRunLog
+from solex_ser_recon_en_torch import config
+from solex_ser_recon_en_torch.io import png, ser, writers
+from solex_ser_recon_en_torch.io.synthetic import SyntheticScan
+from solex_ser_recon_en_torch.utils.log import RunLog
+from solex_ser_recon_en_torch.utils.timer import StageTimer
+
+
+def _defaults(cls):
+    out = {}
+    for f in dataclasses.fields(cls):
+        if f.default_factory is not dataclasses.MISSING:
+            out[f.name] = f.default_factory()
+        else:
+            out[f.name] = f.default
+    return out
+
+
+def test_options_fields_and_defaults_equal():
+    assert _defaults(config.Options) == _defaults(jax_config.Options)
+    assert config.Options().to_dict() == jax_config.Options().to_dict()
+
+
+def test_options_round_trip_across_packages(tmp_path):
+    path = str(tmp_path / "SHG_config.txt")
+    opts = config.Options(shift=[-3, 0, 3], de_vignette=True, ratio_fixe=1.1,
+                          trans_strength=151, output_dir="out")
+    opts.save(path)
+    assert jax_config.Options.load(path).to_dict() == \
+        config.Options.load(path).to_dict()
+    bad = config.Options(img_rotate=45)
+    with pytest.raises(ValueError, match="img_rotate"):
+        bad.validate()
+
+
+@pytest.mark.parametrize("out_dir", ["", "  ", "/tmp/products", "rel/dir"])
+def test_output_path_equal(out_dir):
+    for path in ("scan_log.txt", "/data/night/scan_clahe.png"):
+        assert config.output_path(path, config.Options(output_dir=out_dir)) \
+            == jax_config.output_path(path,
+                                      jax_config.Options(output_dir=out_dir))
+
+
+@pytest.mark.parametrize("dtype,shape", [(np.uint16, (5, 7, 11)),
+                                         (np.uint8, (3, 20, 9))])
+def test_write_ser_same_bytes_and_reads_back(tmp_path, dtype, shape):
+    rng = np.random.default_rng(2)
+    frames = rng.integers(0, np.iinfo(dtype).max + 1, shape).astype(dtype)
+    a, b = str(tmp_path / "port.ser"), str(tmp_path / "jax.ser")
+    ser.write_ser(a, frames)
+    jax_ser.write_ser(b, frames)
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()
+    ours, ref = ser.SerReader(a), jax_ser.SerReader(a)
+    assert dataclasses.asdict(ours.header) == dataclasses.asdict(ref.header)
+    assert (ours.frame_count, ours.flag_rotate, ours.ih, ours.iw) == \
+        (ref.frame_count, ref.flag_rotate, ref.ih, ref.iw)
+    np.testing.assert_array_equal(ours.raw_frames(), frames)
+    np.testing.assert_array_equal(ours.read(1, 2), ref.read(1, 2))
+
+
+def test_ser_reader_rejects_a_truncated_file(tmp_path):
+    path = str(tmp_path / "short.ser")
+    ser.write_ser(path, np.zeros((2, 4, 4), np.uint16))
+    with open(path, "r+b") as f:
+        f.truncate(ser.HEADER_SIZE + 10)
+    with pytest.raises(ValueError, match="no complete frame"):
+        ser.SerReader(path)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(seed=5),
+    dict(ih=64, iw=32, frames=50, depth=8, line_poly=(16.0, 0.01, 0.0, 0.0),
+         trans_stripes=0.1, vignette=0.2, noise=0.003, seed=9),
+    dict(ih=96, iw=40, frames=300, squash_y=1.08, shear=0.02, noise=0.002,
+         seed=1),
+])
+def test_synthetic_scan_equal(kwargs, tmp_path):
+    ours, ref = SyntheticScan(**kwargs), JaxScan(**kwargs)
+    np.testing.assert_array_equal(ours.generate(), ref.generate())
+    np.testing.assert_array_equal(ours.disk_brightness(), ref.disk_brightness())
+    np.testing.assert_array_equal(ours.row_gain, ref.row_gain)
+    a, b = str(tmp_path / "a.ser"), str(tmp_path / "b.ser")
+    np.testing.assert_array_equal(ours.write(a, transpose_to_wide=True),
+                                  ref.write(b, transpose_to_wide=True))
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()
+
+
+@pytest.mark.parametrize("case", ["u16", "u8", "float", "few_rows", "wide"])
+def test_write_png_streaming_same_bytes(tmp_path, case):
+    rng = np.random.default_rng(8)
+    img = {
+        "u16": lambda: rng.integers(0, 65536, (37, 53)).astype(np.uint16),
+        "u8": lambda: rng.integers(0, 256, (20, 31)).astype(np.uint8),
+        "float": lambda: rng.normal(3e4, 4e4, (17, 9)),
+        "few_rows": lambda: rng.integers(0, 65536, (3, 40)).astype(np.uint16),
+        # bands of more than 65535 bytes: several stored blocks per band
+        "wide": lambda: rng.integers(0, 65536, (64, 5000)).astype(np.uint16),
+    }[case]()
+    a, b = str(tmp_path / "port.png"), str(tmp_path / "jax.png")
+    png.write_png_streaming(a, img)
+    jax_png.write_png_streaming(b, img)
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()
+    want = img if img.dtype in (np.uint8, np.uint16) else \
+        np.clip(img, 0, 65535).astype(np.uint16)
+    np.testing.assert_array_equal(png.read_png(a), want)
+
+
+def test_run_log_writes_the_same_lines(tmp_path):
+    texts = []
+    for cls, opts in ((RunLog, config.Options(output_dir=str(tmp_path))),
+                      (JaxRunLog, jax_config.Options(output_dir=str(tmp_path)))):
+        log = cls(str(tmp_path / "sub" / "scan"), opts)
+        assert log.path == str(tmp_path / "scan_log.txt")
+        log.clear()
+        log("Pixel shift : [0]")
+        log.complete()
+        with open(log.path) as f:
+            texts.append([line.split(":")[0] for line in f])
+        os.remove(log.path)
+    assert texts[0] == texts[1] == ["start time", "Pixel shift ", "end time"]
+    quiet = RunLog(str(tmp_path / "q"), config.Options(_nolog=True))
+    quiet.clear()
+    quiet("nothing")
+    assert not os.path.exists(quiet.path)
+
+
+def test_stage_timer_accumulates():
+    timer = StageTimer()
+    for _ in range(2):
+        with timer.stage("a"):
+            pass
+    assert list(timer.times) == ["a"] and timer.times["a"] >= 0
+    assert timer.summary().splitlines()[-1].startswith("  total:")
+
+
+def test_write_pool_joins_and_reraises(tmp_path):
+    done = []
+    writers.submit(done.append, 1)
+    writers.submit(done.append, 2)
+    writers.barrier()
+    assert sorted(done) == [1, 2]
+
+    def boom():
+        raise OSError("disk full")
+
+    writers.submit(boom)
+    writers.submit(done.append, 3)
+    with pytest.raises(OSError, match="disk full"):
+        writers.barrier()
+    assert 3 in done
+    writers.barrier()          # nothing left pending

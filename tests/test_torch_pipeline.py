@@ -32,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from solex_ser_recon_en_tpu.config import Options
+from solex_ser_recon_en_tpu.config import Options as JaxOptions
 from solex_ser_recon_en_tpu.geometry.linefit import (
     fit_spectral_line as jax_fit_spectral_line,
 )
@@ -47,6 +47,7 @@ from solex_ser_recon_en_tpu.pipeline.transversalium import (
 )
 from solex_ser_recon_en_torch import interop
 from solex_ser_recon_en_torch.cli.main import main as cli_main
+from solex_ser_recon_en_torch.config import Options
 from solex_ser_recon_en_torch.geometry.correct import (
     correct_image,
     correct_images_batched,
@@ -92,8 +93,8 @@ def runs(basic_scan, tmp_path_factory):
     out_t = str(tmp_path_factory.mktemp("port_out"))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_correct, "_use_fast_warp", _tpu_warp_gate)
-        oj = Options(shift=[0], clahe_only=True, feed_mode="device",
-                     output_dir=out_j)
+        oj = JaxOptions(shift=[0], clahe_only=True, feed_mode="device",
+                        output_dir=out_j)
         scan_j = jax_run.read_scan(path, oj)
         jax_run.process_scan(scan_j, oj)
         slopes = _stretch_slopes(mp)
@@ -157,8 +158,8 @@ def test_jax_chain_after_recon_on_port_disks(runs, tmp_path, monkeypatch):
     1 LSB, >= 99.9% of pixels identical, so the 1-LSB recon differences
     are what the whole-slice bound absorbs."""
     monkeypatch.setattr(jax_correct, "_use_fast_warp", _tpu_warp_gate)
-    opts = Options(shift=[0], clahe_only=True, feed_mode="device",
-                   output_dir=str(tmp_path))
+    opts = JaxOptions(shift=[0], clahe_only=True, feed_mode="device",
+                      output_dir=str(tmp_path))
     scan = dataclasses.replace(
         runs["scan_j"], disk_list=jnp.asarray(runs["scan_t"].disk_list.numpy()),
         basefich0=str(tmp_path / "basic"))
