@@ -27,14 +27,19 @@ Phases; any failure exits non-zero before the final result line:
    resident: B1 at S = 2, B6 at S = 2 and at the S = 7 sweep of the
    shoot-out (both bit-identical).  B6's mean and max must equal B1's, its
    disks lie within 1 LSB of B1's (the share of differing pixels is
-   printed), and its shift-0 disk within 1 LSB of a float64 lerp.
+   printed), and its shift-0 disk within 1 LSB of a float64 lerp.  B1's
+   line also gives its read rate and share of its bound at S = 2 and 7,
+   and the card's read-rate yardstick: one ``torch.amax`` over the slab
+   viewed as int32, with its GB/s.
 6. resident path: ``bench_device.device_attached_decomposition`` on the
    phase-3 scan (upload, normalise, pass A, host line fit, the fused step
    of kernel B1, the real process_scan), its stage times printed with the
    card's name.  The launch counts of B1, B4 and B5 over it must be > 0;
    B1's mean and max must equal phase 4's pass-A mean and max, and its
    shift-10/0 disks phase 4's B3 disks, bit for bit; its _clahe.png must
-   not be empty.  Information lines, no pass/fail: B1 against the two-pass
+   not be empty.  Every B1 launch of the path must take the bulk copy path
+   (``fused_cuda.FUSED_PATHS``), and the kernel library's launch geometry
+   must equal the wrapper's (``fused_plan_cuda`` vs ``fused_plan``).  Information lines, no pass/fail: B1 against the two-pass
    route (torch sum/max + B3) at S = 2, 7, 21 on the same slab, and the
    peak device memory of the run.
 7. shoot-out: ``bench_kernels.run`` at full size (2000 x 2048 x 300, S = 2
@@ -442,16 +447,30 @@ def main() -> int:
 
         for k in cuda_build.LAUNCHES:
             cuda_build.LAUNCHES[k] = 0
+        for k in fused_cuda.FUSED_PATHS:
+            fused_cuda.FUSED_PATHS[k] = 0
         dec = bench_device.device_attached_decomposition(
             path, torch.device("cuda"), os.path.join(tmp, "out_resident"))
         torch.cuda.synchronize()
         launches6 = dict(cuda_build.LAUNCHES)
+        paths6 = dict(fused_cuda.FUSED_PATHS)
         print("resident path: " + json.dumps(dec.stages) + f" [{card}]",
               flush=True)
         print(f"launches in the resident path: {launches6}", flush=True)
         for name in RESIDENT_KERNELS:
             if launches6[name] <= 0:
                 fail(f"kernel {name} was not launched by the resident path")
+        plan = fused_cuda.fused_plan_cuda(dec.frames, len(bench_device.SHIFTS))
+        print(f"B1 copy paths in the resident path: {paths6}; launch "
+              f"geometry on the bench slab: {plan}", flush=True)
+        if paths6["bulk"] != launches6["shg_fused"] or paths6["element"]:
+            fail("B1 did not take the bulk copy path on the bench slab")
+        mirror = fused_cuda.fused_plan(dec.frames.data_ptr(),
+                                       len(bench_device.SHIFTS),
+                                       *dec.frames.shape[1:])
+        if {k: plan[k] for k in mirror} != mirror:
+            fail(f"B1's Python plan {mirror} differs from the kernel "
+                 f"library's {plan}")
         sr = res["scan"]
         if not np.array_equal(dec.mean.cpu().numpy(), sr.mean_img):
             fail("B1 mean differs from the -cw0 pass-A mean")
@@ -494,6 +513,20 @@ def main() -> int:
             bound=bound(step_bytes, {"int32": 2 * F * ih * iw,
                                      "f32": 3 * 2 * ih * F}),
             note=f"frames {tuple(dec.frames.shape)}, S=2"))
+        ms7 = cuda_ms(lambda: fused_cuda.shg_fused(*a7), reps)
+        for S, t_ms in ((2, ms), (len(SWEEP), ms7)):
+            nb = step_bytes + (S - 2) * (ih * F * 2 + ih * 4)
+            bms = bound(nb, {"int32": 2 * F * ih * iw, "f32": 3 * S * ih * F})[0]
+            print(f"B1 S={S}: wrapper {t_ms:.4f} ms, {nb / t_ms / 1e9:.3f} "
+                  f"TB/s, {100 * bms / t_ms:.1f}% of its {bms:.4f} ms bound "
+                  f"[{card}]", flush=True)
+        # the card's read-rate yardstick: one reduction over the same slab
+        whole = dec.frames.view(torch.int32)
+        amax_ms = cuda_ms(lambda: torch.amax(whole), reps)
+        print(f"read-rate yardstick: torch.amax over the slab as int32 "
+              f"{amax_ms:.4f} ms, {dec.frames.nbytes / amax_ms / 1e6:.1f} "
+              f"GB/s [{card}]", flush=True)
+        del whole
 
         b1 = fused_cuda.shg_fused(*a)
         b6 = fused_cuda.shg_fused_mxu(*a)

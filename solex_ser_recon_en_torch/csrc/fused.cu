@@ -18,27 +18,50 @@
 // each product and the sum rounded separately; the file is also built with
 // --fmad=false), so on the same frames B1's disks equal B3's bit for bit.
 //
-// What bounds it on an H100: bytes.  Every frame byte has to be read once
-// (2.458 GB for the 2000 x 2048 x 300 bench slab, ~0.73 ms at 3.35 TB/s);
-// the disks are S x ih x F x 2 B (16.4 MB at S = 2) and the two (ih, iw)
-// accumulators are small.  The design reads each frame byte exactly once:
+// What bounds it on an H100: bytes.  Every frame byte has to be read once:
+// 2.458 GB for the 2000 x 2048 x 300 bench slab, plus 16.4 MB of disks at
+// S = 2 and two 2.5 MB int32 accumulators, 2.479 GB in all, 0.74 ms at
+// 3.35 TB/s.  The integer work (an add and a max per element) and the
+// lerps are far below the card's rates.  So the design keeps enough bytes
+// in flight on every SM, and keeps the threads' work between barriers
+// even:
 //
-// - A block owns `yb` rows x `xw` columns (all of iw when it fits, so the
-//   block's part of a frame is one contiguous run and the loads coalesce)
-//   and a range of frames.  Each thread keeps the sum and max of its kPer
-//   elements in registers across the frames.
-// - The rows just loaded are also written to a double-buffered copy in
-//   shared memory; after one barrier per frame, one thread per (s, y) reads
-//   its two taps from there, not from device memory.
-// - Disk values are staged in a (S, yb, 32-frame) shared tile and written
-//   32 frames at a time, so the stores are contiguous along f.
-// - Frames are split over blockIdx.z so that the ih / yb row tiles fill the
-//   card; partial sums and maxima merge with integer atomicAdd / atomicMax
-//   into the zeroed int32 outputs, which is exact in any block order.
+// - A block owns `yb` whole rows and a range of frames, so a frame's part
+//   is one contiguous run of yb * iw u16.  yb is chosen on the host so that
+//   the run's 16-byte chunks fall evenly on the 256 threads (at most 4
+//   each) and, where it can, so that the run is a multiple of 16 bytes.
+// - A ring of D stages in shared memory, each K frames of the block's run,
+//   is filled by asynchronous copies while the block consumes the oldest
+//   stage.  Bulk path: one thread issues one TMA bulk copy per frame
+//   (cp.async.bulk, 1-D) completing on the stage's mbarrier.  It needs a
+//   16-byte aligned slab, yb * iw and ih * iw multiples of 8.  Element path
+//   (any other pointer or shape, and the column split below): the threads
+//   copy the 16-byte granules that hold the run, aligned down, with
+//   cp.async (the granule at the slab's end clipped, zero fill), and the
+//   run sits at a per-frame offset of 0-7 elements in the stage.  The path
+//   follows from the pointer and the shape alone (make_plan); it is never
+//   a fallback.
+// - Sum and max: each thread owns fixed 16-byte chunks of the run across
+//   all frames, reads them from the stage (uint4 on the bulk path), keeps
+//   int32 sums and packed u16x2 maxima in registers, and merges them at the
+//   end with integer atomicAdd / atomicMax into the zeroed outputs, exact in
+//   any block order.
+// - Taps: after a stage's barrier, S x rows x K (shift, row, frame) items
+//   take their two taps from the stage and lerp into a (S, yb, fb) staging
+//   tile, written out every fb frames, 16 bytes at a time where the disks'
+//   rows allow it (F a multiple of 8).
+// - Grid: (column chunks, row tiles, frame splits).  The frame split is
+//   chosen from the blocks an SM holds (cudaOccupancyMaxActiveBlocks...)
+//   so that the last wave is as full as it can be.
+// - Rows wider than 8192 columns (more than a thread's 4 chunks) are split
+//   over blockIdx.x: a block then owns one row of a column chunk, loads one
+//   column more than it accumulates, and takes the taps whose left column
+//   it holds.  That split takes the element path.
 //
-// Rows wider than one block's registers (iw > 2048) are split over
-// blockIdx.x; each column chunk loads one column more than it accumulates,
-// and a shift's taps belong to the chunk that holds its left tap.
+// At the bench shape (iw = 300, S = 2): yb = 20 (6000 elements, 750 chunks
+// on 256 threads: 3 each, 98% of the slots used), K = 1, D = 6 stages of
+// 12,016 bytes, 75 KB of shared memory a block, up to 3 blocks an SM and
+// 5 stages (60 KB) in flight per block; 103 row tiles.
 //
 // Not carried over from the TPU kernel: the 128-lane window and its
 // host-side selector, the iota-compare mask scratch with its float32 copy
@@ -48,53 +71,130 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "ring.cuh"
+
 namespace {
 
+using namespace solex_ring;
+
 constexpr int kThreads = 256;
-constexpr int kPer = 8;                    // elements per thread per frame
-constexpr int kCap = kThreads * kPer;      // elements per block per frame
-constexpr int kFB = 32;                    // frames per disk store
-constexpr int kMaxRows = 8;
+constexpr int kChunks = 4;                       // 16-byte chunks a thread owns
+constexpr int kMaxRun = 8 * kChunks * kThreads;  // elements a block holds a frame
+constexpr int kMaxRows = 64;
+constexpr int kMaxK = 8;                         // frames per stage
+constexpr int kMaxD = 8;                         // stages in the ring
+constexpr int kSplitFrames = 32;                 // frame-split granule
+constexpr size_t kStageTarget = 16 * 1024;
+constexpr size_t kRingTarget = 72 * 1024;
+constexpr size_t kMaxSmem = 232448;              // opt-in limit of a block
 constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr size_t kBarBytes = 8 * kMaxD;
 
-__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
+struct Plan {
+  int bulk, yb, xw, K, D, fb;
+  size_t smem;
+};
 
-__host__ __device__ inline size_t buf_bytes(int yb, int xw) {
-  return align16(2 * sizeof(uint16_t) * (size_t)yb * (xw + 1));
+__host__ __device__ inline size_t align16(size_t n) {
+  return (n + 15) & ~size_t(15);
 }
 
-__host__ __device__ inline size_t tile_bytes(int S, int yb) {
-  return sizeof(uint16_t) * (size_t)S * yb * kFB;
+// bytes of one frame's run in the ring (+16: the element path's offset)
+__host__ __device__ inline size_t frame_bytes(int n) {
+  return align16(2 * (size_t)n) + 16;
 }
 
-size_t smem_bytes(int S, int yb, int xw) {
-  return buf_bytes(yb, xw) + tile_bytes(S, yb) +
-         sizeof(int32_t) * (size_t)S * yb + sizeof(float) * yb;
+// longest run a block holds: whole rows, or a column chunk and its tap column
+__host__ __device__ inline int max_run(int yb, int xw, int iw) {
+  return xw < iw ? xw + 1 : yb * iw;
 }
 
-__global__ void __launch_bounds__(kThreads)
+size_t smem_bytes(int S, int yb, int K, int D, int fb, int nmax) {
+  return kBarBytes + (size_t)D * K * frame_bytes(nmax) +
+         align16(2 * (size_t)S * yb * fb) + 4 * (size_t)S * yb + 4 * (size_t)yb;
+}
+
+// The launch geometry (ops/fused_cuda.py:fused_plan mirrors it); false when
+// even yb = K = 1, D = 2 and 8-frame disk stores do not fit.
+bool make_plan(uintptr_t ptr, int S, int ih, int iw, Plan* p) {
+  const bool aligned = ptr % 16 == 0 && ((long long)ih * iw) % 8 == 0;
+  p->xw = iw > kMaxRun ? kMaxRun - 1 : iw;
+  p->yb = 1;
+  if (p->xw == iw) {
+    // rows: a bulk-aligned run first, then the larger share of the threads'
+    // chunk slots used (n / P), then more rows
+    long long bn = 0, bP = 1;
+    bool bb = false;
+    const int top = std::min(std::min(ih, kMaxRows), kMaxRun / iw);
+    for (int yb = 1; yb <= top; ++yb) {
+      const long long n = (long long)yb * iw;
+      const long long P = (n + 8 * kThreads - 1) / (8 * kThreads);
+      const bool b = aligned && n % 8 == 0;
+      if (yb == 1 || (b && !bb) || (b == bb && n * bP >= bn * P)) {
+        p->yb = yb;
+        bn = n;
+        bP = P;
+        bb = b;
+      }
+    }
+  }
+  const bool want_bulk = p->xw == iw && aligned && ((long long)p->yb * iw) % 8 == 0;
+  size_t fst = frame_bytes(max_run(p->yb, p->xw, iw));
+  p->K = (int)std::min((size_t)kMaxK, std::max((size_t)1, kStageTarget / fst));
+  while (p->K & (p->K - 1)) --p->K;              // a power of two
+  p->D = (int)std::min((size_t)kMaxD,
+                       std::max((size_t)2, kRingTarget / (p->K * fst)));
+  p->fb = 32;
+  while ((p->smem = smem_bytes(S, p->yb, p->K, p->D, p->fb,
+                               max_run(p->yb, p->xw, iw))) > kMaxSmem) {
+    if (p->D > 2) {
+      --p->D;
+    } else if (p->K > 1) {
+      p->K /= 2;
+    } else if (p->yb > 1) {
+      do --p->yb;
+      while (p->yb > 1 && want_bulk && ((long long)p->yb * iw) % 8 != 0);
+    } else if (p->fb > 8) {
+      p->fb /= 2;
+    } else {
+      return false;
+    }
+  }
+  p->bulk = p->xw == iw && aligned && ((long long)p->yb * iw) % 8 == 0;
+  return true;
+}
+
+template <bool kBulk>
+__global__ void __launch_bounds__(kThreads, 2)
 fused_kernel(const uint16_t* __restrict__ frames,
              const int32_t* __restrict__ ind_l,
              const float* __restrict__ left_w, int32_t* __restrict__ sum,
              int32_t* __restrict__ mx, uint16_t* __restrict__ disks, int S,
-             int F, int ih, int iw, int yb, int xw, int fper) {
+             int F, int ih, int iw, int yb, int xw, int K, int D, int fb,
+             int fper, int disk_vec) {
   extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* buf = reinterpret_cast<uint16_t*>(smem);         // [2][yb*(xw+1)]
-  uint16_t* tile = reinterpret_cast<uint16_t*>(smem + buf_bytes(yb, xw));
-  int32_t* loc = reinterpret_cast<int32_t*>(
-      smem + buf_bytes(yb, xw) + tile_bytes(S, yb));         // [S][yb]
-  float* wsm = reinterpret_cast<float*>(loc + (size_t)S * yb);  // [yb]
-
   const int tid = threadIdx.x;
   const int x0 = blockIdx.x * xw;
   const int y0 = blockIdx.y * yb;
-  const int fs = blockIdx.z * fper;          // a multiple of kFB
+  const int fs = blockIdx.z * fper;            // a multiple of kSplitFrames
   const int fe = min(F, fs + fper);
   const int rows = min(yb, ih - y0);
-  const int cols = min(xw, iw - x0);         // columns accumulated here
-  const int lcols = min(xw + 1, iw - x0);    // columns loaded (+ right tap)
-  const int n = rows * lcols;
-  const int bstride = yb * (xw + 1);
+  const int cols = min(xw, iw - x0);           // columns accumulated here
+  const int lcols = min(xw + 1, iw - x0);      // columns loaded (+ right tap)
+  const int n = rows * lcols;                  // run length of a frame
+  const int nacc = xw == iw ? n : cols;        // run elements accumulated
+  const int nch = (nacc + 7) / 8;
+  const size_t fst = frame_bytes(max_run(yb, xw, iw));
+
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  unsigned char* ring = smem + kBarBytes;
+  uint16_t* tile =
+      reinterpret_cast<uint16_t*>(ring + (size_t)D * K * fst);  // [S][yb][fb]
+  int32_t* loc = reinterpret_cast<int32_t*>(
+      reinterpret_cast<unsigned char*>(tile) + align16(2 * (size_t)S * yb * fb));
+  float* wsm = reinterpret_cast<float*>(loc + (size_t)S * yb);
 
   // tap column of every (s, y) relative to x0, or -1 when the left tap
   // belongs to another column chunk
@@ -110,85 +210,234 @@ fused_kernel(const uint16_t* __restrict__ frames,
   }
   for (int j = tid; j < yb; j += kThreads)
     wsm[j] = j < rows ? left_w[y0 + j] : 0.0f;
-
-  int goff[kPer];
-  int32_t acc_s[kPer], acc_m[kPer];
-  unsigned load_mask = 0, acc_mask = 0;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    const int e = tid + k * kThreads;
-    acc_s[k] = 0;
-    acc_m[k] = 0;
-    goff[k] = 0;
-    if (e < n) {
-      const int yl = e / lcols;
-      const int xl = e - yl * lcols;
-      goff[k] = yl * iw + xl;
-      load_mask |= 1u << k;
-      if (xl < cols) acc_mask |= 1u << k;
-    }
+  if (kBulk && tid == 0) {
+    for (int i = 0; i < D; ++i) mbar_init(bars + i, 1);
+    fence_mbar_init();
   }
   __syncthreads();
 
-  const uint16_t* base = frames + (size_t)y0 * iw + x0;
-  const size_t fstride = (size_t)ih * iw;
-  for (int f = fs; f < fe; ++f) {
-    const uint16_t* src = base + (size_t)f * fstride;
-    uint16_t* b = buf + (f & 1) * bstride;
+  const size_t fpix = (size_t)ih * iw;
+  const uint16_t* run0 = frames + (size_t)y0 * iw + x0;   // frame 0's run
+  const uintptr_t run0_addr = reinterpret_cast<uintptr_t>(run0);
+  const uintptr_t slab_end =
+      reinterpret_cast<uintptr_t>(frames + (size_t)F * fpix);
+  const int nst = (fe - fs + K - 1) / K;       // stages of this block
+
+  // element offset of frame f's run in its granules (0 on the bulk path)
+  auto head = [&](int f) -> int {
+    return kBulk ? 0 : (int)(((run0_addr + 2 * (size_t)f * fpix) & 15) >> 1);
+  };
+
+  // fill stage j (frames fs + j*K ...) into slot j % D; on the element path
+  // every thread commits one group per call, even an empty one
+  auto issue = [&](int j) {
+    unsigned char* slot = ring + (size_t)(j % D) * K * fst;
+    const int f0 = fs + j * K;
+    const int mc = j < nst ? min(K, fe - f0) : 0;
+    if (kBulk) {
+      if (tid == 0 && mc > 0) {
+        uint64_t* bar = bars + j % D;
+        fence_proxy_async();
+        mbar_expect_tx(bar, (uint32_t)(mc * n * 2));
+        for (int m = 0; m < mc; ++m)
+          bulk_g2s(slot + m * fst, run0 + (size_t)(f0 + m) * fpix,
+                   (uint32_t)(n * 2), bar);
+      }
+    } else {
+      const int ngm = (n + 14) / 8;            // granules of a run, at most
+      for (int q = tid; q < mc * ngm; q += kThreads) {
+        const int m = q / ngm;
+        const int g = q - m * ngm;
+        const uintptr_t a = run0_addr + 2 * (size_t)(f0 + m) * fpix;
+        if (g < (int)((a & 15) / 2 + n + 7) / 8) {
+          const uintptr_t src = (a & ~uintptr_t(15)) + 16 * (uintptr_t)g;
+          const uintptr_t left = slab_end - src;
+          cp_async16(slot + m * fst + 16 * g,
+                     reinterpret_cast<const void*>(src),
+                     (uint32_t)(left < 16 ? left : 16));
+        }
+      }
+      cp_async_commit();
+    }
+  };
+
+  uint32_t acc_s[kChunks][8], acc_m[kChunks][4];   // sums; u16x2 maxima
 #pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      if (load_mask >> k & 1u) {
-        const uint16_t v = src[goff[k]];
-        b[tid + k * kThreads] = v;
-        if (acc_mask >> k & 1u) {
-          acc_s[k] += v;
-          acc_m[k] = max(acc_m[k], (int32_t)v);
+  for (int p = 0; p < kChunks; ++p) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc_s[p][i] = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc_m[p][i] = 0;
+  }
+
+  for (int j = 0; j < D - 1; ++j) issue(j);
+
+  for (int k = 0; k < nst; ++k) {
+    if (kBulk)
+      mbar_wait(bars + k % D, (uint32_t)((k / D) & 1));
+    else
+      cp_async_wait_pending(D - 2);
+    __syncthreads();              // stage k landed; stage k - 1 was read
+    issue(k + D - 1);             // into stage k - 1's slot
+
+    const unsigned char* slot = ring + (size_t)(k % D) * K * fst;
+    const int f0 = fs + k * K;
+    const int mc = min(K, fe - f0);
+    for (int m = 0; m < mc; ++m) {
+      const unsigned char* fr = slot + m * fst;
+      const uint16_t* v16 = reinterpret_cast<const uint16_t*>(fr) + head(f0 + m);
+#pragma unroll
+      for (int p = 0; p < kChunks; ++p) {
+        const int c = tid + p * kThreads;
+        if (c < nch) {
+          uint32_t w[4];
+          if (kBulk) {
+            const uint4 q = reinterpret_cast<const uint4*>(fr)[c];
+            w[0] = q.x;
+            w[1] = q.y;
+            w[2] = q.z;
+            w[3] = q.w;
+          } else {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int e = 8 * c + 2 * i;
+              const uint32_t lo = e < nacc ? v16[e] : 0u;
+              const uint32_t hi = e + 1 < nacc ? v16[e + 1] : 0u;
+              w[i] = lo | hi << 16;
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc_s[p][2 * i] += w[i] & 0xffffu;
+            acc_s[p][2 * i + 1] += w[i] >> 16;
+            acc_m[p][i] = __vmaxu2(acc_m[p][i], w[i]);
+          }
         }
       }
     }
-    __syncthreads();
 
-    const int fl = (f - fs) & (kFB - 1);
-    for (int j = tid; j < S * rows; j += kThreads) {
-      const int s = j / rows;
-      const int yl = j - s * rows;
+    // taps of every (shift, row, frame) of the stage
+    for (int q = tid; q < S * rows * mc; q += kThreads) {
+      const int m = q % mc;
+      const int r = q / mc;
+      const int s = r / rows;
+      const int yl = r - s * rows;
       const int c = loc[s * yb + yl];
       if (c >= 0) {
-        const uint16_t* row = b + yl * lcols;
+        const int f = f0 + m;
+        const uint16_t* row = reinterpret_cast<const uint16_t*>(slot + m * fst) +
+                              head(f) + yl * lcols;
         const float x0f = (float)row[c];
         const float x1f = (float)row[c + 1];
         const float w = wsm[yl];
         float v = __fadd_rn(__fmul_rn(w, x0f),
                             __fmul_rn(__fsub_rn(1.0f, w), x1f));
         v = fminf(fmaxf(v, 0.0f), 65535.0f);
-        tile[(s * yb + yl) * kFB + fl] = (uint16_t)(int)v;
+        tile[(s * yb + yl) * fb + (f - fs) % fb] = (uint16_t)(int)v;
       }
     }
 
-    if (fl == kFB - 1 || f == fe - 1) {      // the same f for every thread
+    // write the staged disks every fb frames (K divides fb)
+    const int fl = f0 + mc - 1;
+    if ((fl - fs + 1) % fb == 0 || fl == fe - 1) {  // the same for all threads
       __syncthreads();
-      const int fb0 = f - fl;
-      for (int j = tid; j < S * rows * kFB; j += kThreads) {
-        const int ff = j & (kFB - 1);
-        const int r = j / kFB;
+      const int fb0 = fl - (fl - fs) % fb;
+      const int ng = fb / 8;
+      for (int q = tid; q < S * rows * ng; q += kThreads) {
+        const int g = q % ng;
+        const int r = q / ng;
         const int s = r / rows;
         const int yl = r - s * rows;
-        if (ff <= fl && loc[s * yb + yl] >= 0)
-          disks[((size_t)s * ih + y0 + yl) * F + fb0 + ff] =
-              tile[(s * yb + yl) * kFB + ff];
+        const int f = fb0 + 8 * g;
+        const int cnt = min(8, fe - f);
+        if (cnt <= 0 || loc[s * yb + yl] < 0) continue;
+        const uint16_t* src = tile + (s * yb + yl) * fb + 8 * g;
+        uint16_t* dst = disks + ((size_t)s * ih + y0 + yl) * F + f;
+        if (cnt == 8 && disk_vec) {
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+        } else {
+          for (int i = 0; i < cnt; ++i) dst[i] = src[i];
+        }
       }
-      __syncthreads();
     }
   }
 
-  const size_t obase = (size_t)y0 * iw + x0;
+  int32_t* sb = sum + (size_t)y0 * iw + x0;
+  int32_t* mb = mx + (size_t)y0 * iw + x0;
 #pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    if (acc_mask >> k & 1u) {
-      atomicAdd(&sum[obase + goff[k]], acc_s[k]);
-      atomicMax(&mx[obase + goff[k]], acc_m[k]);
+  for (int p = 0; p < kChunks; ++p) {
+    const int c = tid + p * kThreads;
+    if (c < nch) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int e = 8 * c + i;
+        if (e < nacc) {
+          atomicAdd(&sb[e], (int32_t)acc_s[p][i]);
+          atomicMax(&mb[e], (int32_t)((acc_m[p][i / 2] >> (16 * (i & 1))) &
+                                      0xffffu));
+        }
+      }
     }
   }
+}
+
+struct Launch {
+  Plan plan;
+  int blocks_per_sm, fper;
+  dim3 grid;
+};
+
+// the plan, the kernel's shared-memory attribute, its occupancy and a grid
+// whose last wave is as full as a frame split allows
+template <bool kBulk>
+cudaError_t configure(int F, int ih, int iw, Launch* L) {
+  const Plan& p = L->plan;
+  cudaError_t err = cudaSuccess;
+  if (p.smem > kDefaultSmem)
+    err = cudaFuncSetAttribute(fused_kernel<kBulk>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)p.smem);
+  int dev = 0, sms = 132;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &L->blocks_per_sm, fused_kernel<kBulk>, kThreads, p.smem);
+  if (err != cudaSuccess) return err;
+  if (L->blocks_per_sm < 1) return cudaErrorInvalidConfiguration;
+
+  const long long nx = (iw + p.xw - 1) / p.xw;
+  const long long ny = (ih + p.yb - 1) / p.yb;
+  const long long tiles = nx * ny;
+  const long long slots = (long long)L->blocks_per_sm * sms;
+  const int nfb = (F + kSplitFrames - 1) / kSplitFrames;
+  const int top =
+      (int)std::min((long long)nfb, 4 * ((slots + tiles - 1) / tiles));
+  long long best_blocks = 0, best_cap = 1;
+  for (int sp = 1; sp <= top; ++sp) {
+    const int fper = kSplitFrames * ((nfb + sp - 1) / sp);
+    const long long blocks = tiles * ((F + fper - 1) / fper);
+    const long long cap = (blocks + slots - 1) / slots * slots;
+    // a fuller last wave first, then fewer blocks
+    if (sp == 1 || blocks * best_cap > best_blocks * cap) {
+      best_blocks = blocks;
+      best_cap = cap;
+      L->fper = fper;
+    }
+  }
+  L->grid = dim3((unsigned)nx, (unsigned)ny,
+                 (unsigned)((F + L->fper - 1) / L->fper));
+  return cudaSuccess;
+}
+
+cudaError_t configure(uintptr_t ptr, int S, int F, int ih, int iw,
+                      Launch* L) {
+  if (S < 1 || F < 1 || ih < 1 || iw < 2 ||
+      !make_plan(ptr, S, ih, iw, &L->plan))
+    return cudaErrorInvalidValue;
+  return L->plan.bulk ? configure<true>(F, ih, iw, L)
+                      : configure<false>(F, ih, iw, L);
 }
 
 }  // namespace
@@ -202,45 +451,41 @@ extern "C" int solex_shg_fused(const uint16_t* frames, const int32_t* ind_l,
                                uint16_t* disks, int S, int F, int ih, int iw,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Launch L;
+  cudaError_t err =
+      configure(reinterpret_cast<uintptr_t>(frames), S, F, ih, iw, &L);
+  if (err != cudaSuccess) return (int)err;
   const size_t acc = (size_t)ih * iw * sizeof(int32_t);
-  cudaError_t err = cudaMemsetAsync(sum, 0, acc, st);
+  err = cudaMemsetAsync(sum, 0, acc, st);
   if (err == cudaSuccess) err = cudaMemsetAsync(mx, 0, acc, st);
   if (err != cudaSuccess) return (int)err;
 
-  int xw, yb;
-  if (iw <= kCap) {
-    xw = iw;
-    yb = min(kMaxRows, kCap / iw);
-  } else {
-    xw = kCap - 1;    // + the right-tap column = kCap loaded columns
-    yb = 1;
-  }
-  while (yb > 1 && smem_bytes(S, yb, xw) > kDefaultSmem) --yb;
-  const size_t smem = smem_bytes(S, yb, xw);
-  if (smem > kDefaultSmem) {
-    err = cudaFuncSetAttribute(fused_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-
-  int dev = 0, sms = 132;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const int nx = (iw + xw - 1) / xw;
-  const int ny = (ih + yb - 1) / yb;
-  const int nfb = (F + kFB - 1) / kFB;
-  // enough frame splits for ~8 blocks per SM
-  int split = (8 * sms + nx * ny - 1) / (nx * ny);
-  split = max(1, min(split, nfb));
-  const int fper = kFB * ((nfb + split - 1) / split);
-  split = (F + fper - 1) / fper;
-
-  const dim3 grid(nx, ny, split);
-  fused_kernel<<<grid, kThreads, smem, st>>>(frames, ind_l, left_w, sum, mx,
-                                             disks, S, F, ih, iw, yb, xw,
-                                             fper);
+  const Plan& p = L.plan;
+  const int disk_vec = F % 8 == 0 && reinterpret_cast<uintptr_t>(disks) % 16 == 0;
+  if (p.bulk)
+    fused_kernel<true><<<L.grid, kThreads, p.smem, st>>>(
+        frames, ind_l, left_w, sum, mx, disks, S, F, ih, iw, p.yb, p.xw, p.K,
+        p.D, p.fb, L.fper, disk_vec);
+  else
+    fused_kernel<false><<<L.grid, kThreads, p.smem, st>>>(
+        frames, ind_l, left_w, sum, mx, disks, S, F, ih, iw, p.yb, p.xw, p.K,
+        p.D, p.fb, L.fper, disk_vec);
   return (int)cudaGetLastError();
+}
+
+// The launch geometry solex_shg_fused would use for these arguments, into
+// out[12]: bulk path (1) or element path (0), yb, xw, K, D, fb, shared
+// bytes a block, blocks an SM holds, grid x, y, z, frames per block.
+extern "C" int solex_shg_fused_plan(const uint16_t* frames, int S, int F,
+                                    int ih, int iw, int* out) {
+  Launch L;
+  const cudaError_t err =
+      configure(reinterpret_cast<uintptr_t>(frames), S, F, ih, iw, &L);
+  if (err != cudaSuccess) return (int)err;
+  const Plan& p = L.plan;
+  const int v[12] = {p.bulk, p.yb, p.xw, p.K, p.D, p.fb, (int)p.smem,
+                     L.blocks_per_sm, (int)L.grid.x, (int)L.grid.y,
+                     (int)L.grid.z, L.fper};
+  for (int i = 0; i < 12; ++i) out[i] = v[i];
+  return 0;
 }

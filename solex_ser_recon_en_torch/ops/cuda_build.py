@@ -4,7 +4,8 @@ Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process for
 Hopper (``sm_90a``), all started together, and the objects are linked into
 ONE shared library with a plain C interface, at first use, under
 ``build/solex_torch_kernels/`` (``SOLEX_TORCH_BUILD_DIR`` overrides).  The
-library name carries a hash of the sources and flags, so an edited source
+library name carries a hash of the sources, the headers beside them
+(``csrc/*.cuh``) and the flags, so an edited source
 builds anew and a stale library is never loaded.  ``ctypes`` loads it: each
 entry point takes device pointers (``tensor.data_ptr()``) and PyTorch's
 current stream, and returns the ``cudaGetLastError()`` of its launch, which
@@ -52,6 +53,8 @@ _SIGNATURES = {
     "solex_shg_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # the same arguments
     "solex_shg_fused_mxu": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # frames, S, F, ih, iw, out[12]: kernel B1's launch geometry
+    "solex_shg_fused_plan": [_P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -87,7 +90,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return build_dir() / f"solex_torch_kernels_{h.hexdigest()[:16]}.so"

@@ -14,6 +14,7 @@ launches the kernel; a CPU tensor takes the plain version
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -97,6 +98,92 @@ def shg_fused_mxu_plain(frames: torch.Tensor, ind_l: torch.Tensor,
     return mean, mx, out.permute(1, 2, 0).contiguous()
 
 
+#: kernel B1's launch geometry (csrc/fused.cu: kThreads, kChunks, ...)
+B1_THREADS = 256
+B1_MAX_RUN = 8 * 4 * B1_THREADS      # elements a block holds of a frame
+B1_MAX_ROWS, B1_MAX_K, B1_MAX_D = 64, 8, 8
+B1_STAGE_TARGET, B1_RING_TARGET = 16 * 1024, 72 * 1024
+B1_MAX_SMEM = 232448                 # opt-in shared memory of a block
+B1_BAR_BYTES = 8 * B1_MAX_D
+
+#: B1 launches by copy path ("bulk": TMA bulk copies of whole runs;
+#: "element": 16-byte cp.async granules); reset by callers that count a run
+FUSED_PATHS = {"bulk": 0, "element": 0}
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def fused_plan(data_ptr: int, S: int, ih: int, iw: int):
+    """csrc/fused.cu:make_plan in Python: kernel B1's copy path and ring
+    for frames at ``data_ptr`` of shape (F, ih, iw) and S shifts, as a dict
+    (path, yb rows a block owns, xw its columns, K frames a stage, D stages
+    in the ring, fb frames a disk store, smem bytes a block), or None where
+    even the smallest ring does not fit (the launch then fails)."""
+    aligned = data_ptr % 16 == 0 and ih * iw % 8 == 0
+    xw = B1_MAX_RUN - 1 if iw > B1_MAX_RUN else iw
+    yb = 1
+    if xw == iw:
+        # a bulk-aligned run first, then the larger share of the threads'
+        # 16-byte chunk slots used, then more rows
+        best = None
+        for rows in range(1, min(ih, B1_MAX_ROWS, B1_MAX_RUN // iw) + 1):
+            n = rows * iw
+            P = -(-n // (8 * B1_THREADS))
+            b = aligned and n % 8 == 0
+            if best is None or (b and not best[0]) or (
+                    b == best[0] and n * best[2] >= best[1] * P):
+                best, yb = (b, n, P), rows
+    want_bulk = xw == iw and aligned and yb * iw % 8 == 0
+
+    def run(rows):
+        return xw + 1 if xw < iw else rows * iw
+
+    def smem(rows, K, D, fb):
+        return (B1_BAR_BYTES + D * K * (_align16(2 * run(rows)) + 16)
+                + _align16(2 * S * rows * fb) + 4 * S * rows + 4 * rows)
+
+    fst = _align16(2 * run(yb)) + 16
+    K = min(B1_MAX_K, max(1, B1_STAGE_TARGET // fst))
+    K = 1 << (K.bit_length() - 1)
+    D = min(B1_MAX_D, max(2, B1_RING_TARGET // (K * fst)))
+    fb = 32
+    while smem(yb, K, D, fb) > B1_MAX_SMEM:
+        if D > 2:
+            D -= 1
+        elif K > 1:
+            K //= 2
+        elif yb > 1:
+            yb -= 1
+            while yb > 1 and want_bulk and yb * iw % 8:
+                yb -= 1
+        elif fb > 8:
+            fb //= 2
+        else:
+            return None
+    bulk = xw == iw and aligned and yb * iw % 8 == 0
+    return dict(path="bulk" if bulk else "element", yb=yb, xw=xw, K=K, D=D,
+                fb=fb, smem=smem(yb, K, D, fb))
+
+
+def fused_plan_cuda(frames: torch.Tensor, S: int) -> dict:
+    """The launch geometry kernel B1 would use on these CUDA frames, from
+    the kernel library itself (csrc/fused.cu:solex_shg_fused_plan): the
+    keys of ``fused_plan`` plus blocks_per_sm, grid and fper (frames a
+    block)."""
+    F, ih, iw = frames.shape
+    out = (ctypes.c_int * 12)()
+    with torch.cuda.device(frames.device):
+        rc = cuda_build.lib().solex_shg_fused_plan(frames.data_ptr(), S, F,
+                                                   ih, iw, out)
+    cuda_build.check(rc, "shg_fused_plan")
+    v = list(out)
+    return dict(path="bulk" if v[0] else "element", yb=v[1], xw=v[2],
+                K=v[3], D=v[4], fb=v[5], smem=v[6], blocks_per_sm=v[7],
+                grid=tuple(v[8:11]), fper=v[11])
+
+
 def _launch(entry: str, frames: torch.Tensor, ind_l: torch.Tensor,
             left_w: torch.Tensor) -> Step:
     F, ih, iw = frames.shape
@@ -140,10 +227,15 @@ def shg_fused(frames: torch.Tensor, ind_l: torch.Tensor,
     The contract of solex_ser_recon_en_tpu/ops/fused_pallas.py:326-337:
     ``mxu`` selects kernel B6 (``shg_fused_mxu``), else kernel B1, whose
     tap columns are clipped to [0, iw-2] as build_shift_indices does.
+    Each B1 launch adds one to ``FUSED_PATHS`` under its copy path.
     """
     if mxu:
         return shg_fused_mxu(frames, ind_l, left_w)
     _check(frames, ind_l, left_w)
     if frames.device.type == "cpu":
         return shg_fused_plain(frames, ind_l, left_w)
-    return _launch("shg_fused", frames, ind_l, left_w)
+    F, ih, iw = frames.shape
+    plan = fused_plan(frames.data_ptr(), ind_l.shape[0], ih, iw)
+    out = _launch("shg_fused", frames, ind_l, left_w)
+    FUSED_PATHS[plan["path"]] += 1
+    return out

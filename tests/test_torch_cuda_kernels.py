@@ -26,6 +26,10 @@ from solex_ser_recon_en_torch.ops.clahe import (
     tile_histograms_plain,
 )
 from solex_ser_recon_en_torch.ops.fused_cuda import (
+    B1_MAX_RUN,
+    FUSED_PATHS,
+    fused_plan,
+    fused_plan_cuda,
     shg_fused,
     shg_fused_mxu,
     shg_fused_mxu_plain,
@@ -120,31 +124,87 @@ def test_feeder_pinned_upload_matches_file(tmp_path, rng, cuda_device):
 
 
 # (F, ih, iw, S): odd shapes; F not a multiple of the kernel's 32-frame
-# store group; rows wider than one block (iw > 2048: column chunks); a
-# shift count that shrinks the row tile (S = 121) and one that needs more
-# than 48 KB of shared memory (S = 800); the narrowest frame (iw = 2)
+# split granule; rows wider than 2048 (iw = 2500: one row tile of 3 rows,
+# ih * iw not a multiple of 8, so the element path); a shift count that
+# shrinks the row tile (S = 121) and one that needs more than 48 KB of
+# shared memory (S = 800); the narrowest frame (iw = 2); then the bench
+# width on the bulk path: with a frame tail (F = 67), a row tail (ih = 70
+# on 20-row tiles) and the S = 7 sweep; and rows wider than one block
+# (iw > 8192: column chunks, element path)
 B1_SHAPES = [(37, 100, 60, 3), (37, 100, 60, 1), (70, 13, 2500, 2),
              (40, 20, 300, 121), (33, 3, 300, 800), (5, 3, 2, 1),
-             (64, 64, 300, 2)]
+             (64, 64, 300, 2), (67, 64, 300, 2), (67, 70, 300, 2),
+             (64, 64, 300, 7), (9, 3, 9001, 2)]
+#: the copy path each shape must take (aligned frames from torch)
+B1_PATHS = {(64, 64, 300, 2): "bulk", (67, 64, 300, 2): "bulk",
+            (67, 70, 300, 2): "bulk", (64, 64, 300, 7): "bulk",
+            (70, 13, 2500, 2): "element", (5, 3, 2, 1): "element",
+            (9, 3, 9001, 2): "element"}
+
+
+def _b1_inputs(rng, device, F, ih, iw, S, frames=None):
+    if frames is None:
+        frames = t(rng.integers(0, 65536, (F, ih, iw)).astype(np.uint16),
+                   device)
+    ind_l = rng.integers(-3, iw + 3, (S, ih)).astype(np.int32)
+    ind_l[0, : min(ih, 2)] = iw - 2            # taps at the last columns
+    if iw > 2048 and ih >= 4:
+        ind_l[0, 2:4] = (2046, 2047)
+    if iw > B1_MAX_RUN:                        # around a column-chunk edge
+        ind_l[:2, 1] = (B1_MAX_RUN - 2, B1_MAX_RUN - 1)
+    left_w = rng.random(ih).astype(np.float32)
+    return frames, t(ind_l, device), t(left_w, device)
+
+
+def _check_b1(args, path):
+    before = cuda_build.LAUNCHES["shg_fused"]
+    paths = dict(FUSED_PATHS)
+    out = shg_fused(*args)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["shg_fused"] == before + 1
+    assert FUSED_PATHS[path] == paths[path] + 1
+    assert sum(FUSED_PATHS.values()) == sum(paths.values()) + 1
+    for a, b in zip(out, shg_fused_plain(*args)):
+        assert a.dtype == b.dtype == torch.uint16 and a.shape == b.shape
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
 
 
 @pytest.mark.parametrize("F,ih,iw,S", B1_SHAPES)
 def test_fused_kernel_matches_plain(rng, cuda_device, F, ih, iw, S):
-    frames = rng.integers(0, 65536, (F, ih, iw)).astype(np.uint16)
-    ind_l = rng.integers(-3, iw + 3, (S, ih)).astype(np.int32)
-    ind_l[0, : min(ih, 2)] = iw - 2            # taps at the last columns
-    if iw > 2048:
-        ind_l[0, 2:4] = (2046, 2047)           # around a column-chunk edge
-    left_w = rng.random(ih).astype(np.float32)
-    args = (t(frames, cuda_device), t(ind_l, cuda_device),
-            t(left_w, cuda_device))
-    before = cuda_build.LAUNCHES["shg_fused"]
-    out = shg_fused(*args)
-    torch.cuda.synchronize()
-    assert cuda_build.LAUNCHES["shg_fused"] == before + 1
-    for a, b in zip(out, shg_fused_plain(*args)):
-        assert a.dtype == b.dtype == torch.uint16 and a.shape == b.shape
-        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    args = _b1_inputs(rng, cuda_device, F, ih, iw, S)
+    path = fused_plan(args[0].data_ptr(), S, ih, iw)["path"]
+    assert path == B1_PATHS.get((F, ih, iw, S), path)
+    _check_b1(args, path)
+
+
+def test_fused_kernel_unaligned_view(rng, cuda_device):
+    """A contiguous view whose data pointer is not 16-byte aligned takes
+    the element path at a shape that otherwise takes the bulk path."""
+    F, ih, iw, S = 64, 64, 300, 2
+    flat = t(rng.integers(0, 65536, F * ih * iw + 1).astype(np.uint16),
+             cuda_device)
+    frames = flat[1:].view(F, ih, iw)
+    assert frames.is_contiguous() and frames.data_ptr() % 16 != 0
+    assert fused_plan(frames.data_ptr(), S, ih, iw)["path"] == "element"
+    _check_b1(_b1_inputs(rng, cuda_device, F, ih, iw, S, frames), "element")
+
+
+@pytest.mark.parametrize("F,ih,iw,S", B1_SHAPES + [(2000, 2048, 300, 2),
+                                                   (2000, 2048, 300, 7)])
+def test_fused_plan_matches_kernel_library(cuda_device, F, ih, iw, S):
+    """The wrapper's Python plan (which counts FUSED_PATHS) is the one the
+    kernel library launches, on aligned and unaligned frames."""
+    flat = torch.empty(F * ih * iw + 1, dtype=torch.uint16,
+                       device=cuda_device)
+    for off in (0, 1):
+        frames = flat[off:off + F * ih * iw].view(F, ih, iw)
+        got = fused_plan_cuda(frames, S)
+        want = fused_plan(frames.data_ptr(), S, ih, iw)
+        assert {k: got[k] for k in want} == want
+        assert got["blocks_per_sm"] >= 1 and got["fper"] % 32 == 0
+        nx, ny, nz = got["grid"]
+        assert nx == -(-iw // got["xw"]) and ny == -(-ih // got["yb"])
+        assert (nz - 1) * got["fper"] < F <= nz * got["fper"]
 
 
 def test_fused_step_equals_two_pass(rng, cuda_device):

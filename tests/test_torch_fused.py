@@ -47,7 +47,14 @@ from solex_ser_recon_en_torch.models.shg import (
     shg_forward_plain,
 )
 from solex_ser_recon_en_torch.ops import cuda_build
-from solex_ser_recon_en_torch.ops.fused_cuda import shg_fused, shg_fused_plain
+from solex_ser_recon_en_torch.ops.fused_cuda import (
+    B1_MAX_RUN,
+    B1_MAX_SMEM,
+    B1_THREADS,
+    fused_plan,
+    shg_fused,
+    shg_fused_plain,
+)
 from solex_ser_recon_en_torch.ops.recon import build_shift_indices, recon_plain
 from solex_ser_recon_en_torch.pipeline import run as port_run
 
@@ -65,6 +72,13 @@ CASES = {
     "s5": (9, 40, 24, [10, 0, -5, 5, 7], "cubic"),
     "edge_clipping": (12, 48, 20, [-30, 0, 30], "edge"),
     "windowed": (24, 256, 300, [-3, 0, 4], "cubic"),
+    # the bench-width shapes of B1's card tests
+    # (tests/test_torch_cuda_kernels.py:B1_SHAPES): bulk path, a frame tail,
+    # a row tail, the S = 7 sweep of bench_kernels.SWEEP
+    "bench_width": (64, 64, 300, [10, 0], "cubic"),
+    "frame_tail": (67, 64, 300, [10, 0], "cubic"),
+    "row_tail": (67, 70, 300, [10, 0], "cubic"),
+    "sweep_s7": (64, 64, 300, list(range(-10, 11, 3)), "cubic"),
 }
 
 
@@ -183,6 +197,71 @@ def test_shg_fused_rejects(case):
     args, exc = _bad_inputs()[case]
     with pytest.raises(exc):
         shg_fused(*args)
+
+
+def test_fused_plan_bench_slab_takes_bulk():
+    """The resident bench slab (2000 x 2048 x 300, aligned) takes the bulk
+    path: 20-row runs (750 16-byte chunks on 256 threads), 1 frame a stage,
+    6 stages in the ring (csrc/fused.cu's header note)."""
+    for S in (2, 7):
+        plan = fused_plan(4096, S, 2048, 300)
+        assert plan["path"] == "bulk"
+        assert (plan["yb"], plan["xw"], plan["K"], plan["D"], plan["fb"]) == (
+            20, 300, 1, 6, 32)
+
+
+@pytest.mark.parametrize("ptr,ih,iw,path", [
+    (4096, 64, 300, "bulk"),
+    (4098, 64, 300, "element"),        # a view 2 bytes into an allocation
+    (4104, 64, 300, "element"),        # 8-byte aligned only
+    (4096, 13, 2500, "element"),       # ih * iw not a multiple of 8
+    (4096, 3, 2, "element"),
+    (4096, 3, 9001, "element"),        # column chunks
+    (4096, 8, 9000, "element"),
+    (4096, 8, 8192, "bulk"),           # the widest row a block holds
+])
+def test_fused_plan_path(ptr, ih, iw, path):
+    assert fused_plan(ptr, 2, ih, iw)["path"] == path
+
+
+def _old_b1_accepts(S, iw):
+    """Whether the previous B1 launch (one frame per barrier, a 2048-element
+    block) fitted its shared memory: the inputs the new one must accept."""
+    xw, yb = (iw, min(8, 2048 // iw)) if iw <= 2048 else (2047, 1)
+
+    def smem(yb):
+        return (((4 * yb * (xw + 1)) + 15) & ~15) + 64 * S * yb + 4 * S * yb \
+            + 4 * yb
+    while yb > 1 and smem(yb) > 48 * 1024:
+        yb -= 1
+    return smem(yb) <= B1_MAX_SMEM
+
+
+@pytest.mark.parametrize("iw", [2, 60, 300, 2048, 2049, 2500, 8192, 9001,
+                                100000])
+def test_fused_plan_geometry(iw):
+    """For every S the previous kernel took (and more), the plan fits the
+    opt-in shared memory, keeps a thread's work within its 4 chunks, uses
+    the bulk path only where the copies are 16-byte multiples, and refuses
+    nothing the previous kernel took."""
+    for ptr in (4096, 4098):
+        for ih in (1, 3, 13, 70, 2048):
+            for S in (1, 2, 7, 121, 800, 3000, 3500, 5000, 12000):
+                plan = fused_plan(ptr, S, ih, iw)
+                if plan is None:
+                    assert not _old_b1_accepts(S, iw)
+                    continue
+                run = plan["xw"] + 1 if plan["xw"] < iw else plan["yb"] * iw
+                assert plan["smem"] <= B1_MAX_SMEM
+                assert run <= B1_MAX_RUN == 8 * 4 * B1_THREADS
+                assert 1 <= plan["yb"] <= ih and plan["xw"] <= B1_MAX_RUN
+                assert plan["K"] in (1, 2, 4, 8) and 2 <= plan["D"] <= 8
+                assert plan["fb"] in (8, 16, 32)
+                if plan["xw"] < iw:
+                    assert plan["yb"] == 1 and plan["path"] == "element"
+                if plan["path"] == "bulk":
+                    assert ptr % 16 == 0 and ih * iw % 8 == 0
+                    assert plan["yb"] * iw % 8 == 0
 
 
 STAGE_KEYS = {"n_frames", "slab_mb", "feed_s_measured", "link_gbps_measured",
