@@ -10,7 +10,9 @@ the CLI once to build the kernels and warm the allocator, then once more
 under torch.profiler, and prints: that run's wall time (profiler on) and
 its StageTimer stages, the device-busy time (the union of the kernel, copy
 and memset intervals of the trace) with the card's idle share of the wall
-time, and the device time by kernel or copy name.  It then makes the same
+time, the device time by kernel or copy name, and the launches and device
+time of kernels B3, B4 and B5 (``recon_chunks_kernel``,
+``hresample_kernel``, ``hist_kernel``).  It then makes the same
 scan resident and normalised (bench_device.resident_frames) and profiles
 one warm call of the fused step (models/shg.py:shg_forward, kernel B1,
 shifts [10, 0]) the same way, and one of the same step on kernel B6
@@ -31,6 +33,10 @@ import time
 import chip_smoke
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+#: the kernels of the -cw0 run summed by name (csrc/recon.cu, csrc/warp.cu,
+#: csrc/hist.cu)
+KERNEL_NAMES = {"B3": "recon_chunks_kernel", "B4": "hresample_kernel",
+                "B5": "hist_kernel"}
 
 
 def busy_us(intervals) -> float:
@@ -62,6 +68,7 @@ def report(prof, trace: str, wall_ms: float, label: str, card: str) -> None:
     print("device time by name (us, launches):")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
         print(f"  {us:10.1f} {n:5d}  {name[:100]}")
+    return by_name
 
 
 def main(argv) -> int:
@@ -90,7 +97,13 @@ def main(argv) -> int:
         if rc != 0:
             chip_smoke.fail("profiled run failed")
         trace = os.path.join(tmp, "trace.json")
-        report(prof, trace, wall_ms, "profiled run", card)
+        by_name = report(prof, trace, wall_ms, "profiled run", card)
+        for kid, kernel in KERNEL_NAMES.items():
+            hits = [v for k, v in by_name.items() if kernel in k]
+            if not hits:
+                chip_smoke.fail(f"{kid} ({kernel}) is not in the profile")
+            print(f"{kid} ({kernel}): {sum(n for n, _ in hits)} launches, "
+                  f"device {sum(us for _, us in hits) / 1e3:.4f} ms [{card}]")
         if argv:
             shutil.copy(trace, argv[0])
 

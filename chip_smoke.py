@@ -13,19 +13,23 @@ Phases; any failure exits non-zero before the final result line:
    wide) written as SER to a temporary directory.
 4. end to end: ``cli.main.main(["-cw0", scan])`` twice.  The first run
    goes through capture hooks (kernel inputs, stage results); the second,
-   timed, runs with no hook.  The launch counts of kernels B3 (recon),
-   B4 (hresample) and B5 (tile_hist) over the second run must all be > 0;
-   the line fit, mean/max, shift-0 disk, fitted ratio and the corrected
-   disk are checked against the scan's ground truth, and
-   ``_shift=0_clahe.png`` against the corrected disk.
+   timed, runs with no hook.  Over the second run kernel B3 (recon) must
+   be launched exactly once (one launch over all resident chunks), B5
+   (tile_hist) exactly twice (the CLAHE tiles, the CLAHE image's value
+   histogram) and B4 (hresample) at least once; the line fit, mean/max,
+   shift-0 disk, fitted ratio and the corrected disk are checked against
+   the scan's ground truth, and ``_shift=0_clahe.png`` against the
+   corrected disk.
 5. kernels vs plain: each kernel against its plain PyTorch version on the
-   inputs the main path gave it in the first run (B3, B4, B5 bit-identical),
-   both timed with CUDA events (median of repeats), with its bound (bytes
-   once over 3.35 TB/s or operations over peak, the larger) and, where one
-   PyTorch call computes the same function, that call's time.  The rows of
-   B1 and B6 are taken after phase 6, on the normalised slab phase 6 left
-   resident: B1 at S = 2, B6 at S = 2 and at the S = 7 sweep of the
-   shoot-out (both bit-identical).  B6's mean and max must equal B1's, its
+   inputs the main path gave it in the first run (B3 over the resident
+   chunks, B4, B5 on the images; bit-identical), both timed with CUDA
+   events (median of repeats), with its bound (bytes once over 3.35 TB/s
+   or operations over peak, the larger) and, where one PyTorch call
+   computes the same function, that call's time; B3 and B5 also with
+   their device time queued behind a sleep kernel, its share of the bound
+   and their launches in run 2.  The rows of B1 and B6 are taken after
+   phase 6, on the normalised slab phase 6 left resident: B1 at S = 2, B6
+   at S = 2 and at the S = 7 sweep of the shoot-out (both bit-identical).  B6's mean and max must equal B1's, its
    disks lie within 1 LSB of B1's (the share of differing pixels is
    printed), and its shift-0 disk within 1 LSB of a float64 lerp.  B1's
    line also gives its read rate and share of its bound at S = 2 and 7,
@@ -39,9 +43,10 @@ Phases; any failure exits non-zero before the final result line:
    shift-10/0 disks phase 4's B3 disks, bit for bit; its _clahe.png must
    not be empty.  Every B1 launch of the path must take the bulk copy path
    (``fused_cuda.FUSED_PATHS``), and the kernel library's launch geometry
-   must equal the wrapper's (``fused_plan_cuda`` vs ``fused_plan``).  Information lines, no pass/fail: B1 against the two-pass
-   route (torch sum/max + B3) at S = 2, 7, 21 on the same slab, and the
-   peak device memory of the run.
+   must equal the wrapper's (``fused_plan_cuda`` vs ``fused_plan``).
+   Information lines, no pass/fail: B1 against the two-pass route (torch
+   sum/max + B3) at S = 2, 7, 21 on the same slab, and the peak device
+   memory of the run.
 7. shoot-out: ``bench_kernels.run`` at full size (2000 x 2048 x 300, S = 2
    and 7; the post-processing rows on a 2074 x 2100 image), every row
    printed with the card's name.  The launch counts of all five kernels
@@ -184,6 +189,25 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn()``: ``reps`` calls queued behind a
+    sleep kernel, so that the host's launch time is hidden and the CUDA
+    events bracket only the card's work."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def make_scan(path: str):
     from solex_ser_recon_en_torch.io.ser import write_ser
     from solex_ser_recon_en_torch.io.synthetic import SyntheticScan
@@ -293,8 +317,8 @@ def main() -> int:
 
         res, caps = {}, {"recon": [], "hresample": [], "tile_hist": {}}
         targets = {"read_scan": cli_main, "mean_max": fused.RawScanProcessor,
-                   "single_image_process": run_mod, "recon": fused,
-                   "hresample": warp_fast, "tile_histograms": clahe}
+                   "single_image_process": run_mod, "recon_chunks": fused,
+                   "hresample": warp_fast, "image_tile_histograms": clahe}
         orig = {name: getattr(obj, name) for name, obj in targets.items()}
 
         def read_scan(file, opts, dev, timer=None):
@@ -311,22 +335,26 @@ def main() -> int:
             res["frame"] = frame
             return orig["single_image_process"](frame, *a, **k)
 
-        def recon(*a):
-            caps["recon"].append(a)
-            return orig["recon"](*a)
+        def recon_chunks(chunks, ind_l, left_w, rotate, upscale, out=None,
+                         frame_offset=0):
+            caps["recon"].append((list(chunks), ind_l, left_w, rotate,
+                                  upscale))
+            return orig["recon_chunks"](chunks, ind_l, left_w, rotate,
+                                        upscale, out, frame_offset)
 
         def hresample(*a):
             caps["hresample"] = [t.clone() for t in a]
             return orig["hresample"](*a)
 
-        def tile_histograms(tiles, hs):
-            caps["tile_hist"][tuple(tiles.shape)] = (tiles.clone(), hs)
-            return orig["tile_histograms"](tiles, hs)
+        def image_tile_histograms(img, ty, tx, hs):
+            caps["tile_hist"][(tuple(img.shape), ty, tx)] = (img.clone(), ty,
+                                                            tx, hs)
+            return orig["image_tile_histograms"](img, ty, tx, hs)
 
         hooks = {"read_scan": read_scan, "mean_max": mean_max,
                  "single_image_process": single_image_process,
-                 "recon": recon, "hresample": hresample,
-                 "tile_histograms": tile_histograms}
+                 "recon_chunks": recon_chunks, "hresample": hresample,
+                 "image_tile_histograms": image_tile_histograms}
         for name, obj in targets.items():
             setattr(obj, name, hooks[name])
 
@@ -354,6 +382,12 @@ def main() -> int:
         for name in CW0_KERNELS:
             if launches[name] <= 0:
                 fail(f"kernel {name} was not launched by the -cw0 path")
+        # B3: one launch over all resident chunks; B5: the CLAHE tiles and
+        # the CLAHE image's value histogram
+        for name, n in (("recon", 1), ("tile_hist", 2)):
+            if launches[name] != n:
+                fail(f"kernel {name} was launched {launches[name]} times "
+                     f"by the -cw0 path, not {n}")
 
         png = os.path.join(outdir, "scan_shift=0_clahe.png")
         if not os.path.exists(png):
@@ -372,9 +406,12 @@ def main() -> int:
         del full
 
         # 5. kernels vs plain versions on the main path's inputs
-        from solex_ser_recon_en_torch.ops.clahe import tile_histograms_plain
+        from solex_ser_recon_en_torch.ops.clahe import (
+            image_tile_histograms_plain,
+            tile_keys,
+        )
         from solex_ser_recon_en_torch.ops.dtypes import widen
-        from solex_ser_recon_en_torch.ops.recon import recon_plain
+        from solex_ser_recon_en_torch.ops.recon import recon_chunks_plain
 
         reps = 20
         records = []
@@ -385,22 +422,30 @@ def main() -> int:
             return (x - y).abs().max().item()
 
         rc_args = caps["recon"]
-        err = max(max_abs_err(orig["recon"](*a), recon_plain(*a))
+        err = max(max_abs_err(orig["recon_chunks"](*a), recon_chunks_plain(*a))
                   for a in rc_args)
-        ms = cuda_ms(lambda: [orig["recon"](*a) for a in rc_args], reps)
-        pms = cuda_ms(lambda: [recon_plain(*a) for a in rc_args], reps)
+        ms = cuda_ms(lambda: [orig["recon_chunks"](*a) for a in rc_args],
+                     reps)
+        dms = device_ms(lambda: [orig["recon_chunks"](*a) for a in rc_args],
+                        reps)
+        pms = cuda_ms(lambda: [recon_chunks_plain(*a) for a in rc_args], reps)
         nbytes, flops = 0, 0
-        for raw, ind_l, left_w, rotate, _ in rc_args:
-            n, S, ih = raw.shape[0], ind_l.shape[0], ind_l.shape[1]
+        for chunks, ind_l, left_w, rotate, _ in rc_args:
+            raw = chunks[0]
+            n = sum(c.shape[0] for c in chunks)
+            S, ih = ind_l.shape
             iw = raw.shape[1] if rotate else raw.shape[2]
             nbytes += (tap_columns(ind_l, iw) * n * raw.element_size()
                        + S * ih * n * 2 + ind_l.nbytes + left_w.nbytes)
             flops += 3 * S * ih * n
+        b3 = bound(nbytes, {"f32": flops})
         records.append(dict(
             name="recon", err=err, ms=ms, plain_ms=pms, library_ms=None,
-            bound=bound(nbytes, {"f32": flops}),
-            note=f"{len(rc_args)} calls on chunks of "
-                 f"{tuple(rc_args[0][0].shape)}"))
+            bound=b3,
+            note=f"{len(rc_args)} launch over {len(rc_args[0][0])} chunks "
+                 f"of {tuple(rc_args[0][0][0].shape)}; device {dms:.4f} ms, "
+                 f"{100 * b3[0] / dms:.1f}% of bound; launches in run 2: "
+                 f"{launches['recon']}"))
 
         a = caps["hresample"]
         out = orig["hresample"](*a)
@@ -413,26 +458,36 @@ def main() -> int:
                         {"f32": 4 * out.numel()}),
             note=f"V {tuple(a[0].shape)} -> {tuple(out.shape)}"))
 
-        err, ms, pms, lms, nbytes, nvals = 0, 0.0, 0.0, 0.0, 0, 0
+        err, ms, pms, lms, dms = 0, 0.0, 0.0, 0.0, 0.0
+        nbytes, nvals, old_bytes = 0, 0, 0
         hist_args = sorted(caps["tile_hist"].items())
-        for _, (tiles, hs) in hist_args:
-            err = max(err, max_abs_err(orig["tile_histograms"](tiles, hs),
-                                       tile_histograms_plain(tiles, hs)))
-            ms += cuda_ms(lambda: orig["tile_histograms"](tiles, hs), reps)
-            pms += cuda_ms(lambda: tile_histograms_plain(tiles, hs), reps)
-            # library yardstick: one bincount over tile-offset values (the
-            # main path's values all lie in [0, hs))
-            T = tiles.shape[0]
-            flat = (tiles.long() + hs * torch.arange(
-                T, device=tiles.device)[:, None]).reshape(-1)
-            lms += cuda_ms(lambda: torch.bincount(flat, minlength=T * hs),
+        for _, (img, ty, tx, hs) in hist_args:
+            a = (img, ty, tx, hs)
+            err = max(err, max_abs_err(orig["image_tile_histograms"](*a),
+                                       image_tile_histograms_plain(*a)))
+            ms += cuda_ms(lambda: orig["image_tile_histograms"](*a), reps)
+            dms += device_ms(lambda: orig["image_tile_histograms"](*a), reps)
+            pms += cuda_ms(lambda: image_tile_histograms_plain(*a), reps)
+            # library yardstick: one bincount over the tile-offset values,
+            # made beforehand
+            keys = tile_keys(*a)
+            T = ty * tx
+            lms += cuda_ms(lambda: torch.bincount(keys, minlength=T * hs),
                            reps)
-            nbytes += tiles.nbytes + T * hs * 4
-            nvals += tiles.numel()
+            # bound: the image read once, the bins written once (the
+            # kernel's earlier form read a padded int32 tile copy instead)
+            nbytes += img.nbytes + T * hs * 4
+            old_bytes += keys.numel() * 4 + T * hs * 4
+            nvals += keys.numel()
+        b5 = bound(nbytes, {"int32": nvals})
         records.append(dict(
             name="tile_hist", err=err, ms=ms, plain_ms=pms, library_ms=lms,
-            bound=bound(nbytes, {"int32": nvals}),
-            note=f"tiles {[shape for shape, _ in hist_args]}"))
+            bound=b5,
+            note=f"images {[k for k, _ in hist_args]}; device {dms:.4f} ms "
+                 f"with the output zeroing, {100 * b5[0] / dms:.1f}% of "
+                 f"bound; launches in run 2: {launches['tile_hist']}; bound "
+                 f"before this kernel read the image: "
+                 f"{bound(old_bytes, {'int32': nvals})[0]:.4f} ms"))
 
         # 6. the resident path on the phase-3 scan
         from solex_ser_recon_en_torch import bench_device

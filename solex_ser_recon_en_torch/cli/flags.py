@@ -2,6 +2,8 @@
 
 A copy of solex_ser_recon_en_tpu/cli/flags.py (that package imports jax on
 import) with the port's long options: ``--device`` and ``--output-dir``.
+The JAX CLI's other long options, and any unknown ``--name``, are refused
+(``UnsupportedOption``).
 
 reference: CLI_handler.py:10-114 — flags may be packed (``-tw 0,5``); ``w``
 consumes a shift spec (``a,b,c`` / ``x:y`` / ``x:y:w``); ``r`` consumes an
@@ -36,6 +38,9 @@ def usage() -> str:
         "    when asked for.\n"
         "'--output-dir DIR' : write products to DIR (default: next to\n"
         "    each input file).\n"
+        "'--mesh', '--feed', '--input-dir', '--num-processes',\n"
+        "    '--process-id', '--profile' : options of the JAX CLI, refused\n"
+        "    here (exit code 2) until they are ported.\n"
         "This port runs the -c (clahe-only) path; the other product modes\n"
         "are not ported yet."
     )
@@ -144,23 +149,30 @@ def _apply_flag_group(options: Options, argument: str) -> None:
             i += 1
 
 
+#: long options of the JAX package's CLI (solex_ser_recon_en_tpu/cli/
+#: flags.py:193-202, and --profile[=dir] at cli/main.py:250-261) that this
+#: port does not run yet; each is refused, never read as packed letters
+UNPORTED_LONG_OPTS = ("--mesh", "--feed", "--input-dir", "--num-processes",
+                      "--process-id", "--profile")
+
+
+class UnsupportedOption(ValueError):
+    """A ``--name`` option this port refuses (cli/main.py exits 2)."""
+
+
 def parse_cli(options: Options, argv: List[str]) -> Tuple[List[str], str]:
     """Parse argv into options; returns (input files, device name).
 
-    reference: CLI_handler.py:103-114.
+    reference: CLI_handler.py:103-114.  Raises UnsupportedOption for an
+    unported or unknown ``--name`` before anything is created.
     """
-    state = {"device": "cuda"}
+    state = {"device": "cuda", "output_dir": None}
 
     def set_device(name: str) -> None:
         state["device"] = name
 
     def set_output_dir(path: str) -> None:
-        try:
-            os.makedirs(path, exist_ok=True)
-        except OSError as e:
-            print(f"--output-dir: cannot create {path!r}: {e}")
-            sys.exit(1)
-        options.output_dir = path
+        state["output_dir"] = path
 
     long_opts = {
         "--device": (set_device, "a device (cuda|cpu)"),
@@ -180,6 +192,11 @@ def parse_cli(options: Options, argv: List[str]) -> Tuple[List[str], str]:
                 long_opts[name][0](argument.split("=", 1)[1])
             else:
                 pending = name
+        elif name in UNPORTED_LONG_OPTS:
+            raise UnsupportedOption(
+                f"option {name} is not ported to solex_ser_recon_en_torch yet")
+        elif argument.startswith("--"):
+            raise UnsupportedOption(f"unknown option {name}")
         elif argument.startswith("-"):
             _apply_flag_group(options, argument)
         else:
@@ -194,4 +211,12 @@ def parse_cli(options: Options, argv: List[str]) -> Tuple[List[str], str]:
     if pending is not None:
         print(f"{pending} requires {long_opts[pending][1]}")
         sys.exit(1)
+    path = state["output_dir"]
+    if path is not None:
+        try:
+            os.makedirs(path, exist_ok=True)
+        except OSError as e:
+            print(f"--output-dir: cannot create {path!r}: {e}")
+            sys.exit(1)
+        options.output_dir = path
     return files, state["device"]

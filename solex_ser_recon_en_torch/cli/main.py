@@ -16,7 +16,7 @@ from ..config import Options
 from ..pipeline.run import check_supported, process_scan, read_scan
 from ..utils.device import resolve_device
 from ..utils.timer import StageTimer
-from .flags import parse_cli, usage
+from .flags import UnsupportedOption, parse_cli, usage
 
 
 def handle_files(files: List[str], options: Options, device) -> int:
@@ -42,7 +42,11 @@ def handle_files(files: List[str], options: Options, device) -> int:
 def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     options = Options()
-    files, device_name = parse_cli(options, argv)
+    try:
+        files, device_name = parse_cli(options, argv)
+    except UnsupportedOption as e:
+        print(f"ERROR: {e}")
+        return 2
     if not files:
         print(usage())
         return 1

@@ -12,8 +12,10 @@ to the final uint16 disk (solex_util.py:532-533).  OpenCV's algorithm:
 5. bilinear interpolation of the 4 neighbouring tile LUTs over the
    original (unpadded) pixel grid.
 
-``tile_histograms`` launches kernel B5 (csrc/hist.cu) for CUDA tensors and
-takes ``tile_histograms_plain`` for CPU tensors.
+``image_tile_histograms`` (step 2 on the image itself, padding included)
+and ``tile_histograms`` (on a (T, n) int32 tile tensor) launch kernel B5
+(csrc/hist.cu) for CUDA tensors and take their plain versions for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -24,11 +26,11 @@ import torch
 from . import cuda_build
 from .dtypes import widen
 
-HIST_CHUNK = 1 << 17   # values per block of kernel B5
+_HIST_DTYPES = (torch.uint8, torch.uint16, torch.int32)
 
 
 def tile_histograms_plain(tiles: torch.Tensor, hist_size: int) -> torch.Tensor:
-    """Plain PyTorch version of kernel B5: tiles (T, n) int32 ->
+    """Plain PyTorch version of kernel B5 on tiles (T, n) int32 ->
     (T, hist_size) int32 exact counts; values outside [0, hist_size) are
     skipped."""
     T, n = tiles.shape
@@ -39,27 +41,105 @@ def tile_histograms_plain(tiles: torch.Tensor, hist_size: int) -> torch.Tensor:
     return counts.to(torch.int32).reshape(T, hist_size)
 
 
-def tile_histograms(tiles: torch.Tensor, hist_size: int) -> torch.Tensor:
-    """Kernel B5 on CUDA tensors, the plain version on CPU tensors."""
-    if tiles.device.type == "cpu":
-        return tile_histograms_plain(tiles, hist_size)
-    if tiles.device.type != "cuda":
-        raise ValueError(f"tile_histograms: unsupported device {tiles.device}")
-    if tiles.dtype != torch.int32 or tiles.ndim != 2 or not tiles.is_contiguous():
-        raise TypeError("tile_histograms: tiles must be contiguous (T, n) int32")
-    T, n = tiles.shape
-    if not (0 < T <= 65535 and 0 < n < (1 << 31) and 0 < hist_size <= (1 << 24)):
-        raise ValueError(f"tile_histograms: T={T}, n={n}, "
-                         f"hist_size={hist_size} out of range")
-    out = torch.empty((T, hist_size), dtype=torch.int32, device=tiles.device)
-    with torch.cuda.device(tiles.device):
+def _padded(n: int, tiles: int, what: str) -> int:
+    """n padded to a multiple of ``tiles`` (BORDER_REFLECT_101 needs the
+    padding to be shorter than n)."""
+    if tiles < 1:
+        raise ValueError(f"image_tile_histograms: {tiles} tiles along {what}")
+    pad = (-n) % tiles
+    if pad and pad >= n:
+        raise ValueError(f"image_tile_histograms: {n} pixels along {what} "
+                         f"cannot be reflect-padded to {tiles} tiles")
+    return n + pad
+
+
+def tile_keys(img: torch.Tensor, tiles_y: int, tiles_x: int,
+              hist_size: int) -> torch.Tensor:
+    """tile * hist_size + value of every pixel of the BORDER_REFLECT_101-
+    padded (h, w) image whose value lies in [0, hist_size), tile t = ty *
+    tiles_x + tx: the keys kernel B5 counts (int64, flat)."""
+    h, w = img.shape
+    ph, pw = _padded(h, tiles_y, "y"), _padded(w, tiles_x, "x")
+    th, tw = ph // tiles_y, pw // tiles_x
+    dev = img.device
+    r = torch.arange(ph, device=dev)
+    c = torch.arange(pw, device=dev)
+    src_r = torch.where(r < h, r, 2 * h - 2 - r)
+    src_c = torch.where(c < w, c, 2 * w - 2 - c)
+    vals = widen(img)[src_r][:, src_c].long()                # (ph, pw)
+    tile = (r // th)[:, None] * tiles_x + (c // tw)[None, :]
+    ok = (vals >= 0) & (vals < hist_size)
+    return (tile * hist_size + vals)[ok]
+
+
+def image_tile_histograms_plain(img: torch.Tensor, tiles_y: int,
+                                tiles_x: int, hist_size: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel B5 on an image: every pixel of the
+    padded image counted into its tile's histogram (``tile_keys``) ->
+    (T, hist_size) int32, the counts of cv2's CLAHE tiles."""
+    counts = torch.bincount(tile_keys(img, tiles_y, tiles_x, hist_size),
+                            minlength=tiles_y * tiles_x * hist_size)
+    return counts.to(torch.int32).reshape(tiles_y * tiles_x, hist_size)
+
+
+def _launch_hist(img: torch.Tensor, tiles_y: int, tiles_x: int,
+                 hist_size: int) -> torch.Tensor:
+    """One launch of kernel B5 on a CUDA image (checked by the callers),
+    its grid sized from the card."""
+    out = torch.empty((tiles_y * tiles_x, hist_size), dtype=torch.int32,
+                      device=img.device)
+    with torch.cuda.device(img.device):
         rc = cuda_build.lib().solex_tile_hist(
-            tiles.data_ptr(), T, n, hist_size, HIST_CHUNK, out.data_ptr(),
-            cuda_build.stream_handle(tiles.device),
-        )
+            img.data_ptr(), img.element_size(), img.shape[0], img.shape[1],
+            tiles_y, tiles_x, hist_size, out.data_ptr(),
+            cuda_build.stream_handle(img.device))
     cuda_build.check(rc, "tile_hist")
     cuda_build.LAUNCHES["tile_hist"] += 1
     return out
+
+
+def _check_cuda(img: torch.Tensor, name: str) -> None:
+    if img.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {img.device}")
+    if not img.is_contiguous():
+        raise ValueError(f"{name}: the input must be contiguous")
+
+
+def image_tile_histograms(img: torch.Tensor, tiles_y: int, tiles_x: int,
+                          hist_size: int) -> torch.Tensor:
+    """Exact value histograms of cv2's CLAHE tiles of an (h, w) u8/u16
+    image (BORDER_REFLECT_101 padding to a multiple of the grid included)
+    -> (tiles_y * tiles_x, hist_size) int32.  Kernel B5 on CUDA tensors,
+    reading the image in place; the plain version on CPU tensors."""
+    if img.ndim != 2 or img.dtype not in _HIST_DTYPES:
+        raise TypeError(f"image_tile_histograms: (h, w) u8/u16/int32 image "
+                        f"expected, got {tuple(img.shape)} {img.dtype}")
+    h, w = img.shape
+    ph, pw = _padded(h, tiles_y, "y"), _padded(w, tiles_x, "x")
+    if not (0 < tiles_y * tiles_x <= 65535 and ph * pw // (tiles_y * tiles_x)
+            < (1 << 30) and 0 < hist_size <= (1 << 24)):
+        raise ValueError(f"image_tile_histograms: image {h}x{w}, tiles "
+                         f"{tiles_y}x{tiles_x}, hist_size={hist_size} out "
+                         f"of range")
+    if img.device.type == "cpu":
+        return image_tile_histograms_plain(img, tiles_y, tiles_x, hist_size)
+    _check_cuda(img, "image_tile_histograms")
+    return _launch_hist(img, tiles_y, tiles_x, hist_size)
+
+
+def tile_histograms(tiles: torch.Tensor, hist_size: int) -> torch.Tensor:
+    """Histograms of (T, n) int32 tiles: kernel B5 (one 1-row tile per row
+    of the tensor) on CUDA tensors, the plain version on CPU tensors."""
+    if tiles.dtype != torch.int32 or tiles.ndim != 2:
+        raise TypeError("tile_histograms: tiles must be (T, n) int32")
+    T, n = tiles.shape
+    if not (0 < T <= 65535 and 0 < n < (1 << 30) and 0 < hist_size <= (1 << 24)):
+        raise ValueError(f"tile_histograms: T={T}, n={n}, "
+                         f"hist_size={hist_size} out of range")
+    if tiles.device.type == "cpu":
+        return tile_histograms_plain(tiles, hist_size)
+    _check_cuda(tiles, "tile_histograms")
+    return _launch_hist(tiles, T, 1, hist_size)
 
 
 def _clip_redistribute(hist: torch.Tensor, clip: int, hist_size: int
@@ -112,16 +192,7 @@ def percentile_from_hist(hist: torch.Tensor, n: int, q_pct: float
 
 def value_histogram(img: torch.Tensor, hist_size: int) -> torch.Tensor:
     """Exact (hist_size,) histogram of a full u8/u16 image (one tile)."""
-    return tile_histograms(widen(img).reshape(1, -1), hist_size)[0]
-
-
-def _reflect_rows(x: torch.Tensor, pad: int, dim: int) -> torch.Tensor:
-    """Pad ``pad`` entries at the end of ``dim`` with BORDER_REFLECT_101."""
-    if pad == 0:
-        return x
-    n = x.shape[dim]
-    idx = torch.arange(n - 2, n - 2 - pad, -1, device=x.device)
-    return torch.cat([x, x.index_select(dim, idx)], dim=dim)
+    return image_tile_histograms(img, 1, 1, hist_size)[0]
 
 
 def _clahe(img: torch.Tensor, clip_limit: float, tiles_x: int,
@@ -130,23 +201,16 @@ def _clahe(img: torch.Tensor, clip_limit: float, tiles_x: int,
     the image's exact value histogram when the grid needs no padding,
     else None)."""
     h, w = img.shape
-    vals = widen(img)
     pad_r = (-w) % tiles_x
     pad_b = (-h) % tiles_y
-    src = _reflect_rows(_reflect_rows(vals, pad_b, 0), pad_r, 1)
-    ph, pw = h + pad_b, w + pad_r
-    th, tw = ph // tiles_y, pw // tiles_x
+    th, tw = (h + pad_b) // tiles_y, (w + pad_r) // tiles_x
     tile_area = th * tw
     lut_scale = _f32(np.float32(hist_size - 1) / np.float32(tile_area))
     clip = max(int(clip_limit * tile_area / hist_size), 1) if clip_limit > 0 else 0
 
-    tiles = (
-        src.reshape(tiles_y, th, tiles_x, tw)
-        .permute(0, 2, 1, 3)
-        .reshape(tiles_y * tiles_x, tile_area)
-        .contiguous()
-    )
-    hist = tile_histograms(tiles, hist_size)
+    # step 2 on the image in place: kernel B5 pads and tiles it itself
+    hist = image_tile_histograms(img, tiles_y, tiles_x, hist_size)
+    vals = widen(img)                                       # for the LUTs
     full_hist = None
     if return_full_hist and pad_r == 0 and pad_b == 0:
         full_hist = hist.sum(dim=0, dtype=torch.int32)

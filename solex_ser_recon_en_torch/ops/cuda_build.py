@@ -40,15 +40,24 @@ NVCC_FLAGS = [
 LAUNCHES = {"recon": 0, "hresample": 0, "tile_hist": 0, "shg_fused": 0,
             "shg_fused_mxu": 0}
 
+#: the most raw chunks one launch of kernel B3 takes (its pointer table,
+#: csrc/recon.cu:kMaxChunks; checked against the library when it loads)
+RECON_MAX_CHUNKS = 256
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # raw, elem_bytes, ind_l, left_w, out, S, F, H, W, ih, rotate, upscale, stream
-    "solex_recon": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # bases (host array of K device pointers), K, chunk_frames, elem_bytes,
+    # ind_l, left_w, out, S, F, H, W, ih, out_frames, frame_offset, rotate,
+    # upscale, stream
+    "solex_recon_chunks": [ctypes.POINTER(ctypes.c_uint64), _I, _I, _I,
+                           _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _P],
+    "solex_recon_max_chunks": [],
     # V, loc, w0, w1, cadd, out, K, H, Wp, OW, stream
     "solex_hresample": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # tiles, T, n, hist_size, chunk, out, stream
-    "solex_tile_hist": [_P, _I, _I, _I, _I, _P, _P],
+    # img, elem_bytes, h, w, tiles_y, tiles_x, hist_size, out, stream
+    "solex_tile_hist": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
     # frames, ind_l, left_w, sum, max, disks, S, F, ih, iw, stream
     "solex_shg_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # the same arguments
@@ -150,6 +159,10 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            if handle.solex_recon_max_chunks() != RECON_MAX_CHUNKS:
+                raise RuntimeError("csrc/recon.cu's chunk table holds "
+                                   f"{handle.solex_recon_max_chunks()} "
+                                   f"pointers, not {RECON_MAX_CHUNKS}")
             _lib = handle
         return _lib
 

@@ -8,8 +8,9 @@ the raw on-disk layout, so the slab is never rotated or upscaled:
 - pass A: int32 sum and max over the raw frames of every chunk (plain
   torch, as the JAX package leaves it to XLA); the small (H, W) results
   are rotated/upscaled once at the end, in float64 on the host.
-- pass B: kernel B3 (ops/recon_cuda.py) per resident chunk, writing the
-  chunk's disjoint frame columns of the (S, ih, F) disks.
+- pass B: kernel B3 (ops/recon_cuda.py:recon_chunks), launched once over
+  all resident chunks (or once per streamed chunk), writing straight into
+  the (S, ih, F) disks.
 
 For wide-stored scans (Width > Height, the common Sol'Ex case):
     norm[y, x] = raw[x, W-1-y]   (np.rot90; video_reader.py:119-120)
@@ -26,9 +27,9 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from .dtypes import as_int16, widen
+from .dtypes import widen
 from .recon import build_shift_indices
-from .recon_cuda import recon
+from .recon_cuda import RECON_MAX_CHUNKS, recon_chunks
 
 
 class RawScanProcessor:
@@ -73,21 +74,58 @@ class RawScanProcessor:
             mx = mx << 8
         return mean, np.ascontiguousarray(mx)
 
+    def _pass_b_setup(self, fit_floor, fit_frac, shifts: List[int]):
+        """(ind_l, left_w) on the device and the empty (S, ih, count)
+        disks that pass B fills."""
+        ind_l, left_w = build_shift_indices(fit_floor, fit_frac, shifts,
+                                            self.iw)
+        disks = torch.empty((len(shifts), self.ih, self.count),
+                            dtype=torch.uint16, device=self.device)
+        return (torch.from_numpy(ind_l).to(self.device),
+                torch.from_numpy(left_w).to(self.device), disks)
+
     def reconstruct(self, fit_floor, fit_frac, shifts: List[int]) -> torch.Tensor:
+        """Pass B over the resident chunks: one launch of kernel B3 over
+        all of them (more only past RECON_MAX_CHUNKS chunks), straight
+        into the disks."""
         if not self._chunks:
             raise ValueError("no resident chunks to reconstruct from")
-        return self.reconstruct_streaming(self._chunks, fit_floor, fit_frac,
-                                          shifts)
+        ind_l, left_w, disks = self._pass_b_setup(fit_floor, fit_frac, shifts)
+        for start, group in launch_groups(self._chunks, self.count):
+            recon_chunks(group, ind_l, left_w, self.rotate, self.upscale,
+                         disks, start)
+        return disks
 
     def reconstruct_streaming(self, chunks, fit_floor, fit_frac,
                               shifts: List[int]) -> torch.Tensor:
-        """Pass B over an iterable of (start, raw device chunk)."""
-        ind_l, left_w = build_shift_indices(fit_floor, fit_frac, shifts,
-                                            self.iw)
-        ind_l = torch.from_numpy(ind_l).to(self.device)
-        left_w = torch.from_numpy(left_w).to(self.device)
-        parts = [(start, recon(c, ind_l, left_w, self.rotate, self.upscale))
-                 for start, c in chunks]
-        parts.sort(key=lambda p: p[0])
-        return torch.cat([as_int16(p) for _, p in parts], dim=2).view(
-            torch.uint16)
+        """Pass B over an iterable of (start, raw device chunk): one launch
+        per chunk, each into its frames of the disks; the chunks must
+        cover the frames pass A counted, in order."""
+        ind_l, left_w, disks = self._pass_b_setup(fit_floor, fit_frac, shifts)
+        for start, c in in_order(chunks, self.count):
+            recon_chunks([c], ind_l, left_w, self.rotate, self.upscale,
+                         disks, start)
+        return disks
+
+
+def in_order(chunks, count: int):
+    """Yield (start, chunk) pairs, checking that they tile frames [0,
+    count) in order."""
+    end = 0
+    for start, c in chunks:
+        if start != end:
+            raise ValueError(f"a chunk starts at frame {start}, not {end}")
+        yield start, c
+        end = start + c.shape[0]
+    if end != count:
+        raise ValueError(f"chunks hold {end} frames, pass A counted {count}")
+
+
+def launch_groups(chunks, count: int) -> List[Tuple[int, List[torch.Tensor]]]:
+    """(first frame, chunks) launches of kernel B3 over (start, chunk)
+    pairs that tile frames [0, count): the chunks in frame order,
+    RECON_MAX_CHUNKS a launch.  recon_chunks refuses a chunk shorter than
+    the first that is not the last, which the feeder never makes."""
+    ordered = list(in_order(sorted(chunks, key=lambda p: p[0]), count))
+    return [(ordered[i][0], [c for _, c in ordered[i:i + RECON_MAX_CHUNKS]])
+            for i in range(0, len(ordered), RECON_MAX_CHUNKS)]

@@ -19,7 +19,7 @@ XLA and this package to ``torch.bmm``.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,6 +75,23 @@ def recon_plain(raw: torch.Tensor, ind_l: torch.Tensor, left_w: torch.Tensor,
     return out.permute(1, 2, 0).contiguous()               # (S, ih, F)
 
 
+def recon_chunks_plain(chunks, ind_l: torch.Tensor, left_w: torch.Tensor,
+                       rotate: bool, upscale: bool,
+                       out: Optional[torch.Tensor] = None,
+                       frame_offset: int = 0) -> torch.Tensor:
+    """Plain version of kernel B3's launch over several raw chunks:
+    ``recon_plain`` of the chunks' frames in order, written into ``out``
+    (S, ih, F_out) u16 at frames [frame_offset, frame_offset + F) — or
+    returned as a new (S, ih, F) tensor when ``out`` is None."""
+    disks = recon_plain(torch.cat([as_int16(c) for c in chunks]).view(
+        chunks[0].dtype), ind_l, left_w, rotate, upscale)
+    if out is None:
+        return disks
+    F = disks.shape[2]
+    as_int16(out)[:, :, frame_offset:frame_offset + F] = as_int16(disks)
+    return out
+
+
 def onehot_weights(ind_l: torch.Tensor, left_w: torch.Tensor,
                    iw: int) -> torch.Tensor:
     """The recon's weights as a (ih, S, iw) float32 matrix per row:
@@ -95,15 +112,26 @@ def recon_onehot(frames: torch.Tensor, ind_l: torch.Tensor,
         out[y, s, f] = sum_x W[y, s, x] · frames[f, y, x]
 
     It makes a float32 copy of the slab.  TF32 is switched off for the
-    call, the counterpart of JAX's Precision.HIGHEST: TF32 keeps 10
-    mantissa bits, which would break the 1-LSB disk contract.
+    call only, the counterpart of JAX's per-operation Precision.HIGHEST:
+    TF32 keeps 10 mantissa bits, which would break the 1-LSB disk
+    contract.  The caller's float32 matmul precision and TF32 flag are
+    restored afterwards.
     """
     W = onehot_weights(ind_l, left_w, frames.shape[2])
     x = widen(frames).to(torch.float32).permute(1, 2, 0)    # (ih, iw, F)
-    torch.set_float32_matmul_precision("highest")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    if (torch.get_float32_matmul_precision() != "highest"
-            or torch.backends.cuda.matmul.allow_tf32):
-        raise RuntimeError("recon_onehot: float32 matmuls would run in TF32")
-    out = torch.bmm(W, x)                                   # (ih, S, F)
+    precision = torch.get_float32_matmul_precision()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        if (torch.get_float32_matmul_precision() != "highest"
+                or torch.backends.cuda.matmul.allow_tf32):
+            raise RuntimeError(
+                "recon_onehot: float32 matmuls would run in TF32")
+        out = torch.bmm(W, x)                               # (ih, S, F)
+    finally:
+        # the flag first: setting it moves the precision, which the second
+        # call then puts back
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.set_float32_matmul_precision(precision)
     return to_u16(out.clamp(0, 65535)).permute(1, 0, 2).contiguous()

@@ -24,8 +24,10 @@ from solex_ser_recon_en_torch.ops import cuda_build
 from solex_ser_recon_en_torch.ops.clahe import (
     _clip_redistribute,
     clahe,
+    image_tile_histograms,
     percentile_from_hist,
     tile_histograms,
+    tile_histograms_plain,
     value_histogram,
 )
 
@@ -45,6 +47,57 @@ def test_plain_histogram_matches_pallas_kernel(rng, hist_size, hi):
     assert cuda_build.LAUNCHES["tile_hist"] == before  # CPU: no launch
     np.testing.assert_array_equal(ours, ref)
     assert ours.sum(axis=1).tolist() == [5000, 4700, 5000]
+
+
+def _padded_tiles(img, tiles_y, tiles_x):
+    """cv2's CLAHE tiles of ``img`` made the old way, in numpy: pad with
+    BORDER_REFLECT_101 (numpy's "reflect"), permute to (T, tile_area)."""
+    h, w = img.shape
+    pad_b, pad_r = (-h) % tiles_y, (-w) % tiles_x
+    src = np.pad(img.astype(np.int32), ((0, pad_b), (0, pad_r)),
+                 mode="reflect")
+    th, tw = src.shape[0] // tiles_y, src.shape[1] // tiles_x
+    return np.ascontiguousarray(
+        src.reshape(tiles_y, th, tiles_x, tw).transpose(0, 2, 1, 3)
+        .reshape(tiles_y * tiles_x, th * tw))
+
+
+# even, odd; then tiles that lie wholly in the reflected padding at 8x8
+# (padding of 7 columns or rows, tiles of 4)
+@pytest.mark.parametrize("shape", [(40, 36), (37, 29), (40, 25), (25, 40)])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+@pytest.mark.parametrize("grid", [(2, 2), (8, 8)])
+def test_image_tile_histograms_match_padded_tiles(rng, shape, dtype, grid):
+    """Kernel B5's image form (its plain version: each pixel's tile and
+    reflected source worked out per pixel) equals the histograms of the
+    padded, permuted int32 tiles, and the JAX Pallas kernel on them."""
+    hi = 256 if dtype == np.uint8 else 65536
+    img = rng.integers(0, hi, shape).astype(dtype)
+    img[:5, :7] = 3                               # a hot value
+    ty, tx = grid
+    tiles = _padded_tiles(img, ty, tx)
+    before = cuda_build.LAUNCHES["tile_hist"]
+    ours = image_tile_histograms(t(img), ty, tx, hi).numpy()
+    assert cuda_build.LAUNCHES["tile_hist"] == before  # CPU: no launch
+    np.testing.assert_array_equal(ours,
+                                  tile_histograms_plain(t(tiles), hi).numpy())
+    ref = np.asarray(jax_clahe_mod._tile_histograms_mxu(jnp.asarray(tiles),
+                                                        hi))
+    np.testing.assert_array_equal(ours, ref)
+    assert ours.shape == (ty * tx, hi)
+    assert (ours.sum(axis=1) == tiles.shape[1]).all()
+
+
+def test_image_tile_histograms_refuses_what_cannot_be_padded():
+    with pytest.raises(ValueError, match="reflect-padded"):
+        image_tile_histograms(torch.zeros((2, 9), dtype=torch.uint16),
+                              4, 2, 65536)
+    with pytest.raises(TypeError):
+        image_tile_histograms(torch.zeros((4, 4), dtype=torch.float32),
+                              2, 2, 65536)
+    with pytest.raises(ValueError, match="unsupported device"):
+        image_tile_histograms(torch.zeros((4, 4), dtype=torch.uint16,
+                                          device="meta"), 2, 2, 65536)
 
 
 def test_value_histogram_exact(rng):

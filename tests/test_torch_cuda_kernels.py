@@ -22,9 +22,12 @@ from solex_ser_recon_en_torch.io.feeder import normalize_frames
 from solex_ser_recon_en_torch.models.shg import shg_forward, shg_forward_plain
 from solex_ser_recon_en_torch.ops import cuda_build
 from solex_ser_recon_en_torch.ops.clahe import (
+    _launch_hist,
+    image_tile_histograms_plain,
     tile_histograms,
     tile_histograms_plain,
 )
+from solex_ser_recon_en_torch.ops.fused import RawScanProcessor
 from solex_ser_recon_en_torch.ops.fused_cuda import (
     B1_MAX_RUN,
     FUSED_PATHS,
@@ -35,8 +38,16 @@ from solex_ser_recon_en_torch.ops.fused_cuda import (
     shg_fused_mxu_plain,
     shg_fused_plain,
 )
-from solex_ser_recon_en_torch.ops.recon import build_shift_indices, recon_plain
-from solex_ser_recon_en_torch.ops.recon_cuda import recon
+from solex_ser_recon_en_torch.ops.recon import (
+    build_shift_indices,
+    recon_chunks_plain,
+    recon_plain,
+)
+from solex_ser_recon_en_torch.ops.recon_cuda import (
+    RECON_MAX_CHUNKS,
+    recon,
+    recon_chunks,
+)
 from solex_ser_recon_en_torch.ops.warp_fast import (
     hresample,
     hresample_plain,
@@ -107,6 +118,162 @@ def test_hist_kernel_matches_plain(rng, cuda_device, hist_size):
     torch.cuda.synchronize()
     np.testing.assert_array_equal(
         out.cpu().numpy(), tile_histograms_plain(tt, hist_size).cpu().numpy())
+
+
+def _recon_args(rng, device, rotate, upscale, F, H, W, shifts=(-30, 0, 3)):
+    raw = t(rng.integers(0, 256 if upscale else 65536, (F, H, W)).astype(
+        np.uint8 if upscale else np.uint16), device)
+    ih, iw = (W, H) if rotate else (H, W)
+    curve = iw / 2 + 0.05 * np.arange(ih)
+    floor = np.floor(curve)
+    ind_l, left_w = build_shift_indices(floor, curve - floor, list(shifts),
+                                        iw)
+    return raw, t(ind_l, device), t(left_w, device)
+
+
+def _check_recon_chunks(chunks, ind_l, left_w, rotate, upscale,
+                        out=None, offset=0):
+    before = cuda_build.LAUNCHES["recon"]
+    got = recon_chunks(chunks, ind_l, left_w, rotate, upscale, out, offset)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["recon"] == before + 1
+    want = recon_chunks_plain(chunks, ind_l, left_w, rotate, upscale)
+    F = want.shape[2]
+    np.testing.assert_array_equal(
+        got[:, :, offset:offset + F].cpu().numpy(), want.cpu().numpy())
+    return got
+
+
+@pytest.mark.parametrize("rotate,upscale", [(True, False), (False, False),
+                                            (True, True), (False, True)])
+@pytest.mark.parametrize("C", [13, 32, 81])
+def test_recon_chunks_kernel_matches_plain(rng, cuda_device, rotate,
+                                           upscale, C):
+    """One launch over uneven chunks (the last one short; frame tiles that
+    straddle chunks) equals the plain version on their frames."""
+    H, W = (24, 64) if rotate else (64, 24)
+    raw, ind_l, left_w = _recon_args(rng, cuda_device, rotate, upscale,
+                                     200, H, W)
+    chunks = [raw[s:s + C].clone() for s in range(0, 200, C)]
+    _check_recon_chunks(chunks, ind_l, left_w, rotate, upscale)
+
+
+def test_recon_chunks_at_the_table_maximum(rng, cuda_device):
+    """RECON_MAX_CHUNKS chunks in one launch (the library's table holds
+    exactly that many), and one more is refused."""
+    assert cuda_build.lib().solex_recon_max_chunks() == RECON_MAX_CHUNKS
+    raw, ind_l, left_w = _recon_args(rng, cuda_device, True, False,
+                                     2 * RECON_MAX_CHUNKS - 1, 16, 40)
+    chunks = [raw[s:s + 2].clone() for s in range(0, raw.shape[0], 2)]
+    assert len(chunks) == RECON_MAX_CHUNKS
+    _check_recon_chunks(chunks, ind_l, left_w, True, False)
+    with pytest.raises(ValueError, match="chunks, 1 to"):
+        recon_chunks(chunks + chunks[:1], ind_l, left_w, True, False)
+
+
+def test_recon_chunks_unaligned_view_into_out(rng, cuda_device):
+    """Chunks that are contiguous views starting 2 bytes into their
+    allocation, written at a frame offset of a larger disk tensor (the
+    streaming path's launch); the frames around them stay untouched."""
+    raw, ind_l, left_w = _recon_args(rng, cuda_device, True, False, 45, 24,
+                                     64)
+    chunks = []
+    for s in range(0, 45, 20):
+        c = raw[s:s + 20]
+        flat = torch.empty(c.numel() + 1, dtype=torch.uint16,
+                           device=cuda_device)
+        view = flat[1:].view(c.shape)
+        view.copy_(c)
+        assert view.is_contiguous() and view.data_ptr() % 4 != 0
+        chunks.append(view)
+    out = torch.zeros((3, 64, 60), dtype=torch.uint16, device=cuda_device)
+    got = _check_recon_chunks(chunks, ind_l, left_w, True, False, out, 7)
+    assert got is out
+    assert not out[:, :, :7].cpu().numpy().any()
+    assert not out[:, :, 52:].cpu().numpy().any()
+
+
+def test_resident_pass_b_is_one_launch(rng, cuda_device):
+    """RawScanProcessor.reconstruct launches B3 once over the feeder's
+    chunks, and equals reconstruct_streaming (one launch per chunk)."""
+    raw, _, _ = _recon_args(rng, cuda_device, True, False, 100, 24, 64)
+    p = RawScanProcessor(24, 64, True, False, cuda_device)
+    for s in range(0, 100, 30):
+        p.accumulate(s, raw[s:s + 30].clone())
+    curve = 12 + 0.03 * np.arange(64)
+    floor = np.floor(curve)
+    before = cuda_build.LAUNCHES["recon"]
+    resident = p.reconstruct(floor, curve - floor, [0, 4])
+    assert cuda_build.LAUNCHES["recon"] == before + 1
+    streamed = p.reconstruct_streaming(
+        [(s, raw[s:s + 30].clone()) for s in range(0, 100, 30)], floor,
+        curve - floor, [0, 4])
+    assert cuda_build.LAUNCHES["recon"] == before + 5
+    np.testing.assert_array_equal(resident.cpu().numpy(),
+                                  streamed.cpu().numpy())
+
+
+def _check_image_hist(img, ty, tx, hs):
+    before = cuda_build.LAUNCHES["tile_hist"]
+    got = _launch_hist(img, ty, tx, hs)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["tile_hist"] == before + 1
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        image_tile_histograms_plain(img, ty, tx, hs).cpu().numpy())
+
+
+def _on_card(img, device, aligned=True):
+    """The image on the card, or a contiguous view of it whose rows start
+    off the 8-byte grid (the 1-pixel-unit path)."""
+    if aligned:
+        return t(img, device)
+    flat = torch.empty(img.size + 1, dtype=torch.uint8 if img.dtype ==
+                       np.uint8 else torch.uint16, device=device)
+    view = flat[1:].view(img.shape)
+    view.copy_(t(img, device))
+    assert view.data_ptr() % 8 != 0
+    return view
+
+
+@pytest.mark.parametrize("shape", [(300, 260), (301, 257)])   # even, odd
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+@pytest.mark.parametrize("grid", [(2, 2), (8, 8)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_image_hist_kernel_matches_plain(rng, cuda_device, shape, dtype,
+                                         grid, aligned):
+    hs = 256 if dtype == np.uint8 else 65536
+    img = rng.integers(0, hs, shape).astype(dtype)
+    img[:200, :100] = 7                 # one hot bin: heavy contention
+    img[-3:, -5:] = hs - 1              # the last bin, in the padding
+    _check_image_hist(_on_card(img, cuda_device, aligned), *grid, hs)
+
+
+# tiles that lie wholly in the reflected padding: (40, 25) and (25, 40) at
+# 8x8 pad 7 columns or rows onto tiles of 4 (1-pixel units); (28, 28) at
+# 8x8 and (40, 40) at 12x12 do the same where the rows allow 8-byte units
+@pytest.mark.parametrize("shape,grid", [((40, 25), (8, 8)),
+                                        ((25, 40), (8, 8)),
+                                        ((28, 28), (8, 8)),
+                                        ((40, 40), (12, 12))])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_image_hist_kernel_tiles_in_padding(rng, cuda_device, shape, grid,
+                                            dtype, aligned):
+    hs = 256 if dtype == np.uint8 else 65536
+    img = rng.integers(0, hs, shape).astype(dtype)
+    _check_image_hist(_on_card(img, cuda_device, aligned), *grid, hs)
+
+
+@pytest.mark.parametrize("grid", [(2, 2), (1, 1)])
+def test_image_hist_kernel_bench_image(rng, cuda_device, grid):
+    """The bench image's shape (2048 x 2204 u16, the -c path's two calls)
+    with the grid sized from the card; a value that fills a whole block's
+    slice (65535 counts in one 16-bit counter)."""
+    img = rng.integers(0, 65536, (2048, 2204)).astype(np.uint16)
+    img[:1000] = rng.integers(900, 1200, (1000, 2204))   # a piled-up sky
+    img[1500:] = 40000                                    # one hot value
+    _check_image_hist(t(img, cuda_device), *grid, 65536)
 
 
 def test_feeder_pinned_upload_matches_file(tmp_path, rng, cuda_device):

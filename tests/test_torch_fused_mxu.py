@@ -159,16 +159,26 @@ def test_onehot_route_matches_jax(name):
     assert d_max <= 1 and d_frac <= 0.01
 
 
-def test_onehot_route_keeps_float32_matmuls_exact():
-    """recon_onehot switches TF32 off and holds the precision at
-    'highest', whatever the caller had set."""
+def test_onehot_route_keeps_float32_matmuls_exact(monkeypatch):
+    """recon_onehot's matmul runs with TF32 off and the precision at
+    'highest', whatever the caller had set; the caller's setting is back
+    afterwards."""
     frames, ind_l, left_w = _case("s5")
     old = torch.get_float32_matmul_precision()
+    seen = []
+    bmm = torch.bmm
+
+    def spy(*a, **k):
+        seen.append((torch.get_float32_matmul_precision(),
+                     torch.backends.cuda.matmul.allow_tf32))
+        return bmm(*a, **k)
+
+    monkeypatch.setattr(torch, "bmm", spy)
     try:
         torch.set_float32_matmul_precision("high")
         recon_onehot(t(frames), t(ind_l), t(left_w))
-        assert torch.get_float32_matmul_precision() == "highest"
-        assert not torch.backends.cuda.matmul.allow_tf32
+        assert seen == [("highest", False)]
+        assert torch.get_float32_matmul_precision() == "high"
     finally:
         torch.set_float32_matmul_precision(old)
 
