@@ -15,9 +15,10 @@ time of kernels B3, B4 and B5 (``recon_chunks_kernel``,
 ``hresample_kernel``, ``hist_kernel``).  It then makes the same
 scan resident and normalised (bench_device.resident_frames) and profiles
 one warm call of the fused step (models/shg.py:shg_forward, kernel B1,
-shifts [10, 0]) the same way, and one of the same step on kernel B6
-(``shg_fused(..., mxu=True)``).  The Chrome trace of the -cw0 run is copied
-to ``trace.json`` when a path is given.
+shifts [10, 0]) the same way, one of the same step on kernel B6
+(``shg_fused(..., mxu=True)``) and one of pass A's sum/max kernel on the
+same slab (ops/fused_cuda.py:mean_max).  The Chrome trace of the -cw0 run
+is copied to ``trace.json`` when a path is given.
 """
 
 from __future__ import annotations
@@ -112,7 +113,10 @@ def main(argv) -> int:
         from solex_ser_recon_en_torch import bench_device
         from solex_ser_recon_en_torch.io.ser import SerReader
         from solex_ser_recon_en_torch.models import shg_forward
-        from solex_ser_recon_en_torch.ops.fused_cuda import shg_fused
+        from solex_ser_recon_en_torch.ops.fused_cuda import (
+            mean_max,
+            shg_fused,
+        )
         from solex_ser_recon_en_torch.ops.recon import build_shift_indices
 
         r = SerReader(path)
@@ -125,7 +129,8 @@ def main(argv) -> int:
         step = (frames, torch.from_numpy(ind_l).cuda(),
                 torch.from_numpy(left_w).cuda())
         for label, fn in (("B1", shg_forward),
-                          ("B6", lambda *x: shg_fused(*x, mxu=True))):
+                          ("B6", lambda *x: shg_fused(*x, mxu=True)),
+                          ("pass A", lambda *x: mean_max(x[0]))):
             fn(*step)
             torch.cuda.synchronize()
             with torch.profiler.profile(activities=acts) as prof:
@@ -134,7 +139,7 @@ def main(argv) -> int:
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
             report(prof, trace, wall_ms,
-                   f"fused step {label} {tuple(frames.shape)}", card)
+                   f"device step {label} {tuple(frames.shape)}", card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return 0

@@ -13,8 +13,9 @@ Phases; any failure exits non-zero before the final result line:
    wide) written as SER to a temporary directory.
 4. end to end: ``cli.main.main(["-cw0", scan])`` twice.  The first run
    goes through capture hooks (kernel inputs, stage results); the second,
-   timed, runs with no hook.  Over the second run kernel B3 (recon) must
-   be launched exactly once (one launch over all resident chunks), B5
+   timed, runs with no hook.  Over the second run pass A's kernel
+   (sum_max) must be launched once per chunk the feeder made, kernel B3
+   (recon) exactly once (one launch over all resident chunks), B5
    (tile_hist) exactly twice (the CLAHE tiles, the CLAHE image's value
    histogram) and B4 (hresample) at least once; the line fit, mean/max,
    shift-0 disk, fitted ratio and the corrected disk are checked against
@@ -27,9 +28,14 @@ Phases; any failure exits non-zero before the final result line:
    or operations over peak, the larger) and, where one PyTorch call
    computes the same function, that call's time; B3 and B5 also with
    their device time queued behind a sleep kernel, its share of the bound
-   and their launches in run 2.  The rows of B1 and B6 are taken after
-   phase 6, on the normalised slab phase 6 left resident: B1 at S = 2, B6
-   at S = 2 and at the S = 7 sweep of the shoot-out (both bit-identical).  B6's mean and max must equal B1's, its
+   and their launches in run 2.  The rows of B1, B6 and pass A are taken
+   after phase 6, on the normalised slab phase 6 left resident: B1 at
+   S = 2, B6 at S = 2 and at the S = 7 sweep of the shoot-out (both
+   bit-identical), pass A's kernel against the three-pass torch route
+   (bit-identical; each route's peak device memory beside it).  B1, B6 and
+   pass A also get their queued device time, read rate and share of their
+   bound; B6's launch geometry from the kernel library must equal its
+   Python mirror.  B6's mean and max must equal B1's, its
    disks lie within 1 LSB of B1's (the share of differing pixels is
    printed), and its shift-0 disk within 1 LSB of a float64 lerp.  B1's
    line also gives its read rate and share of its bound at S = 2 and 7,
@@ -38,18 +44,19 @@ Phases; any failure exits non-zero before the final result line:
 6. resident path: ``bench_device.device_attached_decomposition`` on the
    phase-3 scan (upload, normalise, pass A, host line fit, the fused step
    of kernel B1, the real process_scan), its stage times printed with the
-   card's name.  The launch counts of B1, B4 and B5 over it must be > 0;
+   card's name.  The launch counts of pass A's kernel, B1, B4 and B5 over
+   it must be > 0;
    B1's mean and max must equal phase 4's pass-A mean and max, and its
    shift-10/0 disks phase 4's B3 disks, bit for bit; its _clahe.png must
    not be empty.  Every B1 launch of the path must take the bulk copy path
    (``fused_cuda.FUSED_PATHS``), and the kernel library's launch geometry
    must equal the wrapper's (``fused_plan_cuda`` vs ``fused_plan``).
-   Information lines, no pass/fail: B1 against the two-pass route (torch
-   sum/max + B3) at S = 2, 7, 21 on the same slab, and the peak device
-   memory of the run.
+   Information lines, no pass/fail: B1 against the two-pass route (pass
+   A's kernel + B3; the three-pass torch reductions + B3 beside it) at
+   S = 2, 7, 21 on the same slab, and the peak device memory of the run.
 7. shoot-out: ``bench_kernels.run`` at full size (2000 x 2048 x 300, S = 2
    and 7; the post-processing rows on a 2074 x 2100 image), every row
-   printed with the card's name.  The launch counts of all five kernels
+   printed with the card's name.  The launch counts of all six kernels
    over it must be > 0; a row that raises stops the script.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -87,13 +94,17 @@ REPLACES = {
                   "solex_ser_recon_en_tpu/ops/fused_pallas.py:81, :42"),
     "shg_fused_mxu": ("solex_ser_recon_en_torch/csrc/fused_mxu.cu",
                       "solex_ser_recon_en_tpu/ops/fused_pallas.py:137"),
+    # pass A: no Pallas kernel on the TPU side, XLA's sum and max
+    "sum_max": ("solex_ser_recon_en_torch/csrc/sum_max.cu",
+                "solex_ser_recon_en_tpu/ops/fused.py:33-34 (an XLA "
+                "reduction, not a Pallas kernel)"),
 }
 #: the kernels of each driven path: phase 4 (-cw0), phase 6 (resident) and
 #: phase 7 (the shoot-out)
-CW0_KERNELS = ("recon", "hresample", "tile_hist")
-RESIDENT_KERNELS = ("shg_fused", "hresample", "tile_hist")
-SHOOTOUT_KERNELS = ("shg_fused", "shg_fused_mxu", "recon", "hresample",
-                    "tile_hist")
+CW0_KERNELS = ("sum_max", "recon", "hresample", "tile_hist")
+RESIDENT_KERNELS = ("sum_max", "shg_fused", "hresample", "tile_hist")
+SHOOTOUT_KERNELS = ("shg_fused", "shg_fused_mxu", "sum_max", "recon",
+                    "hresample", "tile_hist")
 
 #: H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): HBM bytes/s and
 #: operations/s by type.  The data sheet lists no int32 rate; integer adds
@@ -382,9 +393,12 @@ def main() -> int:
         for name in CW0_KERNELS:
             if launches[name] <= 0:
                 fail(f"kernel {name} was not launched by the -cw0 path")
-        # B3: one launch over all resident chunks; B5: the CLAHE tiles and
-        # the CLAHE image's value histogram
-        for name, n in (("recon", 1), ("tile_hist", 2)):
+        # pass A: one launch per chunk of the feeder; B3: one launch over
+        # all resident chunks; B5: the CLAHE tiles and the CLAHE image's
+        # value histogram
+        n_chunks = len(caps["recon"][0][0])
+        for name, n in (("sum_max", n_chunks), ("recon", 1),
+                        ("tile_hist", 2)):
             if launches[name] != n:
                 fail(f"kernel {name} was launched {launches[name]} times "
                      f"by the -cw0 path, not {n}")
@@ -492,6 +506,7 @@ def main() -> int:
         # 6. the resident path on the phase-3 scan
         from solex_ser_recon_en_torch import bench_device
         from solex_ser_recon_en_torch.models.shg import shg_forward_plain
+        from solex_ser_recon_en_torch.ops.recon_cuda import recon
         from solex_ser_recon_en_torch.bench_kernels import SWEEP
         from solex_ser_recon_en_torch.ops import fused_cuda
         from solex_ser_recon_en_torch.ops.dtypes import as_int16
@@ -517,7 +532,8 @@ def main() -> int:
                 fail(f"kernel {name} was not launched by the resident path")
         plan = fused_cuda.fused_plan_cuda(dec.frames, len(bench_device.SHIFTS))
         print(f"B1 copy paths in the resident path: {paths6}; launch "
-              f"geometry on the bench slab: {plan}", flush=True)
+              f"geometry on the bench slab: {plan}; blocks an SM holds: "
+              f"{plan['blocks_per_sm']}", flush=True)
         if paths6["bulk"] != launches6["shg_fused"] or paths6["element"]:
             fail("B1 did not take the bulk copy path on the bench slab")
         mirror = fused_cuda.fused_plan(dec.frames.data_ptr(),
@@ -539,7 +555,8 @@ def main() -> int:
         if not os.path.exists(png) or read_png(png).max() == 0:
             fail(f"{png} missing or empty")
         print("resident path: B1 mean, max and shift-10/0 disks equal the "
-              "-cw0 pass A and B3 bit for bit", flush=True)
+              "-cw0 pass A (the sum/max kernel) and B3 bit for bit",
+              flush=True)
 
         # 5, the rows of B1 and B6 on the resident slab: S = 2 (shifts
         # [10, 0]) and the S = 7 sweep of the shoot-out, from the line fit
@@ -569,12 +586,22 @@ def main() -> int:
                                      "f32": 3 * 2 * ih * F}),
             note=f"frames {tuple(dec.frames.shape)}, S=2"))
         ms7 = cuda_ms(lambda: fused_cuda.shg_fused(*a7), reps)
-        for S, t_ms in ((2, ms), (len(SWEEP), ms7)):
-            nb = step_bytes + (S - 2) * (ih * F * 2 + ih * 4)
-            bms = bound(nb, {"int32": 2 * F * ih * iw, "f32": 3 * S * ih * F})[0]
-            print(f"B1 S={S}: wrapper {t_ms:.4f} ms, {nb / t_ms / 1e9:.3f} "
-                  f"TB/s, {100 * bms / t_ms:.1f}% of its {bms:.4f} ms bound "
-                  f"[{card}]", flush=True)
+
+        def rate_lines(tag, fn, times, ops):
+            """Wrapper and queued device time of a fused step at S = 2 and
+            7, with its read rate and share of its bound."""
+            for (S, t_ms), args in zip(times, (a, a7)):
+                nb = step_bytes + (S - 2) * (ih * F * 2 + ih * 4)
+                bms = bound(nb, ops(S, args))[0]
+                dms = device_ms(lambda: fn(*args), reps)
+                print(f"{tag} S={S}: wrapper {t_ms:.4f} ms, device "
+                      f"{dms:.4f} ms, {nb / dms / 1e9:.3f} TB/s, "
+                      f"{100 * bms / dms:.1f}% of its {bms:.4f} ms bound "
+                      f"[{card}]", flush=True)
+
+        rate_lines("B1", fused_cuda.shg_fused, ((2, ms), (len(SWEEP), ms7)),
+                   lambda S, args: {"int32": 2 * F * ih * iw,
+                                    "f32": 3 * S * ih * F})
         # the card's read-rate yardstick: one reduction over the same slab
         whole = dec.frames.view(torch.int32)
         amax_ms = cuda_ms(lambda: torch.amax(whole), reps)
@@ -613,10 +640,66 @@ def main() -> int:
                 "f64_tensor": 512 * -(-F // 8) * mxu_chunks(dec.ind_l, iw)}),
             note=f"frames {tuple(dec.frames.shape)}, S=2; bit-identical "
                  f"at S=2 and S={len(SWEEP)}"))
-        print(f"B6 S={len(SWEEP)}: kernel "
-              f"{cuda_ms(lambda: fused_cuda.shg_fused_mxu(*a7), reps):.4f} "
-              f"ms, B1 {cuda_ms(lambda: fused_cuda.shg_fused(*a7), reps):.4f}"
+        ms7 = cuda_ms(lambda: fused_cuda.shg_fused_mxu(*a7), reps)
+        rate_lines("B6", fused_cuda.shg_fused_mxu,
+                   ((2, ms), (len(SWEEP), ms7)),
+                   lambda S, args: {
+                       "int32": 2 * F * ih * iw,
+                       "f64_tensor": 512 * -(-F // 8) * mxu_chunks(args[1],
+                                                                   iw)})
+        print(f"B6 S={len(SWEEP)}: kernel {ms7:.4f} ms, B1 "
+              f"{cuda_ms(lambda: fused_cuda.shg_fused(*a7), reps):.4f}"
               f" ms [{card}]", flush=True)
+        for S in (2, len(SWEEP)):
+            plan6 = fused_cuda.fused_mxu_plan_cuda(dec.frames, S)
+            mirror6 = fused_cuda.fused_mxu_plan(dec.frames.data_ptr(), S, ih,
+                                                iw)
+            print(f"B6 launch geometry on the bench slab, S={S}: {plan6}",
+                  flush=True)
+            if {k: plan6[k] for k in mirror6} != mirror6:
+                fail(f"B6's Python plan {mirror6} differs from the kernel "
+                     f"library's {plan6}")
+            if plan6["path"] != "bulk":
+                fail("B6 would not take the bulk copy path on the bench slab")
+
+        # pass A's kernel on the resident slab against the three-pass torch
+        # route (int32 copy, sum, amax), with each route's peak memory
+        def peak_gb(fn):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+        overall_peak = torch.cuda.max_memory_allocated()
+        err = max(max_abs_err(x, y) for x, y in zip(
+            fused_cuda.mean_max(dec.frames),
+            fused_cuda.mean_max_plain(dec.frames)))
+        ms = cuda_ms(lambda: fused_cuda.mean_max(dec.frames), reps)
+        pms = cuda_ms(lambda: fused_cuda.mean_max_plain(dec.frames), reps)
+        acc_s = torch.zeros((ih, iw), dtype=torch.int32, device="cuda")
+        acc_m = torch.zeros_like(acc_s)
+        dms = device_ms(
+            lambda: fused_cuda.sum_max(dec.frames, acc_s, acc_m), 10)
+        bA = bound(dec.frames.nbytes + 2 * ih * iw * 4,
+                   {"int32": 2 * F * ih * iw})
+        k_gb = peak_gb(lambda: fused_cuda.mean_max(dec.frames))
+        p_gb = peak_gb(lambda: fused_cuda.mean_max_plain(dec.frames))
+        overall_peak = max(overall_peak, torch.cuda.max_memory_allocated())
+        records.append(dict(
+            name="sum_max", err=err, ms=ms, plain_ms=pms, library_ms=None,
+            bound=bA,
+            note=f"frames {tuple(dec.frames.shape)}; device {dms:.4f} ms, "
+                 f"{dec.frames.nbytes / dms / 1e9:.3f} TB/s, "
+                 f"{100 * bA[0] / dms:.1f}% of bound; read-rate yardstick "
+                 f"torch.amax {amax_ms:.4f} ms; plain is the three-pass "
+                 f"torch route (no one PyTorch call gives both results); "
+                 f"memory above the slab: kernel route {k_gb:.3f} GB, "
+                 f"three-pass route {p_gb:.3f} GB; launches in run 2: "
+                 f"{launches['sum_max']}, resident path: "
+                 f"{launches6['sum_max']}"))
+        del acc_s, acc_m
 
         # information: fused step vs the two-pass route, by shift count
         for S in (2, 7, 21):
@@ -627,12 +710,16 @@ def main() -> int:
             diff = max(max_abs_err(x, y) for x, y in zip(
                 fused_cuda.shg_fused(*b), shg_forward_plain(*b)))
             fms = cuda_ms(lambda: fused_cuda.shg_fused(*b), reps)
+            kms = cuda_ms(lambda: (fused_cuda.mean_max(b[0]),
+                                   recon(*b, False, False)), reps)
             tms = cuda_ms(lambda: shg_forward_plain(*b), reps)
-            print(f"fused vs two-pass S={S}: B1 {fms:.4f} ms, sum/max + B3 "
-                  f"{tms:.4f} ms, max_abs_err {diff} [{card}]", flush=True)
+            print(f"fused vs two-pass S={S}: B1 {fms:.4f} ms, sum/max "
+                  f"kernel + B3 {kms:.4f} ms (three-pass torch sum/max + "
+                  f"B3 {tms:.4f} ms), max_abs_err {diff} [{card}]",
+                  flush=True)
         del dec, a, a7, b
-        print(f"peak device memory: "
-              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+        overall_peak = max(overall_peak, torch.cuda.max_memory_allocated())
+        print(f"peak device memory: {overall_peak / 1e9:.3f} GB "
               f"[{card}]", flush=True)
 
         # 7. the kernel shoot-out at full size, through its entry point
@@ -659,6 +746,8 @@ def main() -> int:
 
         kernels = []
         path_launches = {"shg_fused": launches6, "shg_fused_mxu": launches7}
+        # pass A runs on both user paths: the launches of the -cw0 run
+        # (one a chunk) are the ones reported
         for r in records:
             name = r["name"]
             bms, by = r["bound"]

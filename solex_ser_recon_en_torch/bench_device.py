@@ -8,7 +8,8 @@ device, chunk by chunk) into one raw slab, normalised on the device
 (io/feeder.py:normalize_frames), and the pipeline's legs run from there:
 
   feed_s_measured   chunked raw upload, as measured on this link
-  device_meanmax_s  pass A: torch sum/max reductions on the resident slab
+  device_meanmax_s  pass A: the sum/max kernel (ops/fused_cuda.py:mean_max)
+                    on the resident slab
   host_linefit_s    mean/max to the host, cubic line fit, shift indices
   device_recon_s    the fused step (models/shg.py:shg_forward, kernel B1)
                     at the fitted indices (shifts [10, 0])
@@ -48,7 +49,7 @@ from .geometry.linefit import LineFit, fit_spectral_line
 from .io.feeder import normalize_frames, raw_device_chunks
 from .io.ser import SerReader
 from .models.shg import shg_forward
-from .ops.fused_cuda import mean_max_plain
+from .ops.fused_cuda import mean_max
 from .ops.recon import build_shift_indices
 from .pipeline.run import ScanResult, process_scan
 from .utils.device import resolve_device, synchronize
@@ -152,8 +153,8 @@ def device_attached_decomposition(scan_path: str, device: torch.device,
     slab_bytes = n * r.header.frame_bytes
 
     # --- device pass A: mean/max reductions ----------------------------
-    mean_d, max_d = mean_max_plain(frames)    # warm
-    device_meanmax_s = best_of(lambda: mean_max_plain(frames), device)
+    mean_d, max_d = mean_max(frames)          # build, warm
+    device_meanmax_s = best_of(lambda: mean_max(frames), device)
 
     # --- host: pull mean/max, cubic line fit, shift indices ------------
     # best-of-2: the first call pays one-time import and allocation costs

@@ -60,8 +60,12 @@
 //
 // At the bench shape (iw = 300, S = 2): yb = 20 (6000 elements, 750 chunks
 // on 256 threads: 3 each, 98% of the slots used), K = 1, D = 6 stages of
-// 12,016 bytes, 75 KB of shared memory a block, up to 3 blocks an SM and
-// 5 stages (60 KB) in flight per block; 103 row tiles.
+// 12,016 bytes, 75 KB of shared memory a block and 5 stages (60 KB) in
+// flight per block; 103 row tiles.  An H100 holds 2 such blocks an SM
+// (blocks_per_sm of solex_shg_fused_plan: 96 registers a thread under
+// __launch_bounds__(kThreads, 2) leave room for 2, though shared memory
+// would take 3), so the frame split is sized for 264 blocks at once:
+// 103 x 5 blocks of 416 frames.
 //
 // Not carried over from the TPU kernel: the 128-lane window and its
 // host-side selector, the iota-compare mask scratch with its float32 copy
@@ -79,27 +83,17 @@ namespace {
 
 using namespace solex_ring;
 
-constexpr int kThreads = 256;
 constexpr int kChunks = 4;                       // 16-byte chunks a thread owns
 constexpr int kMaxRun = 8 * kChunks * kThreads;  // elements a block holds a frame
 constexpr int kMaxRows = 64;
 constexpr int kMaxK = 8;                         // frames per stage
-constexpr int kMaxD = 8;                         // stages in the ring
-constexpr int kSplitFrames = 32;                 // frame-split granule
 constexpr size_t kStageTarget = 16 * 1024;
 constexpr size_t kRingTarget = 72 * 1024;
-constexpr size_t kMaxSmem = 232448;              // opt-in limit of a block
-constexpr size_t kDefaultSmem = 48 * 1024;
-constexpr size_t kBarBytes = 8 * kMaxD;
 
 struct Plan {
   int bulk, yb, xw, K, D, fb;
   size_t smem;
 };
-
-__host__ __device__ inline size_t align16(size_t n) {
-  return (n + 15) & ~size_t(15);
-}
 
 // bytes of one frame's run in the ring (+16: the element path's offset)
 __host__ __device__ inline size_t frame_bytes(int n) {
@@ -228,93 +222,29 @@ fused_kernel(const uint16_t* __restrict__ frames,
     return kBulk ? 0 : (int)(((run0_addr + 2 * (size_t)f * fpix) & 15) >> 1);
   };
 
-  // fill stage j (frames fs + j*K ...) into slot j % D; on the element path
-  // every thread commits one group per call, even an empty one
+  // fill stage j (frames fs + j*K ...) into slot j % D
   auto issue = [&](int j) {
-    unsigned char* slot = ring + (size_t)(j % D) * K * fst;
     const int f0 = fs + j * K;
-    const int mc = j < nst ? min(K, fe - f0) : 0;
-    if (kBulk) {
-      if (tid == 0 && mc > 0) {
-        uint64_t* bar = bars + j % D;
-        fence_proxy_async();
-        mbar_expect_tx(bar, (uint32_t)(mc * n * 2));
-        for (int m = 0; m < mc; ++m)
-          bulk_g2s(slot + m * fst, run0 + (size_t)(f0 + m) * fpix,
-                   (uint32_t)(n * 2), bar);
-      }
-    } else {
-      const int ngm = (n + 14) / 8;            // granules of a run, at most
-      for (int q = tid; q < mc * ngm; q += kThreads) {
-        const int m = q / ngm;
-        const int g = q - m * ngm;
-        const uintptr_t a = run0_addr + 2 * (size_t)(f0 + m) * fpix;
-        if (g < (int)((a & 15) / 2 + n + 7) / 8) {
-          const uintptr_t src = (a & ~uintptr_t(15)) + 16 * (uintptr_t)g;
-          const uintptr_t left = slab_end - src;
-          cp_async16(slot + m * fst + 16 * g,
-                     reinterpret_cast<const void*>(src),
-                     (uint32_t)(left < 16 ? left : 16));
-        }
-      }
-      cp_async_commit();
-    }
+    fill_stage<kBulk>(ring + (size_t)(j % D) * K * fst, fst, bars + j % D,
+                      run0_addr, 2 * fpix, f0, j < nst ? min(K, fe - f0) : 0,
+                      (uint32_t)(n * 2), slab_end, tid);
   };
 
-  uint32_t acc_s[kChunks][8], acc_m[kChunks][4];   // sums; u16x2 maxima
-#pragma unroll
-  for (int p = 0; p < kChunks; ++p) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc_s[p][i] = 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc_m[p][i] = 0;
-  }
+  SumMax<2, kChunks> acc;
+  acc.clear();
 
   for (int j = 0; j < D - 1; ++j) issue(j);
 
   for (int k = 0; k < nst; ++k) {
-    if (kBulk)
-      mbar_wait(bars + k % D, (uint32_t)((k / D) & 1));
-    else
-      cp_async_wait_pending(D - 2);
+    wait_stage<kBulk>(bars, k, D);
     __syncthreads();              // stage k landed; stage k - 1 was read
     issue(k + D - 1);             // into stage k - 1's slot
 
     const unsigned char* slot = ring + (size_t)(k % D) * K * fst;
     const int f0 = fs + k * K;
     const int mc = min(K, fe - f0);
-    for (int m = 0; m < mc; ++m) {
-      const unsigned char* fr = slot + m * fst;
-      const uint16_t* v16 = reinterpret_cast<const uint16_t*>(fr) + head(f0 + m);
-#pragma unroll
-      for (int p = 0; p < kChunks; ++p) {
-        const int c = tid + p * kThreads;
-        if (c < nch) {
-          uint32_t w[4];
-          if (kBulk) {
-            const uint4 q = reinterpret_cast<const uint4*>(fr)[c];
-            w[0] = q.x;
-            w[1] = q.y;
-            w[2] = q.z;
-            w[3] = q.w;
-          } else {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int e = 8 * c + 2 * i;
-              const uint32_t lo = e < nacc ? v16[e] : 0u;
-              const uint32_t hi = e + 1 < nacc ? v16[e + 1] : 0u;
-              w[i] = lo | hi << 16;
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc_s[p][2 * i] += w[i] & 0xffffu;
-            acc_s[p][2 * i + 1] += w[i] >> 16;
-            acc_m[p][i] = __vmaxu2(acc_m[p][i], w[i]);
-          }
-        }
-      }
-    }
+    for (int m = 0; m < mc; ++m)
+      acc.add<kBulk>(slot + m * fst, 2 * head(f0 + m), nacc, nch, tid);
 
     // taps of every (shift, row, frame) of the stage
     for (int q = tid; q < S * rows * mc; q += kThreads) {
@@ -362,23 +292,8 @@ fused_kernel(const uint16_t* __restrict__ frames,
     }
   }
 
-  int32_t* sb = sum + (size_t)y0 * iw + x0;
-  int32_t* mb = mx + (size_t)y0 * iw + x0;
-#pragma unroll
-  for (int p = 0; p < kChunks; ++p) {
-    const int c = tid + p * kThreads;
-    if (c < nch) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int e = 8 * c + i;
-        if (e < nacc) {
-          atomicAdd(&sb[e], (int32_t)acc_s[p][i]);
-          atomicMax(&mb[e], (int32_t)((acc_m[p][i / 2] >> (16 * (i & 1))) &
-                                      0xffffu));
-        }
-      }
-    }
-  }
+  acc.merge(sum + (size_t)y0 * iw + x0, mx + (size_t)y0 * iw + x0, nacc, nch,
+            tid);
 }
 
 struct Launch {
@@ -392,40 +307,14 @@ struct Launch {
 template <bool kBulk>
 cudaError_t configure(int F, int ih, int iw, Launch* L) {
   const Plan& p = L->plan;
-  cudaError_t err = cudaSuccess;
-  if (p.smem > kDefaultSmem)
-    err = cudaFuncSetAttribute(fused_kernel<kBulk>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)p.smem);
-  int dev = 0, sms = 132;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &L->blocks_per_sm, fused_kernel<kBulk>, kThreads, p.smem);
+  int sms = 0;
+  const cudaError_t err =
+      block_slots(fused_kernel<kBulk>, p.smem, &L->blocks_per_sm, &sms);
   if (err != cudaSuccess) return err;
-  if (L->blocks_per_sm < 1) return cudaErrorInvalidConfiguration;
 
   const long long nx = (iw + p.xw - 1) / p.xw;
   const long long ny = (ih + p.yb - 1) / p.yb;
-  const long long tiles = nx * ny;
-  const long long slots = (long long)L->blocks_per_sm * sms;
-  const int nfb = (F + kSplitFrames - 1) / kSplitFrames;
-  const int top =
-      (int)std::min((long long)nfb, 4 * ((slots + tiles - 1) / tiles));
-  long long best_blocks = 0, best_cap = 1;
-  for (int sp = 1; sp <= top; ++sp) {
-    const int fper = kSplitFrames * ((nfb + sp - 1) / sp);
-    const long long blocks = tiles * ((F + fper - 1) / fper);
-    const long long cap = (blocks + slots - 1) / slots * slots;
-    // a fuller last wave first, then fewer blocks
-    if (sp == 1 || blocks * best_cap > best_blocks * cap) {
-      best_blocks = blocks;
-      best_cap = cap;
-      L->fper = fper;
-    }
-  }
+  L->fper = frames_per_block(nx * ny, (long long)L->blocks_per_sm * sms, F);
   L->grid = dim3((unsigned)nx, (unsigned)ny,
                  (unsigned)((F + L->fper - 1) / L->fper));
   return cudaSuccess;

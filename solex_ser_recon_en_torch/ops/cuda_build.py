@@ -38,7 +38,7 @@ NVCC_FLAGS = [
 #: ops/clahe.py, ops/fused_cuda.py); reset by callers that want to count
 #: one run
 LAUNCHES = {"recon": 0, "hresample": 0, "tile_hist": 0, "shg_fused": 0,
-            "shg_fused_mxu": 0}
+            "shg_fused_mxu": 0, "sum_max": 0}
 
 #: the most raw chunks one launch of kernel B3 takes (its pointer table,
 #: csrc/recon.cu:kMaxChunks; checked against the library when it loads)
@@ -46,6 +46,7 @@ RECON_MAX_CHUNKS = 256
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # bases (host array of K device pointers), K, chunk_frames, elem_bytes,
     # ind_l, left_w, out, S, F, H, W, ih, out_frames, frame_offset, rotate,
@@ -64,6 +65,10 @@ _SIGNATURES = {
     "solex_shg_fused_mxu": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # frames, S, F, ih, iw, out[12]: kernel B1's launch geometry
     "solex_shg_fused_plan": [_P, _I, _I, _I, _I, _P],
+    # frames, S, F, ih, iw, out[10]: kernel B6's launch geometry
+    "solex_shg_fused_mxu_plan": [_P, _I, _I, _I, _I, _P],
+    # frames, elem_bytes, sum, max, F, pixels a frame, stream
+    "solex_sum_max": [_P, _I, _P, _P, _I, _L, _P],
 }
 
 _lock = threading.Lock()

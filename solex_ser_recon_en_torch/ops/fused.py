@@ -5,9 +5,10 @@ scan is inherently two passes (the recon needs the line fit, which needs
 the mean image — reference: Solex_recon.py:61-63).  Both passes work on
 the raw on-disk layout, so the slab is never rotated or upscaled:
 
-- pass A: int32 sum and max over the raw frames of every chunk (plain
-  torch, as the JAX package leaves it to XLA); the small (H, W) results
-  are rotated/upscaled once at the end, in float64 on the host.
+- pass A: int32 sum and max over the raw frames of every chunk, one read
+  of it by the sum/max kernel (ops/fused_cuda.py:sum_max; the JAX package
+  leaves it to XLA); the small (H, W) results are rotated/upscaled once at
+  the end, in float64 on the host.
 - pass B: kernel B3 (ops/recon_cuda.py:recon_chunks), launched once over
   all resident chunks (or once per streamed chunk), writing straight into
   the (S, ih, F) disks.
@@ -27,7 +28,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from .dtypes import widen
+from .fused_cuda import MAX_FRAMES, sum_max
 from .recon import build_shift_indices
 from .recon_cuda import RECON_MAX_CHUNKS, recon_chunks
 
@@ -54,9 +55,11 @@ class RawScanProcessor:
 
     def accumulate(self, start: int, raw_chunk: torch.Tensor,
                    keep: bool = True) -> None:
-        v = widen(raw_chunk)
-        self._sum += v.sum(dim=0, dtype=torch.int32)
-        torch.maximum(self._max, v.amax(dim=0), out=self._max)
+        if self.count + raw_chunk.shape[0] > MAX_FRAMES:
+            raise ValueError(
+                f"a scan of more than {MAX_FRAMES} frames would overflow "
+                "the int32 frame sum")
+        sum_max(raw_chunk, self._sum, self._max)
         self.count += raw_chunk.shape[0]
         if keep:
             self._chunks.append((start, raw_chunk))

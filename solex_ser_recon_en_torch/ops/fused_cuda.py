@@ -1,5 +1,6 @@
 """The fused single-pass step on the card: wrappers of kernels B1
-(csrc/fused.cu) and B6 (csrc/fused_mxu.cu).
+(csrc/fused.cu) and B6 (csrc/fused_mxu.cu), and of pass A's sum/max kernel
+(csrc/sum_max.cu).
 
 Counterpart of solex_ser_recon_en_tpu/ops/fused_pallas.py:shg_fused_pallas.
 One read of the normalised frame slab gives the int32 frame sum, the frame
@@ -10,6 +11,11 @@ B6, the counterpart of the MXU kernel _kernel_mxu: the disks as one
 contraction over the spectral axis on the FP64 tensor cores.  A CUDA tensor
 launches the kernel; a CPU tensor takes the plain version
 (``shg_fused_plain``, ``shg_fused_mxu_plain``); any other device raises.
+
+``sum_max`` and ``mean_max`` are pass A: the int32 frame sum and the frame
+max of u8 or u16 frames in any layout, from one read of them (the ring and
+the sum/max consumer that B1 and B6 use, with no shifts).  The JAX package
+leaves these reductions to XLA (solex_ser_recon_en_tpu/ops/fused.py:33-34).
 """
 
 from __future__ import annotations
@@ -64,6 +70,60 @@ def mean_max_plain(frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     v = widen(frames)
     total = v.sum(dim=0, dtype=torch.int32)
     return to_u16(total // frames.shape[0]), to_u16(v.amax(dim=0))
+
+
+def _sum_max_check(frames: torch.Tensor, name: str) -> None:
+    if frames.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {frames.device}")
+    if frames.ndim != 3 or frames.dtype not in (torch.uint8, torch.uint16):
+        raise TypeError(f"{name}: frames must be (F, h, w) uint8 or uint16, "
+                        f"got {tuple(frames.shape)} {frames.dtype}")
+    if not frames.is_contiguous() or 0 in frames.shape:
+        raise ValueError(f"{name}: frames must be contiguous and not empty")
+    if frames.shape[0] > MAX_FRAMES:
+        raise ValueError(f"{name}: F={frames.shape[0]} > {MAX_FRAMES} (the "
+                         "int32 frame sum would overflow)")
+
+
+def sum_max(frames: torch.Tensor, total: torch.Tensor,
+            mx: torch.Tensor) -> None:
+    """Pass A over one chunk, accumulated in place: ``total += sum_f frames``
+    and ``mx = max(mx, max_f frames)`` for frames (F, h, w) u8 or u16 in any
+    layout and total, mx (h, w) int32 that the caller holds (zeroed before
+    the first chunk).  CUDA tensors launch the sum/max kernel, CPU tensors
+    take torch's reductions.  The caller keeps the frames of all chunks
+    within MAX_FRAMES."""
+    _sum_max_check(frames, "sum_max")
+    for arg, t in (("total", total), ("mx", mx)):
+        if (t.dtype != torch.int32 or t.shape != frames.shape[1:]
+                or t.device != frames.device or not t.is_contiguous()):
+            raise TypeError(f"sum_max: {arg} must be {tuple(frames.shape[1:])}"
+                            f" int32, contiguous on {frames.device}")
+    if frames.device.type == "cpu":
+        v = widen(frames)
+        total += v.sum(dim=0, dtype=torch.int32)
+        torch.maximum(mx, v.amax(dim=0), out=mx)
+        return
+    F, h, w = frames.shape
+    with torch.cuda.device(frames.device):
+        rc = cuda_build.lib().solex_sum_max(
+            frames.data_ptr(), frames.element_size(), total.data_ptr(),
+            mx.data_ptr(), F, h * w, cuda_build.stream_handle(frames.device))
+    cuda_build.check(rc, "sum_max")
+    cuda_build.LAUNCHES["sum_max"] += 1
+
+
+def mean_max(frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """frames (F, ih, iw) u16 -> (mean u16, max u16), as ``mean_max_plain``:
+    the sum/max kernel on CUDA tensors, the plain version on CPU tensors."""
+    _sum_max_check(frames, "mean_max")
+    if frames.device.type == "cpu":
+        return mean_max_plain(frames)
+    total = torch.zeros(frames.shape[1:], dtype=torch.int32,
+                        device=frames.device)
+    mx = torch.zeros_like(total)
+    sum_max(frames, total, mx)
+    return to_u16(total // frames.shape[0]), to_u16(mx)
 
 
 def shg_fused_plain(frames: torch.Tensor, ind_l: torch.Tensor,
@@ -167,6 +227,80 @@ def fused_plan(data_ptr: int, S: int, ih: int, iw: int):
                 fb=fb, smem=smem(yb, K, D, fb))
 
 
+#: kernel B6's launch geometry (csrc/fused_mxu.cu); the ring's own limits
+#: (barrier bytes, most stages, a block's shared memory) are B1's, above
+B6_MAX_ROWS, B6_M = 8, 8             # rows a block owns; frames a stage
+B6_STAGE_TARGET, B6_RING_TARGET = 20 * 1024, 60 * 1024
+
+
+def mxu_frame_stride(n: int) -> int:
+    """Bytes between two frames of a B6 stage that holds runs of n u16
+    (csrc/fused_mxu.cu:frame_stride): 16 more than a multiple of 128."""
+    return ((2 * n + 16 + 127) & ~127) + 16
+
+
+def fused_mxu_plan(data_ptr: int, S: int, ih: int, iw: int):
+    """csrc/fused_mxu.cu:make_plan in Python: kernel B6's copy path and ring
+    for frames at ``data_ptr`` of shape (F, ih, iw), iw <= MXU_MAX_IW, and S
+    shifts, as a dict (path, yb rows a block owns, D stages of 8 frames in
+    the ring, fb frames a disk store, stride bytes between two frames of a
+    stage, smem bytes a block), or None where even the smallest plan does
+    not fit (several thousand shifts; the launch then fails)."""
+    aligned = data_ptr % 16 == 0 and ih * iw % 8 == 0
+    nsg = -(-S // 8)
+    # a bulk-aligned run first, then the longest run whose stage stays
+    # within the target (the shortest, if none does)
+    best, yb = None, 1
+    for rows in range(1, min(ih, B6_MAX_ROWS, MXU_MAX_IW // iw) + 1):
+        n = rows * iw
+        b = aligned and n % 8 == 0
+        key = n if B6_M * mxu_frame_stride(n) <= B6_STAGE_TARGET else -n
+        if best is None or (b and not best[0]) or (b == best[0]
+                                                   and key > best[1]):
+            best, yb = (b, key), rows
+    want_bulk = best[0]
+
+    def smem(rows, D, fb):
+        return (B1_BAR_BYTES + D * B6_M * mxu_frame_stride(rows * iw)
+                + _align16(2 * S * rows * fb) + 16 * rows + 8 * rows * nsg
+                + 32 * rows * nsg)
+
+    D = min(B1_MAX_D, max(2, B6_RING_TARGET
+                          // (B6_M * mxu_frame_stride(yb * iw))))
+    fb = 32
+    while smem(yb, D, fb) > B1_MAX_SMEM:
+        if D > 2:
+            D -= 1
+        elif yb > 1:
+            yb -= 1
+            while yb > 1 and want_bulk and yb * iw % 8:
+                yb -= 1
+        elif fb > 8:
+            fb //= 2
+        else:
+            return None
+    bulk = aligned and yb * iw % 8 == 0
+    return dict(path="bulk" if bulk else "element", yb=yb, D=D, fb=fb,
+                stride=mxu_frame_stride(yb * iw), smem=smem(yb, D, fb))
+
+
+def fused_mxu_plan_cuda(frames: torch.Tensor, S: int) -> dict:
+    """The launch geometry kernel B6 would use on these CUDA frames, from
+    the kernel library itself (csrc/fused_mxu.cu:solex_shg_fused_mxu_plan):
+    the keys of ``fused_mxu_plan`` plus blocks_per_sm, grid and fper (frames
+    a block)."""
+    F, ih, iw = frames.shape
+    out = (ctypes.c_int * 10)()
+    with torch.cuda.device(frames.device):
+        rc = cuda_build.lib().solex_shg_fused_mxu_plan(frames.data_ptr(), S,
+                                                       F, ih, iw, out)
+    cuda_build.check(rc, "shg_fused_mxu_plan")
+    v = list(out)
+    return dict(path="bulk" if v[0] else "element", yb=v[1], D=v[2], fb=v[3],
+                stride=v[4], smem=v[5], blocks_per_sm=v[6],
+                grid=tuple(v[7:9]), fper=v[9])
+
+
 def fused_plan_cuda(frames: torch.Tensor, S: int) -> dict:
     """The launch geometry kernel B1 would use on these CUDA frames, from
     the kernel library itself (csrc/fused.cu:solex_shg_fused_plan): the
@@ -208,14 +342,20 @@ def _launch(entry: str, frames: torch.Tensor, ind_l: torch.Tensor,
 def shg_fused_mxu(frames: torch.Tensor, ind_l: torch.Tensor,
                   left_w: torch.Tensor) -> Step:
     """Kernel B6 on CUDA tensors, ``shg_fused_mxu_plain`` on CPU tensors;
-    the contract of ``shg_fused``, for iw <= MXU_MAX_IW."""
+    the contract of ``shg_fused``, for iw <= MXU_MAX_IW.  On the card the
+    shift count is bounded by the block's shared memory (its staging tile
+    and tap columns grow with S): several thousand shifts, ``fused_mxu_plan``
+    says whether a plan exists."""
     _check(frames, ind_l, left_w, "shg_fused_mxu")
-    if frames.shape[2] > MXU_MAX_IW:
-        raise ValueError(f"shg_fused_mxu: iw={frames.shape[2]} > "
-                         f"{MXU_MAX_IW} (B6 holds whole rows in shared "
-                         "memory)")
+    F, ih, iw = frames.shape
+    if iw > MXU_MAX_IW:
+        raise ValueError(f"shg_fused_mxu: iw={iw} > {MXU_MAX_IW} (B6 holds "
+                         "whole rows in shared memory)")
     if frames.device.type == "cpu":
         return shg_fused_mxu_plain(frames, ind_l, left_w)
+    if fused_mxu_plan(frames.data_ptr(), ind_l.shape[0], ih, iw) is None:
+        raise ValueError(f"shg_fused_mxu: S={ind_l.shape[0]} shifts at "
+                         f"iw={iw} do not fit a block's shared memory")
     return _launch("shg_fused_mxu", frames, ind_l, left_w)
 
 

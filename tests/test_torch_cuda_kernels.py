@@ -10,7 +10,8 @@ Tolerance: bit-identical — the kernels and their plain versions round
 every float32 step the same way (no FMA, same order); B6's FP64
 contraction and its plain version both form round_f64(a*w + b*(1-w)) from
 exact products.  B6 against B1: mean and max equal, disks within 1 LSB
-(float64 vs float32 sums of the same two products).
+(float64 vs float32 sums of the same two products).  Pass A's sum/max
+kernel: bit-identical (integer sums and maxima, exact in any order).
 """
 
 import numpy as np
@@ -31,12 +32,17 @@ from solex_ser_recon_en_torch.ops.fused import RawScanProcessor
 from solex_ser_recon_en_torch.ops.fused_cuda import (
     B1_MAX_RUN,
     FUSED_PATHS,
+    fused_mxu_plan,
+    fused_mxu_plan_cuda,
     fused_plan,
     fused_plan_cuda,
+    mean_max,
+    mean_max_plain,
     shg_fused,
     shg_fused_mxu,
     shg_fused_mxu_plain,
     shg_fused_plain,
+    sum_max,
 )
 from solex_ser_recon_en_torch.ops.recon import (
     build_shift_indices,
@@ -401,14 +407,17 @@ B6_SHAPES = [(37, 101, 300, 1), (37, 101, 300, 2), (45, 33, 60, 7),
              (21, 9, 2, 2), (64, 64, 300, 21), (9, 5, 3072, 3)]
 
 
-@pytest.mark.parametrize("F,ih,iw,S", B6_SHAPES)
-def test_fused_mxu_kernel_matches_plain(rng, cuda_device, F, ih, iw, S):
-    frames = rng.integers(0, 65536, (F, ih, iw)).astype(np.uint16)
+def _b6_inputs(rng, device, F, ih, iw, S, frames=None):
+    if frames is None:
+        frames = t(rng.integers(0, 65536, (F, ih, iw)).astype(np.uint16),
+                   device)
     ind_l = rng.integers(-3, iw + 3, (S, ih)).astype(np.int32)
     ind_l[0, : min(ih, 2)] = iw - 2            # taps at the last columns
     left_w = rng.random(ih).astype(np.float32)
-    args = (t(frames, cuda_device), t(ind_l, cuda_device),
-            t(left_w, cuda_device))
+    return frames, t(ind_l, device), t(left_w, device)
+
+
+def _check_b6(args):
     before = cuda_build.LAUNCHES["shg_fused_mxu"]
     out = shg_fused_mxu(*args)
     torch.cuda.synchronize()
@@ -416,6 +425,67 @@ def test_fused_mxu_kernel_matches_plain(rng, cuda_device, F, ih, iw, S):
     for a, b in zip(out, shg_fused_mxu_plain(*args)):
         assert a.dtype == b.dtype == torch.uint16 and a.shape == b.shape
         np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+@pytest.mark.parametrize("F,ih,iw,S", B6_SHAPES)
+def test_fused_mxu_kernel_matches_plain(rng, cuda_device, F, ih, iw, S):
+    _check_b6(_b6_inputs(rng, cuda_device, F, ih, iw, S))
+
+
+def test_fused_mxu_kernel_unaligned_view(rng, cuda_device):
+    """A contiguous view whose data pointer is not 16-byte aligned takes
+    the element path at a shape that otherwise takes the bulk path."""
+    F, ih, iw, S = 64, 64, 300, 2
+    flat = t(rng.integers(0, 65536, F * ih * iw + 1).astype(np.uint16),
+             cuda_device)
+    frames = flat[1:].view(F, ih, iw)
+    assert frames.is_contiguous() and frames.data_ptr() % 16 != 0
+    assert fused_mxu_plan(flat.data_ptr(), S, ih, iw)["path"] == "bulk"
+    assert fused_mxu_plan(frames.data_ptr(), S, ih, iw)["path"] == "element"
+    _check_b6(_b6_inputs(rng, cuda_device, F, ih, iw, S, frames))
+
+
+# the last block's frames are not a multiple of the 8-frame stage (3 of 8
+# frames in its last stage), and stage counts that are no multiple of the
+# ring's depth: F = 67 in blocks of 32 frames (4 stages and 1 on a ring of
+# 3); F = 171 on the bench rows (on an H100: blocks of 64 frames, 8 stages on
+# a ring of 3, so the barriers' phases wrap, and a last block of 43 frames);
+# a ring of 7 (iw = 60); and the element path (ih * iw not a multiple of 8)
+@pytest.mark.parametrize("F,ih,iw,S", [(67, 64, 300, 2), (171, 2048, 300, 2),
+                                       (203, 8200, 60, 9),
+                                       (203, 2049, 300, 2)])
+def test_fused_mxu_partial_last_stage(rng, cuda_device, F, ih, iw, S):
+    args = _b6_inputs(rng, cuda_device, F, ih, iw, S)
+    plan = fused_mxu_plan_cuda(args[0], S)
+    fper, nz = plan["fper"], plan["grid"][1]
+    stages = {-(-min(fper, F - z * fper) // 8) for z in range(nz)}
+    assert (F - (nz - 1) * fper) % 8 != 0
+    if iw == 300:
+        assert any(c % plan["D"] for c in stages)
+    if F == 171:
+        assert any(c % plan["D"] and c > 2 * plan["D"] for c in stages)
+    _check_b6(args)
+
+
+@pytest.mark.parametrize("F,ih,iw,S", B6_SHAPES + [(2000, 2048, 300, 2),
+                                                   (2000, 2048, 300, 7)])
+def test_fused_mxu_plan_matches_kernel_library(cuda_device, F, ih, iw, S):
+    """The Python mirror of B6's launch plan is the one the kernel library
+    launches, on aligned and unaligned frames."""
+    flat = torch.empty(F * ih * iw + 1, dtype=torch.uint16,
+                       device=cuda_device)
+    for off in (0, 1):
+        frames = flat[off:off + F * ih * iw].view(F, ih, iw)
+        got = fused_mxu_plan_cuda(frames, S)
+        want = fused_mxu_plan(frames.data_ptr(), S, ih, iw)
+        assert {k: got[k] for k in want} == want
+        assert got["blocks_per_sm"] >= 1 and got["fper"] % 32 == 0
+        ny, nz = got["grid"]
+        assert ny == -(-ih // got["yb"])
+        assert (nz - 1) * got["fper"] < F <= nz * got["fper"]
+    if (F, ih, iw) == (2000, 2048, 300):
+        assert want["path"] == "element" and got["blocks_per_sm"] >= 2
+        assert fused_mxu_plan(flat.data_ptr(), S, ih, iw)["path"] == "bulk"
 
 
 @pytest.mark.parametrize("shifts", [[10, 0], list(range(-10, 11, 3))])
@@ -438,3 +508,81 @@ def test_fused_mxu_against_b1(rng, cuda_device, shifts):
     diff = (d6.cpu().numpy().astype(np.int64)
             - d1.cpu().numpy().astype(np.int64))
     assert np.abs(diff).max() <= 1
+
+
+def _unaligned(arr, device):
+    """A contiguous view of ``arr`` on the card that starts one element
+    into its allocation."""
+    flat = torch.empty(arr.size + 1, dtype=torch.uint8 if arr.dtype ==
+                       np.uint8 else torch.uint16, device=device)
+    view = flat[1:].view(arr.shape)
+    view.copy_(t(arr, device))
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+def _check_sum_max(chunks):
+    """sum_max over the chunks, one launch each into the same accumulators,
+    equals torch's reductions over all their frames."""
+    dev = chunks[0].device
+    total = torch.zeros(chunks[0].shape[1:], dtype=torch.int32, device=dev)
+    mx = torch.zeros_like(total)
+    before = cuda_build.LAUNCHES["sum_max"]
+    for c in chunks:
+        sum_max(c, total, mx)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["sum_max"] == before + len(chunks)
+    whole = torch.cat(chunks).to(torch.int32)
+    if chunks[0].dtype == torch.uint16:
+        whole &= 0xFFFF
+    np.testing.assert_array_equal(total.cpu().numpy(),
+                                  whole.sum(dim=0).cpu().numpy())
+    np.testing.assert_array_equal(mx.cpu().numpy(),
+                                  whole.amax(dim=0).cpu().numpy())
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.uint8])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("F,ih,iw,S", B1_SHAPES)
+def test_sum_max_kernel_matches_plain(rng, cuda_device, F, ih, iw, S, dtype,
+                                      aligned):
+    """Pass A's kernel on B1's frame shapes (one run, several runs with a
+    tail, frames of an odd byte count), u16 and u8, on the bulk path and,
+    from a view one element into its allocation, the element path."""
+    arr = rng.integers(0, np.iinfo(dtype).max + 1, (F, ih, iw)).astype(dtype)
+    arr[F // 2, 0, :2] = np.iinfo(dtype).max
+    frames = t(arr, cuda_device) if aligned else _unaligned(arr, cuda_device)
+    _check_sum_max([frames])
+    if dtype == np.uint16:
+        for a, b in zip(mean_max(frames), mean_max_plain(frames)):
+            assert a.dtype == b.dtype == torch.uint16
+            np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.uint8])
+def test_sum_max_kernel_raw_chunks(rng, cuda_device, dtype):
+    """A raw (81, 300, 2048) chunk as the feeder makes them, and the
+    accumulation over several chunks, the last one short and saturated."""
+    top = np.iinfo(dtype).max
+    arr = rng.integers(0, top + 1, (81 + 81 + 56, 300, 2048)).astype(dtype)
+    arr[162:, :7] = top
+    frames = t(arr, cuda_device)
+    _check_sum_max([frames[:81]])
+    _check_sum_max([frames[:81], frames[81:162], frames[162:]])
+
+
+def test_pass_a_accumulates_through_the_kernel(rng, cuda_device):
+    """RawScanProcessor.accumulate launches the sum/max kernel once a chunk
+    and gives the plain mean and max of the whole scan."""
+    raw = rng.integers(0, 65536, (100, 24, 64)).astype(np.uint16)
+    p = RawScanProcessor(24, 64, True, False, cuda_device)
+    before = cuda_build.LAUNCHES["sum_max"]
+    for s in range(0, 100, 30):
+        p.accumulate(s, t(raw[s:s + 30], cuda_device))
+    assert cuda_build.LAUNCHES["sum_max"] == before + 4
+    mean, mx = p.mean_max()
+    cpu = RawScanProcessor(24, 64, True, False, torch.device("cpu"))
+    cpu.accumulate(0, t(raw))
+    mean_c, mx_c = cpu.mean_max()
+    np.testing.assert_array_equal(mean, mean_c)
+    np.testing.assert_array_equal(mx, mx_c)

@@ -14,7 +14,9 @@ port rounds each product and the sum separately (ROADMAP C).  The Pallas
 kernels in interpret mode run through XLA:CPU too, with the same effect
 (measured on these cases: at most 1 LSB on at most 0.2% of pixels).
 Against the port's own ``recon_plain`` the disks are bit-exact (the same
-arithmetic).
+arithmetic).  Pass A (``sum_max``, ``mean_max``; the sum/max kernel runs
+only on the card, CPU tensors take torch's reductions): bit-exact against
+the JAX RawScanProcessor and against ``mean_max_plain``.
 """
 
 import json
@@ -32,6 +34,9 @@ from solex_ser_recon_en_tpu.models.shg import (
     example_inputs as jax_example_inputs,
     shg_forward_xla,
 )
+from solex_ser_recon_en_tpu.ops.fused import (
+    RawScanProcessor as JaxProcessor,
+)
 from solex_ser_recon_en_tpu.ops.fused_pallas import (
     _shg_fused,
     _window_for_indices,
@@ -47,13 +52,18 @@ from solex_ser_recon_en_torch.models.shg import (
     shg_forward_plain,
 )
 from solex_ser_recon_en_torch.ops import cuda_build
+from solex_ser_recon_en_torch.ops.fused import RawScanProcessor
 from solex_ser_recon_en_torch.ops.fused_cuda import (
     B1_MAX_RUN,
     B1_MAX_SMEM,
     B1_THREADS,
+    MAX_FRAMES,
     fused_plan,
+    mean_max,
+    mean_max_plain,
     shg_fused,
     shg_fused_plain,
+    sum_max,
 )
 from solex_ser_recon_en_torch.ops.recon import build_shift_indices, recon_plain
 from solex_ser_recon_en_torch.pipeline import run as port_run
@@ -304,3 +314,102 @@ def test_bench_device_cli_prints_one_json_line(basic_scan, tmp_path, capsys):
 def test_device_only_fps_cpu(basic_scan):
     fps = bench_device.device_only_fps(basic_scan["path"], CPU)
     assert np.isfinite(fps) and fps > 0
+
+
+# pass A: (frames, height, width, chunk length) of the raw scan
+PASS_A_CASES = [(100, 24, 64, 30), (37, 9, 14, 13), (50, 16, 40, 50)]
+
+
+@pytest.mark.parametrize("rotate,upscale", [(False, False), (True, False),
+                                            (False, True), (True, True)])
+@pytest.mark.parametrize("F,H,W,step", PASS_A_CASES)
+def test_sum_max_accumulates_like_jax_pass_a(F, H, W, step, rotate, upscale):
+    """sum_max over uneven raw chunks (u16, or u8 for an 8-bit scan) into
+    one pair of accumulators equals the whole scan's sum and max, and the
+    port's RawScanProcessor on it equals the JAX one bit for bit; on the
+    normalised layout the same chunks give mean_max_plain of the slab."""
+    rng = np.random.default_rng(3)
+    raw = rng.integers(0, 256 if upscale else 65536, (F, H, W)).astype(
+        np.uint8 if upscale else np.uint16)
+    total = torch.zeros((H, W), dtype=torch.int32)
+    mx = torch.zeros((H, W), dtype=torch.int32)
+    before = dict(cuda_build.LAUNCHES)
+    jp = JaxProcessor(H, W, rotate, upscale)
+    tp = RawScanProcessor(H, W, rotate, upscale, CPU)
+    for s in range(0, F, step):
+        sum_max(t(raw[s:s + step]), total, mx)
+        jp.accumulate(s, jnp.asarray(raw[s:s + step]))
+        tp.accumulate(s, t(raw[s:s + step]))
+    assert cuda_build.LAUNCHES == before
+    np.testing.assert_array_equal(total.numpy(), raw.sum(axis=0,
+                                                         dtype=np.int64))
+    np.testing.assert_array_equal(mx.numpy(), raw.max(axis=0))
+    for a, b in zip(tp.mean_max(), jp.mean_max()):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+
+    norm = normalize_frames(t(raw), rotate, upscale)
+    ntotal = torch.zeros(norm.shape[1:], dtype=torch.int32)
+    nmx = torch.zeros_like(ntotal)
+    for s in range(0, F, step):
+        sum_max(norm[s:s + step], ntotal, nmx)
+    mean_p, max_p = mean_max_plain(norm)
+    np.testing.assert_array_equal((ntotal // F).numpy(),
+                                  mean_p.to(torch.int32).numpy())
+    np.testing.assert_array_equal(nmx.numpy(), max_p.to(torch.int32).numpy())
+    if not upscale:      # x256 then mean truncates differently from raw mean
+        np.testing.assert_array_equal(mean_p.numpy(), tp.mean_max()[0])
+    np.testing.assert_array_equal(max_p.numpy(), tp.mean_max()[1])
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_mean_max_takes_plain_on_cpu(name):
+    frames, _, _ = _case(name)
+    before = dict(cuda_build.LAUNCHES)
+    out = mean_max(t(frames))
+    assert cuda_build.LAUNCHES == before
+    for a, b in zip(out, mean_max_plain(t(frames))):
+        assert a.dtype == b.dtype == torch.uint16
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    np.testing.assert_array_equal(out[1].numpy(), frames.max(axis=0))
+
+
+def test_accumulate_refuses_a_scan_past_the_int32_bound():
+    """The int32 frame sum is exact up to MAX_FRAMES frames over the whole
+    scan: the chunk that would pass it is refused, before it is counted."""
+    p = RawScanProcessor(1, 2, False, False, CPU)
+    chunk = torch.zeros((16384, 1, 2), dtype=torch.uint16)
+    p.accumulate(0, chunk, keep=False)
+    p.accumulate(16384, chunk[:16383], keep=False)
+    assert p.count == MAX_FRAMES == 32767
+    with pytest.raises(ValueError, match="32767"):
+        p.accumulate(32767, chunk[:1], keep=False)
+    assert p.count == MAX_FRAMES
+
+
+def _bad_sum_max():
+    frames = torch.zeros((4, 6, 5), dtype=torch.uint16)
+    acc = torch.zeros((6, 5), dtype=torch.int32)
+    return {
+        "frames_dtype": ((frames.to(torch.int32), acc, acc.clone()),
+                         TypeError),
+        "frames_2d": ((frames[0], acc, acc.clone()), TypeError),
+        "not_contiguous": ((frames[:, :, :4], acc[:, :4].contiguous(),
+                            acc[:, :4].contiguous()), ValueError),
+        "empty": ((frames[:0], acc, acc.clone()), ValueError),
+        "acc_dtype": ((frames, acc.to(torch.int64), acc), TypeError),
+        "acc_shape": ((frames, acc[:5].contiguous(), acc), TypeError),
+        "too_many_frames": ((torch.zeros((32768, 1, 2), dtype=torch.uint16),
+                             torch.zeros((1, 2), dtype=torch.int32),
+                             torch.zeros((1, 2), dtype=torch.int32)),
+                            ValueError),
+        "meta_device": ((frames.to("meta"), acc.to("meta"), acc.to("meta")),
+                        ValueError),
+    }
+
+
+@pytest.mark.parametrize("case", list(_bad_sum_max()))
+def test_sum_max_rejects(case):
+    args, exc = _bad_sum_max()[case]
+    with pytest.raises(exc):
+        sum_max(*args)

@@ -21,6 +21,8 @@ Tolerances:
 - ``warp_projective`` vs JAX: the FMA bound of tests/test_torch_warp_fast.py
   (5e-7 + 2 float32 ulp of the largest source coordinate); against the
   port's own ``warp_projective_u16`` on u16/65536 input: bit-identical.
+- B6's launch plan (``fused_mxu_plan``, the Python mirror of
+  csrc/fused_mxu.cu:make_plan): exact integer geometry.
 """
 
 import json
@@ -40,7 +42,10 @@ from solex_ser_recon_en_torch import bench_kernels
 from solex_ser_recon_en_torch.models.shg import shg_forward_onehot
 from solex_ser_recon_en_torch.ops import cuda_build
 from solex_ser_recon_en_torch.ops.fused_cuda import (
+    B1_MAX_SMEM,
     MXU_MAX_IW,
+    fused_mxu_plan,
+    mxu_frame_stride,
     shg_fused,
     shg_fused_mxu,
     shg_fused_mxu_plain,
@@ -52,6 +57,7 @@ from solex_ser_recon_en_torch.ops.warp import (
     warp_projective_u16,
 )
 
+from test_torch_cuda_kernels import B6_SHAPES
 from test_torch_fused import CASES, FB, YB, _case
 from test_torch_warp_fast import _jax_bound, _pipeline_matrix
 from torch_parity import lsb_diff, t
@@ -146,6 +152,86 @@ def test_mxu_rejects_rows_wider_than_its_tile():
         shg_fused_mxu(frames, ind_l, left_w)
     with pytest.raises(TypeError, match="shg_fused_mxu"):
         shg_fused_mxu(frames.to(torch.int32), ind_l, left_w)
+
+
+@pytest.mark.parametrize("S", [2, 7])
+def test_mxu_plan_bench_slab_takes_bulk(S):
+    """The resident bench slab (2000 x 2048 x 300, aligned) takes the bulk
+    path: 4-row runs, 8-frame stages of 8 x 2448 bytes, 3 stages in the
+    ring, and a block small enough for 3 blocks an SM (csrc/fused_mxu.cu's
+    header note)."""
+    plan = fused_mxu_plan(4096, S, 2048, 300)
+    assert plan["path"] == "bulk"
+    assert (plan["yb"], plan["D"], plan["fb"], plan["stride"]) == (
+        4, 3, 32, 2448)
+    assert 3 * (plan["smem"] + 1024) <= 233472     # an SM's 228 KB
+
+
+@pytest.mark.parametrize("ptr,ih,iw,path", [
+    (4096, 64, 300, "bulk"),
+    (4098, 64, 300, "element"),        # a view 2 bytes into an allocation
+    (4104, 64, 300, "element"),        # 8-byte aligned only
+    (4096, 101, 300, "element"),       # ih * iw not a multiple of 8
+    (4096, 9, 2, "element"),           # 9 x 2: shorter than one granule
+    (4096, 7, 5, "element"),
+    (4096, 8, 5, "bulk"),              # 8 rows of 5: one 80-byte run
+    (4096, 5, 3072, "bulk"),           # the widest row, one row a block
+    (4098, 5, 3072, "element"),
+])
+def test_mxu_plan_path(ptr, ih, iw, path):
+    assert fused_mxu_plan(ptr, 2, ih, iw)["path"] == path
+
+
+@pytest.mark.parametrize("F,ih,iw,S", B6_SHAPES + [(2000, 2048, 300, 2),
+                                                   (2000, 2048, 300, 7),
+                                                   (64, 2048, 300, 800),
+                                                   (64, 2048, 3072, 4096)])
+@pytest.mark.parametrize("ptr", [4096, 4098])
+def test_mxu_plan_geometry(ptr, F, ih, iw, S):
+    """The plan fits the opt-in shared memory, keeps a block's run within
+    3072 elements, and takes the bulk path only where every copy is a
+    16-byte multiple from a 16-byte aligned address."""
+    plan = fused_mxu_plan(ptr, S, ih, iw)
+    yb, D, fb = plan["yb"], plan["D"], plan["fb"]
+    assert plan["smem"] <= B1_MAX_SMEM == 232448
+    assert 1 <= yb <= min(ih, 8) and yb * iw <= MXU_MAX_IW
+    assert 2 <= D <= 8 and fb in (8, 16, 32)
+    stride = plan["stride"]
+    assert stride == mxu_frame_stride(yb * iw)
+    # room for the run and the element path's 0-7 element offset
+    assert stride % 128 == 16 and stride >= 2 * yb * iw + 32
+    nsg = -(-S // 8)
+    assert plan["smem"] == (64 + D * 8 * stride
+                            + ((2 * S * yb * fb + 15) & ~15)
+                            + 16 * yb + 8 * yb * nsg + 32 * yb * nsg)
+    if plan["path"] == "bulk":
+        assert ptr % 16 == 0 and ih * iw % 8 == 0 and yb * iw % 8 == 0
+    else:
+        assert ptr % 16 or ih * iw % 8 or all(
+            r * iw % 8 for r in range(1, min(ih, 8, MXU_MAX_IW // iw) + 1))
+
+
+@pytest.mark.parametrize("iw", [2, 300, 3072])
+def test_mxu_plan_refuses_only_what_cannot_fit(iw):
+    """Every shift count up to a few thousand has a plan; one whose staging
+    tile alone exceeds a block's shared memory has none."""
+    for S in (1, 8, 9, 121, 800, 4096):
+        assert fused_mxu_plan(4096, S, 2048, iw) is not None
+    assert fused_mxu_plan(4096, 20000, 2048, iw) is None
+
+
+@pytest.mark.parametrize("n", [2, 10, 40, 300, 600, 1200, 2400, 3072])
+def test_mxu_stage_stride_is_bank_conflict_free(n):
+    """An A fragment (lane = 4 * frame + column: 8 frames x 4 consecutive
+    u16 of one row) read from a bulk-path stage touches every one of the 32
+    four-byte banks at most once, wherever the row starts."""
+    stride = mxu_frame_stride(n)
+    for start in range(64):                    # u16 offset of the 4 columns
+        words = {}
+        for lane in range(32):
+            frame, col = divmod(lane, 4)
+            word = (frame * stride + 2 * (start + col)) // 4
+            assert words.setdefault(word % 32, word) == word, (n, start)
 
 
 @pytest.mark.parametrize("name", list(CASES))
