@@ -28,7 +28,11 @@ Phases; any failure exits non-zero before the final result line:
    or operations over peak, the larger) and, where one PyTorch call
    computes the same function, that call's time; B3 and B5 also with
    their device time queued behind a sleep kernel, its share of the bound
-   and their launches in run 2.  The rows of B1, B6 and pass A are taken
+   and their launches in run 2.  Pass A's kernel runs over the raw chunks
+   that run 1 kept resident, one launch a chunk into fresh accumulators,
+   against torch's reductions chunk by chunk (bit-identical), with the
+   launches' queued device time, read rate and share of their bound.  The
+   rows of B1 and B6 and pass A's second row are taken
    after phase 6, on the normalised slab phase 6 left resident: B1 at
    S = 2, B6 at S = 2 and at the S = 7 sweep of the shoot-out (both
    bit-identical), pass A's kernel against the three-pass torch route
@@ -56,12 +60,16 @@ Phases; any failure exits non-zero before the final result line:
    S = 2, 7, 21 on the same slab, and the peak device memory of the run.
 7. shoot-out: ``bench_kernels.run`` at full size (2000 x 2048 x 300, S = 2
    and 7; the post-processing rows on a 2074 x 2100 image), every row
-   printed with the card's name.  The launch counts of all six kernels
-   over it must be > 0; a row that raises stops the script.
+   printed with the card's name.  The launch counts of B1, B6, B3, B4 and
+   B5 over it must be > 0 (its "torch step" rows run PyTorch's own
+   kernels only); a row that raises stops the script.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the
-per-kernel JSON record.  The script imports nothing of JAX.
+per-kernel JSON record: each entry's launches are those of the path whose
+inputs its times were taken on, and pass A has two entries, ``sum_max``
+(the -cw0 path's raw chunks) and ``sum_max_resident`` (the slab).  The
+script imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -103,8 +111,8 @@ REPLACES = {
 #: phase 7 (the shoot-out)
 CW0_KERNELS = ("sum_max", "recon", "hresample", "tile_hist")
 RESIDENT_KERNELS = ("sum_max", "shg_fused", "hresample", "tile_hist")
-SHOOTOUT_KERNELS = ("shg_fused", "shg_fused_mxu", "sum_max", "recon",
-                    "hresample", "tile_hist")
+SHOOTOUT_KERNELS = ("shg_fused", "shg_fused_mxu", "recon", "hresample",
+                    "tile_hist")
 
 #: H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): HBM bytes/s and
 #: operations/s by type.  The data sheet lists no int32 rate; integer adds
@@ -454,8 +462,8 @@ def main() -> int:
             flops += 3 * S * ih * n
         b3 = bound(nbytes, {"f32": flops})
         records.append(dict(
-            name="recon", err=err, ms=ms, plain_ms=pms, library_ms=None,
-            bound=b3,
+            name="recon", kernel="recon", launches=launches["recon"],
+            err=err, ms=ms, plain_ms=pms, library_ms=None, bound=b3,
             note=f"{len(rc_args)} launch over {len(rc_args[0][0])} chunks "
                  f"of {tuple(rc_args[0][0][0].shape)}; device {dms:.4f} ms, "
                  f"{100 * b3[0] / dms:.1f}% of bound; launches in run 2: "
@@ -467,7 +475,9 @@ def main() -> int:
         ms = cuda_ms(lambda: orig["hresample"](*a), reps)
         pms = cuda_ms(lambda: warp_fast.hresample_plain(*a), reps)
         records.append(dict(
-            name="hresample", err=err, ms=ms, plain_ms=pms, library_ms=None,
+            name="hresample", kernel="hresample",
+            launches=launches["hresample"], err=err, ms=ms, plain_ms=pms,
+            library_ms=None,
             bound=bound(sum(t.nbytes for t in a) + out.nbytes,
                         {"f32": 4 * out.numel()}),
             note=f"V {tuple(a[0].shape)} -> {tuple(out.shape)}"))
@@ -495,20 +505,62 @@ def main() -> int:
             nvals += keys.numel()
         b5 = bound(nbytes, {"int32": nvals})
         records.append(dict(
-            name="tile_hist", err=err, ms=ms, plain_ms=pms, library_ms=lms,
-            bound=b5,
+            name="tile_hist", kernel="tile_hist",
+            launches=launches["tile_hist"], err=err, ms=ms, plain_ms=pms,
+            library_ms=lms, bound=b5,
             note=f"images {[k for k, _ in hist_args]}; device {dms:.4f} ms "
                  f"with the output zeroing, {100 * b5[0] / dms:.1f}% of "
                  f"bound; launches in run 2: {launches['tile_hist']}; bound "
                  f"before this kernel read the image: "
                  f"{bound(old_bytes, {'int32': nvals})[0]:.4f} ms"))
 
+        # pass A on the raw chunks the -cw0 path gave it: one launch a chunk
+        # into the same accumulators, against torch's reductions
+        from solex_ser_recon_en_torch.ops import fused_cuda
+
+        raw_chunks = rc_args[0][0]
+        hw = raw_chunks[0].shape[1:]
+
+        def pass_a(step):
+            total = torch.zeros(hw, dtype=torch.int32, device="cuda")
+            mx = torch.zeros_like(total)
+            for c in raw_chunks:
+                step(c, total, mx)
+            return total, mx
+
+        err = max(max_abs_err(x, y) for x, y in zip(
+            pass_a(fused_cuda.sum_max), pass_a(fused_cuda.sum_max_plain)))
+        ms = cuda_ms(lambda: pass_a(fused_cuda.sum_max), reps)
+        pms = cuda_ms(lambda: pass_a(fused_cuda.sum_max_plain), reps)
+        # device time of the launches alone (the accumulators wrap: only
+        # the time is read)
+        acc_s = torch.zeros(hw, dtype=torch.int32, device="cuda")
+        acc_m = torch.zeros_like(acc_s)
+        dms = device_ms(lambda: [fused_cuda.sum_max(c, acc_s, acc_m)
+                                 for c in raw_chunks], reps)
+        # bound: every chunk read once; each launch reads and writes the
+        # two accumulators
+        raw_bytes = sum(c.nbytes for c in raw_chunks)
+        bA = bound(raw_bytes + len(raw_chunks) * 4 * acc_s.nbytes,
+                   {"int32": 2 * raw_bytes // raw_chunks[0].element_size()})
+        records.append(dict(
+            name="sum_max", kernel="sum_max", launches=launches["sum_max"],
+            err=err, ms=ms, plain_ms=pms, library_ms=None, bound=bA,
+            note=f"{len(raw_chunks)} launches, one a raw chunk of "
+                 f"{tuple(raw_chunks[0].shape)} (the last "
+                 f"{raw_chunks[-1].shape[0]} frames), with the zeroing of "
+                 f"the accumulators; device {dms:.4f} ms for the launches "
+                 f"alone, {dms / len(raw_chunks):.4f} ms each, "
+                 f"{raw_bytes / dms / 1e9:.3f} TB/s, "
+                 f"{100 * bA[0] / dms:.1f}% of bound; plain is torch's "
+                 f"int32 copy, sum and amax of each chunk"))
+        del acc_s, acc_m, raw_chunks
+
         # 6. the resident path on the phase-3 scan
         from solex_ser_recon_en_torch import bench_device
         from solex_ser_recon_en_torch.models.shg import shg_forward_plain
         from solex_ser_recon_en_torch.ops.recon_cuda import recon
         from solex_ser_recon_en_torch.bench_kernels import SWEEP
-        from solex_ser_recon_en_torch.ops import fused_cuda
         from solex_ser_recon_en_torch.ops.dtypes import as_int16
         from solex_ser_recon_en_torch.ops.recon import (
             build_shift_indices,
@@ -580,7 +632,8 @@ def main() -> int:
         ms = cuda_ms(lambda: fused_cuda.shg_fused(*a), reps)
         pms = cuda_ms(lambda: fused_cuda.shg_fused_plain(*a), reps)
         records.append(dict(
-            name="shg_fused", err=err, ms=ms, plain_ms=pms,
+            name="shg_fused", kernel="shg_fused",
+            launches=launches6["shg_fused"], err=err, ms=ms, plain_ms=pms,
             library_ms=bmm_ms,
             bound=bound(step_bytes, {"int32": 2 * F * ih * iw,
                                      "f32": 3 * 2 * ih * F}),
@@ -633,8 +686,9 @@ def main() -> int:
         ms = cuda_ms(lambda: fused_cuda.shg_fused_mxu(*a), reps)
         pms = cuda_ms(lambda: fused_cuda.shg_fused_mxu_plain(*a), reps)
         records.append(dict(
-            name="shg_fused_mxu", err=err, ms=ms, plain_ms=pms,
-            library_ms=bmm_ms,
+            name="shg_fused_mxu", kernel="shg_fused_mxu",
+            launches=None,              # the shoot-out's, read in phase 7
+            err=err, ms=ms, plain_ms=pms, library_ms=bmm_ms,
             bound=bound(step_bytes, {
                 "int32": 2 * F * ih * iw,
                 "f64_tensor": 512 * -(-F // 8) * mxu_chunks(dec.ind_l, iw)}),
@@ -688,17 +742,16 @@ def main() -> int:
         p_gb = peak_gb(lambda: fused_cuda.mean_max_plain(dec.frames))
         overall_peak = max(overall_peak, torch.cuda.max_memory_allocated())
         records.append(dict(
-            name="sum_max", err=err, ms=ms, plain_ms=pms, library_ms=None,
-            bound=bA,
+            name="sum_max_resident", kernel="sum_max",
+            launches=launches6["sum_max"], err=err, ms=ms, plain_ms=pms,
+            library_ms=None, bound=bA,
             note=f"frames {tuple(dec.frames.shape)}; device {dms:.4f} ms, "
                  f"{dec.frames.nbytes / dms / 1e9:.3f} TB/s, "
                  f"{100 * bA[0] / dms:.1f}% of bound; read-rate yardstick "
                  f"torch.amax {amax_ms:.4f} ms; plain is the three-pass "
                  f"torch route (no one PyTorch call gives both results); "
                  f"memory above the slab: kernel route {k_gb:.3f} GB, "
-                 f"three-pass route {p_gb:.3f} GB; launches in run 2: "
-                 f"{launches['sum_max']}, resident path: "
-                 f"{launches6['sum_max']}"))
+                 f"three-pass route {p_gb:.3f} GB"))
         del acc_s, acc_m
 
         # information: fused step vs the two-pass route, by shift count
@@ -744,10 +797,10 @@ def main() -> int:
                 fail(f"kernel {r['name']} differs from its plain version "
                      f"by {r['err']}")
 
+        # each entry's launches are those of the path whose inputs its times
+        # were taken on: -cw0's run 2, the resident path, or (B6) the
+        # shoot-out; pass A has an entry for each of its two user paths
         kernels = []
-        path_launches = {"shg_fused": launches6, "shg_fused_mxu": launches7}
-        # pass A runs on both user paths: the launches of the -cw0 run
-        # (one a chunk) are the ones reported
         for r in records:
             name = r["name"]
             bms, by = r["bound"]
@@ -755,11 +808,12 @@ def main() -> int:
                   f"{r['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by}), "
                   f"library {r['library_ms']} ms, max_abs_err {r['err']} "
                   f"({r['note']}) [{card}]", flush=True)
-            src, rep = REPLACES[name]
+            src, rep = REPLACES[r["kernel"]]
             kernels.append({
                 "name": name, "route": "cuda", "source": src,
                 "replaces": rep,
-                "launches": path_launches.get(name, launches)[name],
+                "launches": (launches7[name] if r["launches"] is None
+                             else r["launches"]),
                 "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
                 "library_ms": r["library_ms"]})

@@ -13,7 +13,10 @@ is printed: its "VPU" and "VPU windowed" rows are the two bodies of
 terms), and both are kernel B1 here, which gathers its two taps and needs
 no window.  Its "packed-pair u16" warps pack two u16 taps into one gather
 for the TPU; this package's u16 warp is the four-term path of ops/warp.py,
-so those rows time that path.
+so those rows time that path.  The "torch step" rows
+(models/shg.py:shg_forward_onehot) run PyTorch's own kernels only, torch
+reductions and a float32 matmul: they are the library route the fused
+steps are set against, so no hand-written kernel runs in them.
 
 Data is made on the device from a seeded ``torch.Generator``; each row is
 timed with CUDA events around the call (median of ``--reps`` after one

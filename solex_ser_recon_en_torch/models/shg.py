@@ -14,7 +14,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..ops.fused_cuda import Step, mean_max, mean_max_plain, shg_fused
+from ..ops.fused_cuda import Step, mean_max_plain, shg_fused
 from ..ops.recon import build_shift_indices, recon_onehot
 from ..ops.recon_cuda import recon
 
@@ -47,9 +47,11 @@ def shg_forward_plain(frames: torch.Tensor, ind_l: torch.Tensor,
 def shg_forward_onehot(frames: torch.Tensor, ind_l: torch.Tensor,
                        left_w: torch.Tensor) -> Step:
     """Counterpart of ``shg_forward_xla`` (solex_ser_recon_en_tpu/models/
-    shg.py:22-34): pass A's sum and max (the sum/max kernel on the card),
-    then the one-hot float32 matmul recon (ops/recon.py:recon_onehot)."""
-    mean, mx = mean_max(frames)
+    shg.py:22-34), PyTorch's own kernels throughout: the torch reductions
+    of ``mean_max_plain``, then the one-hot float32 matmul recon
+    (ops/recon.py:recon_onehot).  No hand-written kernel runs in it, so the
+    shoot-out can set the fused steps against it."""
+    mean, mx = mean_max_plain(frames)
     return mean, mx, recon_onehot(frames, ind_l, left_w)
 
 

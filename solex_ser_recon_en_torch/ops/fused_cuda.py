@@ -72,6 +72,15 @@ def mean_max_plain(frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return to_u16(total // frames.shape[0]), to_u16(v.amax(dim=0))
 
 
+def sum_max_plain(frames: torch.Tensor, total: torch.Tensor,
+                  mx: torch.Tensor) -> None:
+    """Plain version of ``sum_max``: an int32 copy of the frames, its sum
+    added to ``total`` and its amax folded into ``mx``."""
+    v = widen(frames)
+    total += v.sum(dim=0, dtype=torch.int32)
+    torch.maximum(mx, v.amax(dim=0), out=mx)
+
+
 def _sum_max_check(frames: torch.Tensor, name: str) -> None:
     if frames.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {frames.device}")
@@ -91,7 +100,7 @@ def sum_max(frames: torch.Tensor, total: torch.Tensor,
     and ``mx = max(mx, max_f frames)`` for frames (F, h, w) u8 or u16 in any
     layout and total, mx (h, w) int32 that the caller holds (zeroed before
     the first chunk).  CUDA tensors launch the sum/max kernel, CPU tensors
-    take torch's reductions.  The caller keeps the frames of all chunks
+    take ``sum_max_plain``.  The caller keeps the frames of all chunks
     within MAX_FRAMES."""
     _sum_max_check(frames, "sum_max")
     for arg, t in (("total", total), ("mx", mx)):
@@ -100,9 +109,7 @@ def sum_max(frames: torch.Tensor, total: torch.Tensor,
             raise TypeError(f"sum_max: {arg} must be {tuple(frames.shape[1:])}"
                             f" int32, contiguous on {frames.device}")
     if frames.device.type == "cpu":
-        v = widen(frames)
-        total += v.sum(dim=0, dtype=torch.int32)
-        torch.maximum(mx, v.amax(dim=0), out=mx)
+        sum_max_plain(frames, total, mx)
         return
     F, h, w = frames.shape
     with torch.cuda.device(frames.device):
@@ -245,7 +252,9 @@ def fused_mxu_plan(data_ptr: int, S: int, ih: int, iw: int):
     shifts, as a dict (path, yb rows a block owns, D stages of 8 frames in
     the ring, fb frames a disk store, stride bytes between two frames of a
     stage, smem bytes a block), or None where even the smallest plan does
-    not fit (several thousand shifts; the launch then fails)."""
+    not fit (several thousand shifts; the kernel library then refuses the
+    launch).  The wrapper does not call it: tests and the smoke run hold it
+    to the library's plan (``fused_mxu_plan_cuda``)."""
     aligned = data_ptr % 16 == 0 and ih * iw % 8 == 0
     nsg = -(-S // 8)
     # a bulk-aligned run first, then the longest run whose stage stays
@@ -344,8 +353,9 @@ def shg_fused_mxu(frames: torch.Tensor, ind_l: torch.Tensor,
     """Kernel B6 on CUDA tensors, ``shg_fused_mxu_plain`` on CPU tensors;
     the contract of ``shg_fused``, for iw <= MXU_MAX_IW.  On the card the
     shift count is bounded by the block's shared memory (its staging tile
-    and tap columns grow with S): several thousand shifts, ``fused_mxu_plan``
-    says whether a plan exists."""
+    and tap columns grow with S): past several thousand shifts the kernel
+    library refuses the launch (cudaErrorInvalidValue, raised by
+    ``cuda_build.check``); ``fused_mxu_plan`` says whether a plan exists."""
     _check(frames, ind_l, left_w, "shg_fused_mxu")
     F, ih, iw = frames.shape
     if iw > MXU_MAX_IW:
@@ -353,9 +363,6 @@ def shg_fused_mxu(frames: torch.Tensor, ind_l: torch.Tensor,
                          "whole rows in shared memory)")
     if frames.device.type == "cpu":
         return shg_fused_mxu_plain(frames, ind_l, left_w)
-    if fused_mxu_plan(frames.data_ptr(), ind_l.shape[0], ih, iw) is None:
-        raise ValueError(f"shg_fused_mxu: S={ind_l.shape[0]} shifts at "
-                         f"iw={iw} do not fit a block's shared memory")
     return _launch("shg_fused_mxu", frames, ind_l, left_w)
 
 

@@ -309,3 +309,24 @@ def test_bench_kernels_needs_cuda_unless_cpu():
         pytest.skip("CUDA is present here")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bench_kernels.main(["--frames", "8", "--ih", "8", "--iw", "8"])
+
+
+@pytest.mark.parametrize("src,consts", [
+    ("fused_mxu.cu", {"kMaxRows": 2, "kStageTarget": "48 * 1024",
+                      "kRingTarget": 12345}),
+    ("sum_max.cu", {"kChunks": 3, "kRingTarget": "72 * 1024"}),
+])
+def test_ring_probe_rewrites_each_constant_once(src, consts):
+    """chip_ring_probe.py builds variants of the two ring kernels by writing
+    over constants of their sources: each must be there exactly once (the
+    script stops otherwise)."""
+    import chip_ring_probe
+
+    text = (cuda_build.CSRC / src).read_text()
+    out = chip_ring_probe.with_constants(text, consts, 1)
+    for name, value in consts.items():
+        assert f" {name} = {value};" in out
+    assert "__launch_bounds__(kThreads, 1)" in out
+    assert out.count("\n") == text.count("\n")
+    with pytest.raises(SystemExit):
+        chip_ring_probe.with_constants(text, {"kNoSuchConstant": 1}, None)

@@ -5,8 +5,9 @@ generator, runs the ``-c`` slice through the CLI on the CPU, the fused step
 (``models.shg_forward``, and ``shg_fused(..., mxu=True)``), the
 resident-path benchmark (``bench_device``) and the kernel shoot-out
 (``bench_kernels``), then checks sys.modules.  The sources of the port, of
-``chip_smoke.py``, ``chip_profile.py`` and of the card tests (which run on
-a machine without jax) are checked for import statements.
+``chip_smoke.py``, ``chip_profile.py``, ``chip_ring_probe.py`` and of the
+card tests (which run on a machine without jax) are checked for import
+statements.
 """
 
 import ast
@@ -58,7 +59,7 @@ def _port_sources():
                 yield os.path.join(dirpath, name)
 
 
-CHECKED_FILES = ["chip_smoke.py", "chip_profile.py",
+CHECKED_FILES = ["chip_smoke.py", "chip_profile.py", "chip_ring_probe.py",
                  os.path.join("tests", "test_torch_cuda_kernels.py")]
 
 
