@@ -12,7 +12,11 @@ its StageTimer stages, the device-busy time (the union of the kernel, copy
 and memset intervals of the trace) with the card's idle share of the wall
 time, the device time by kernel or copy name, and the launches and device
 time of kernels B3, B4 and B5 (``recon_chunks_kernel``,
-``hresample_kernel``, ``hist_kernel``).  It then makes the same
+``hresample_kernel``, ``hist_kernel``), and the host side of the feed in
+that run (io/feeder.py:FEED): the copy threads' busy time, what the
+producer and the consumer each waited for, and the uploads' device time,
+so that the idle share can be read against the side that waits.  It then
+makes the same
 scan resident and normalised (bench_device.resident_frames) and profiles
 one warm call of the fused step (models/shg.py:shg_forward, kernel B1,
 shifts [10, 0]) the same way, one of the same step on kernel B6
@@ -99,6 +103,22 @@ def main(argv) -> int:
             chip_smoke.fail("profiled run failed")
         trace = os.path.join(tmp, "trace.json")
         by_name = report(prof, trace, wall_ms, "profiled run", card)
+        from solex_ser_recon_en_torch.io.feeder import FEED
+
+        print(f"feed of the profiled run: wall {1e3 * FEED['wall_s']:.1f} ms "
+              f"of the run's {wall_ms:.1f}; {FEED['threads']} copy threads "
+              f"busy {1e3 * FEED['copy_thread_s']:.1f} ms in all "
+              f"({1e3 * FEED['fill_s']:.1f} ms of the producer's wall, "
+              f"{FEED['bytes'] / FEED['fill_s'] / 1e9:.2f} GB/s); producer "
+              f"waited {1e3 * FEED['producer_wait_s']:.1f} ms for a free "
+              f"buffer; consumer waited "
+              f"{1e3 * FEED['consumer_wait_s']:.1f} ms for a filled buffer "
+              f"and {1e3 * FEED['upload_wait_s']:.1f} ms for uploads "
+              f"(closing the reader, inside the last wait, "
+              f"{1e3 * FEED['close_s']:.1f} ms); the rest of its wall "
+              f"{1e3 * (FEED['wall_s'] - FEED['consumer_wait_s'] - FEED['upload_wait_s']):.1f}"
+              f" ms (its own CUDA calls, the caller's work between chunks); "
+              f"uploads {FEED['h2d_ms']:.1f} ms on the card [{card}]")
         for kid, kernel in KERNEL_NAMES.items():
             hits = [v for k, v in by_name.items() if kernel in k]
             if not hits:

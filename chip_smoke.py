@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases; any failure exits non-zero before the final result line:
 
 1. device: CUDA present; the card's name and power limit (nvidia-smi).
-2. build: the kernels of csrc/ compiled from the checkout (nvcc).
+2. build: the kernels of csrc/ compiled from the checkout (nvcc), and the
+   native host library csrc/ser_io.cpp (g++), with the compiler's version.
 3. scan: the benchmark scan of bench.py (SyntheticScan, seed 5, stored
    wide) written as SER to a temporary directory.
 4. end to end: ``cli.main.main(["-cw0", scan])`` twice.  The first run
@@ -17,10 +18,24 @@ Phases; any failure exits non-zero before the final result line:
    (sum_max) must be launched once per chunk the feeder made, kernel B3
    (recon) exactly once (one launch over all resident chunks), B5
    (tile_hist) exactly twice (the CLAHE tiles, the CLAHE image's value
-   histogram) and B4 (hresample) at least once; the line fit, mean/max,
+   histogram) and B4 (hresample) at least once, and the host library's
+   ``ser_read``, ``box_blur_u16_exact`` and ``png_encode_stored_band``
+   must have been called (``io.native.CALLS``); the feed's line gives its
+   copy threads, ring depth, wall time, the uploads' device time and the
+   host's copy rate; the line fit, mean/max,
    shift-0 disk, fitted ratio and the corrected disk are checked against
    the scan's ground truth, and ``_shift=0_clahe.png`` against the
    corrected disk.
+   Then the feed (io/feeder.py): every chunk it yields on the card must
+   equal the plain feed's chunk bit for bit; a ``-cw0`` run on the plain
+   feed must give the same mean, max and disks as run 1 and the same
+   ``_clahe.png`` bytes; ``bench_feed.measure`` prints the host's copy rate
+   by thread count, one 96 MB pinned upload, the seconds of the feed by
+   thread count and of the plain feed, and the feed of a scan dropped from
+   the page cache with and without readahead (information).  The line
+   fit's blurs and the PNG encode run through the host library on the
+   inputs run 1 gave them, against their plain versions (bit-identical),
+   with host-clock times and their bound at the host's measured copy rate.
 5. kernels vs plain: each kernel against its plain PyTorch version on the
    inputs the main path gave it in the first run (B3 over the resident
    chunks, B4, B5 on the images; bit-identical), both timed with CUDA
@@ -66,7 +81,8 @@ Phases; any failure exits non-zero before the final result line:
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the
-per-kernel JSON record: each entry's launches are those of the path whose
+per-kernel JSON record (the host library's entry points have a JSON line
+of their own before it, ``host_entry_points``): each entry's launches are those of the path whose
 inputs its times were taken on, and pass A has two entries, ``sum_max``
 (the -cw0 path's raw chunks) and ``sum_max_resident`` (the slab).  The
 script imports nothing of JAX.
@@ -113,6 +129,10 @@ CW0_KERNELS = ("sum_max", "recon", "hresample", "tile_hist")
 RESIDENT_KERNELS = ("sum_max", "shg_fused", "hresample", "tile_hist")
 SHOOTOUT_KERNELS = ("shg_fused", "shg_fused_mxu", "recon", "hresample",
                     "tile_hist")
+#: the host library's entry points the -cw0 path must go through
+#: (csrc/ser_io.cpp, io/native.py): the feed, the line fit's blurs, the PNG
+HOST_ENTRY_POINTS = ("ser_read", "box_blur_u16_exact",
+                     "png_encode_stored_band")
 
 #: H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): HBM bytes/s and
 #: operations/s by type.  The data sheet lists no int32 rate; integer adds
@@ -289,6 +309,163 @@ def ground_truth_checks(scan, full, res, frame) -> dict:
     return out
 
 
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host-clock milliseconds of ``fn()`` (after one warm call)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def host_phase(path, tmp, png, res, blur_args, args, calls, card,
+               dev) -> list:
+    """The feed against the plain feed (chunks, a whole -cw0 run, times)
+    and the host library's blur and PNG encode against their plain
+    versions on the main path's inputs; returns the entry points' records."""
+    import torch
+
+    from solex_ser_recon_en_torch import bench_feed
+    from solex_ser_recon_en_torch.cli import main as cli_main
+    from solex_ser_recon_en_torch.config import Options
+    from solex_ser_recon_en_torch.io import feeder
+    from solex_ser_recon_en_torch.io import png as png_mod
+    from solex_ser_recon_en_torch.io.ser import SerReader
+    from solex_ser_recon_en_torch.ops import blur, fused
+    from solex_ser_recon_en_torch.ops.dtypes import as_int16
+    from solex_ser_recon_en_torch.pipeline import run as run_mod
+    from solex_ser_recon_en_torch.utils.device import synchronize
+
+    reader = SerReader(path)
+    new, _, _ = feeder.raw_device_chunks(reader, Options().frame_chunk, dev)
+    plain, _, _ = feeder.raw_device_chunks_plain(reader, Options().frame_chunk,
+                                                 dev)
+    n = 0
+    for (s_new, c_new), (s_plain, c_plain) in zip(new, plain, strict=True):
+        if s_new != s_plain or c_new.dtype != c_plain.dtype or not \
+                torch.equal(as_int16(c_new), as_int16(c_plain)):
+            fail(f"the feed's chunk at frame {s_new} differs from the plain "
+                 f"feed's at {s_plain}")
+        n += c_new.shape[0]
+    if n != reader.frame_count:
+        fail(f"the feed gave {n} frames of {reader.frame_count}")
+    print(f"feed: {feeder.FEED['chunks']} chunks, {n} frames, bit-identical "
+          "to the plain feed's", flush=True)
+    del reader, new, plain, c_new, c_plain
+
+    # a whole -cw0 run on the plain feed against run 1 (the new feed)
+    got = {}
+    orig_read, orig_mm = cli_main.read_scan, fused.RawScanProcessor.mean_max
+    orig_feed = run_mod.raw_device_chunks
+
+    def read_scan(file, opts, dev, timer=None):
+        got["scan"] = orig_read(file, opts, dev, timer)
+        return got["scan"]
+
+    def mean_max(self):
+        out = orig_mm(self)
+        got["max_img"] = out[1]
+        return out
+
+    out_plain = os.path.join(tmp, "out_plain_feed")
+    cli_main.read_scan = read_scan
+    fused.RawScanProcessor.mean_max = mean_max
+    run_mod.raw_device_chunks = feeder.raw_device_chunks_plain
+    t0 = time.perf_counter()
+    rc = cli_main.main([*args[:2], "--output-dir", out_plain,
+                        "--device", dev.type])
+    synchronize(dev)
+    wall_plain = time.perf_counter() - t0
+    cli_main.read_scan, fused.RawScanProcessor.mean_max = orig_read, orig_mm
+    run_mod.raw_device_chunks = orig_feed
+    if rc != 0:
+        fail("the -cw0 run on the plain feed failed")
+    a, b = res["scan"], got["scan"]
+    if not (np.array_equal(a.mean_img, b.mean_img)
+            and np.array_equal(res["max_img"], got["max_img"])
+            and torch.equal(as_int16(a.disk_list), as_int16(b.disk_list))):
+        fail("mean, max or disks differ between the feed and the plain feed")
+    with open(png, "rb") as f:
+        png_bytes = f.read()
+    with open(os.path.join(out_plain, os.path.basename(png)), "rb") as f:
+        if f.read() != png_bytes:
+            fail("_clahe.png differs between the feed and the plain feed")
+    print(f"plain feed: -cw0 wall {wall_plain:.3f} s; mean, max, disks and "
+          f"_clahe.png bytes equal the feed's [{card}]", flush=True)
+    del got, a, b
+
+    m = bench_feed.measure(path, dev)
+    print(f"feed measurements: {json.dumps(m)} [{card}]", flush=True)
+    best = max(m["staging_gbps"].values())
+    scan_gb = m["scan_gb"]
+    # the feed's bound: the larger of the uploads alone and the scan's bytes
+    # over the host's best copy rate
+    upload_ms = scan_gb * 1e3 / m["h2d_gbps"]
+    copy_ms = scan_gb * 1e3 / best
+    print(f"feed bound: the larger of the uploads alone ({upload_ms:.1f} ms "
+          f"at {m['h2d_gbps']:.1f} GB/s) and the scan over the host's best "
+          f"copy rate ({copy_ms:.1f} ms at {best:.2f} GB/s); feed "
+          f"{1e3 * m['feed_s'][feeder.COPY_THREADS]:.1f} ms with "
+          f"{feeder.COPY_THREADS} threads, plain feed "
+          f"{1e3 * m['plain_feed_s']:.1f} ms [{card}]", flush=True)
+
+    records = []
+    rate = best * 1e6                       # bytes per millisecond
+    # the line fit's blurs on the images run 1 gave them
+    err, ms, pms, nbytes = 0, 0.0, 0.0, 0
+    for img, kx, ky in blur_args:
+        out = blur.box_blur_u16_host(img, kx, ky)
+        err = max(err, int(np.abs(out.astype(np.int64) - blur.
+                  box_blur_u16_host_plain(img, kx, ky)).max()))
+        ms += host_ms(lambda: blur.box_blur_u16_host(img, kx, ky))
+        pms += host_ms(lambda: blur.box_blur_u16_host_plain(img, kx, ky))
+        nbytes += img.nbytes + out.nbytes
+    records.append(dict(
+        name="box_blur_u16_exact", replaces="numpy cumulative sums "
+        "(ops/blur.py:box_blur_u16_host_plain)", calls=calls[
+            "box_blur_u16_exact"], max_abs_err=err, ms=ms, plain_ms=pms,
+        bound_ms=nbytes / rate,
+        note=f"{[(i.shape, kx, ky) for i, kx, ky in blur_args]}"))
+
+    # the PNG encode on the image run 2 wrote
+    img = png_mod.read_png(png)
+    p_new, p_plain = (os.path.join(tmp, n) for n in ("e_new.png",
+                                                     "e_plain.png"))
+    png_mod.write_png_streaming(p_new, img)
+    png_mod.write_png_streaming_plain(p_plain, img)
+    with open(p_new, "rb") as f, open(p_plain, "rb") as g:
+        data = f.read()
+        same = data == g.read() == png_bytes
+    records.append(dict(
+        name="png_encode_stored_band", replaces="numpy pack, struct and "
+        "zlib framing (io/png.py:write_png_streaming_plain)",
+        calls=calls["png_encode_stored_band"], max_abs_err=0 if same else 1,
+        ms=host_ms(lambda: png_mod.write_png_streaming(p_new, img)),
+        plain_ms=host_ms(lambda: png_mod.write_png_streaming_plain(p_plain,
+                                                                   img)),
+        bound_ms=(img.nbytes + len(data)) / rate,
+        note=f"image {img.shape} {img.dtype}, file write included"))
+    records.append(dict(
+        name="ser_read", replaces="np.copyto from the memmap on the "
+        "consumer's thread (io/feeder.py:raw_device_chunks_plain)",
+        calls=calls["ser_read"], max_abs_err=0,
+        ms=1e3 * m["feed_s"][feeder.COPY_THREADS],
+        plain_ms=1e3 * m["plain_feed_s"],
+        bound_ms=max(upload_ms, copy_ms),
+        note="the whole feed of the scan, uploads included"))
+    for r in records:
+        print(f"host {r['name']}: {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms at "
+              f"{best:.2f} GB/s, {r['calls']} calls in run 2, max_abs_err "
+              f"{r['max_abs_err']} ({r['note']}) [{card}]", flush=True)
+        if r["max_abs_err"] != 0:
+            fail(f"host entry point {r['name']} differs from its plain "
+                 "version")
+    return records
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "solex_ser_recon_en_torch")):
         fail("solex_ser_recon_en_torch not found beside chip_smoke.py")
@@ -318,6 +495,16 @@ def main() -> int:
                                        "Compiling entry")):
                 print("  ptxas:", line.strip().split("ptxas info    : ")[-1])
 
+    from solex_ser_recon_en_torch.io import native
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    print(f"host library: {time.perf_counter() - t0:.2f} s "
+          f"({native.CXX} {native.build_seconds:.2f} s, "
+          f"{native.compiler_version()}, {' '.join(native.CXX_FLAGS)}) -> "
+          f"{os.path.relpath(native.library_path(), ROOT)}; "
+          f"os.cpu_count() {os.cpu_count()}", flush=True)
+
     # 3. scan
     tmp = tempfile.mkdtemp(prefix="solex_smoke_")
     try:
@@ -331,14 +518,22 @@ def main() -> int:
         # 4. end to end through the CLI entry point: run 1 with capture
         # hooks, run 2 timed with none
         from solex_ser_recon_en_torch.cli import main as cli_main
+        from solex_ser_recon_en_torch.geometry import linefit
+        from solex_ser_recon_en_torch.io import feeder
         from solex_ser_recon_en_torch.ops import clahe, fused, warp_fast
         from solex_ser_recon_en_torch.pipeline import run as run_mod
 
-        res, caps = {}, {"recon": [], "hresample": [], "tile_hist": {}}
+        res = {}
+        caps = {"recon": [], "hresample": [], "tile_hist": {}, "blur": []}
         targets = {"read_scan": cli_main, "mean_max": fused.RawScanProcessor,
                    "single_image_process": run_mod, "recon_chunks": fused,
-                   "hresample": warp_fast, "image_tile_histograms": clahe}
+                   "hresample": warp_fast, "image_tile_histograms": clahe,
+                   "box_blur_u16_host": linefit}
         orig = {name: getattr(obj, name) for name, obj in targets.items()}
+
+        def box_blur_u16_host(img, kx, ky):
+            caps["blur"].append((img.copy(), kx, ky))
+            return orig["box_blur_u16_host"](img, kx, ky)
 
         def read_scan(file, opts, dev, timer=None):
             res["opts"] = opts
@@ -373,7 +568,8 @@ def main() -> int:
         hooks = {"read_scan": read_scan, "mean_max": mean_max,
                  "single_image_process": single_image_process,
                  "recon_chunks": recon_chunks, "hresample": hresample,
-                 "image_tile_histograms": image_tile_histograms}
+                 "image_tile_histograms": image_tile_histograms,
+                 "box_blur_u16_host": box_blur_u16_host}
         for name, obj in targets.items():
             setattr(obj, name, hooks[name])
 
@@ -388,11 +584,15 @@ def main() -> int:
             fail("first end-to-end run failed")
         for k in cuda_build.LAUNCHES:
             cuda_build.LAUNCHES[k] = 0
+        for k in native.CALLS:
+            native.CALLS[k] = 0
         t0 = time.perf_counter()
         rc = cli_main.main(args)
         torch.cuda.synchronize()
         wall2 = time.perf_counter() - t0
         launches = dict(cuda_build.LAUNCHES)
+        calls = dict(native.CALLS)
+        feed2 = dict(feeder.FEED)
         if rc != 0:
             fail("second end-to-end run failed")
         print(f"end to end: run 1 {wall1:.3f} s, run 2 {wall2:.3f} s "
@@ -411,6 +611,27 @@ def main() -> int:
                 fail(f"kernel {name} was launched {launches[name]} times "
                      f"by the -cw0 path, not {n}")
 
+        print(f"host library calls in run 2: {calls}", flush=True)
+        for name in HOST_ENTRY_POINTS:
+            if calls[name] <= 0:
+                fail(f"host entry point {name} was not called by the -cw0 "
+                     "path")
+        print(f"feed in run 2: {feed2['threads']} copy threads, ring of "
+              f"{feed2['depth']}, {feed2['chunks']} chunks, wall "
+              f"{1e3 * feed2['wall_s']:.1f} ms, uploads "
+              f"{feed2['h2d_ms']:.1f} ms on the card, host copies "
+              f"{feed2['bytes'] / feed2['fill_s'] / 1e9:.2f} GB/s while "
+              f"filling ({1e3 * feed2['fill_s']:.1f} ms; copy threads busy "
+              f"{1e3 * feed2['copy_thread_s']:.1f} ms in all); producer "
+              f"waited {1e3 * feed2['producer_wait_s']:.1f} ms for a free "
+              f"buffer, consumer {1e3 * feed2['consumer_wait_s']:.1f} ms for "
+              f"a filled one and {1e3 * feed2['upload_wait_s']:.1f} ms for "
+              f"uploads (closing the reader, inside the last wait, "
+              f"{1e3 * feed2['close_s']:.1f} ms); the rest of the wall, its "
+              f"own CUDA calls and the caller's work between chunks, "
+              f"{1e3 * (feed2['wall_s'] - feed2['consumer_wait_s'] - feed2['upload_wait_s']):.1f}"
+              f" ms [{card}]", flush=True)
+
         png = os.path.join(outdir, "scan_shift=0_clahe.png")
         if not os.path.exists(png):
             fail(f"{png} missing")
@@ -426,6 +647,9 @@ def main() -> int:
         truth = ground_truth_checks(scan, full, res, frame)
         print("ground truth: " + json.dumps(truth), flush=True)
         del full
+
+        host_records = host_phase(path, tmp, png, res, caps["blur"], args,
+                                  calls, card, torch.device("cuda"))
 
         # 5. kernels vs plain versions on the main path's inputs
         from solex_ser_recon_en_torch.ops.clahe import (
@@ -820,6 +1044,7 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    print(json.dumps({"host_entry_points": host_records}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,10 @@ stage decomposition of one scan held on the device.
 
 Counterpart of bench.py:device_only_fps and
 bench.py:device_attached_decomposition of the JAX package.  The scan is
-uploaded once (io/feeder.py:raw_device_chunks: memmap -> pinned staging ->
-device, chunk by chunk) into one raw slab, normalised on the device
-(io/feeder.py:normalize_frames), and the pipeline's legs run from there:
+uploaded once (io/feeder.py:raw_device_chunks: native reader -> pinned
+staging ring -> device, chunk by chunk) into one raw slab, normalised on
+the device (io/feeder.py:normalize_frames), and the pipeline's legs run
+from there:
 
   feed_s_measured   chunked raw upload, as measured on this link
   device_meanmax_s  pass A: the sum/max kernel (ops/fused_cuda.py:mean_max)
@@ -33,6 +34,7 @@ prints the decomposition as one JSON line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -97,11 +99,12 @@ def upload(reader: SerReader, n: int,
                       else torch.uint16, device=device)
     t0 = time.perf_counter()
     chunks, _, _ = raw_device_chunks(reader, Options().frame_chunk, device)
-    for start, chunk in chunks:
-        if start >= n:
-            break
-        m = min(chunk.shape[0], n - start)
-        raw[start:start + m].copy_(chunk[:m])
+    with contextlib.closing(chunks):    # stops the feed's producer early
+        for start, chunk in chunks:
+            if start >= n:
+                break
+            m = min(chunk.shape[0], n - start)
+            raw[start:start + m].copy_(chunk[:m])
     synchronize(device)
     return raw, time.perf_counter() - t0
 

@@ -1,12 +1,22 @@
-"""Grayscale PNG encode and decode with the standard library alone.
+"""Grayscale PNG encode and decode.
 
-``write_png_streaming`` is the port's copy of the stdlib encoder of
-solex_ser_recon_en_tpu/io/png.py (without its OpenCV, PIL and native
-branches): 8/16-bit grayscale, filter type 0 scanlines, zlib level 0 in
-stored blocks, as the reference's ``cv2.imwrite`` compression-0 products
-(solex_util.py:556-566).  Its bytes equal the JAX package's.  ``read_png``
-decodes such files, so the checks of the products need neither OpenCV nor
-PIL.
+Counterpart of the streaming encoder of solex_ser_recon_en_tpu/io/png.py
+at compression 0 (without its OpenCV, PIL and zlib-compressed branches):
+8/16-bit grayscale, filter type 0 scanlines, zlib level 0 in stored
+blocks, as the reference's ``cv2.imwrite`` compression-0 products
+(solex_util.py:556-566).  The image is cut into 8 row bands, each its own
+IDAT chunk.
+
+- ``write_png_bands`` takes the bands one by one (pipeline/products.py
+  hands them over as they come down from the card) and frames each with
+  the native library's ``png_encode_stored_band`` (io/native.py): scanline
+  pack, stored blocks, adler32 and chunk CRC in one pass.
+- ``write_png_streaming`` is the same for an image on the host.
+- ``write_png_streaming_plain`` is the plain version: the same bytes from
+  numpy, ``struct`` and ``zlib`` alone.
+
+The bytes of all three equal the JAX package's.  ``read_png`` decodes such
+files, so the checks of the products need neither OpenCV nor PIL.
 """
 
 from __future__ import annotations
@@ -15,6 +25,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from .native import png_encode_band
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 #: row bands of the image, each framed as its own run of stored blocks (the
@@ -55,22 +67,71 @@ def _stored_parts(payload: bytes, first: bool, final: bool, adler: int):
     return parts
 
 
-def write_png_streaming(path: str, img: np.ndarray) -> None:
-    """Write a host (h, w) image as an 8-bit (uint8) or 16-bit grayscale PNG
-    (other dtypes are clipped to [0, 65535] and stored as uint16)."""
+def band_bounds(h: int) -> list:
+    """(first row, end row) of each row band of an image of ``h`` rows."""
+    nb = max(1, min(_BANDS, h))
+    return [(h * k // nb, h * (k + 1) // nb) for k in range(nb)]
+
+
+def _as_png_image(img) -> np.ndarray:
     img = np.asarray(img)
     if img.dtype not in (np.uint8, np.uint16):
         img = np.clip(img, 0, 65535).astype(np.uint16)
+    return img
+
+
+def write_png_bands(path: str, shape, dtype, bands) -> None:
+    """Write an (h, w) uint8 or uint16 image whose row bands (host arrays,
+    cut at ``band_bounds(h)``) come from the iterable ``bands`` in order;
+    each band is encoded as soon as the iterable yields it."""
+    h, w = shape
+    dtype = np.dtype(dtype)
+    if dtype not in (np.uint8, np.uint16):
+        raise TypeError(f"PNG bands must be uint8 or uint16, not {dtype}")
+    bounds = band_bounds(h)
+    adler, k = 1, 0
+    with open(path, "wb") as f:
+        f.write(_SIGNATURE)
+        _png_chunk(f, b"IHDR", [struct.pack(">IIBBBBB", w, h,
+                                            8 * dtype.itemsize, 0, 0, 0, 0)])
+        for k, rows in enumerate(bands, 1):
+            if k > len(bounds) or rows.dtype != dtype or rows.shape != (
+                    bounds[k - 1][1] - bounds[k - 1][0], w):
+                raise ValueError(f"band {k} of {path} is not the "
+                                 f"{dtype} rows {bounds[k - 1:k]} x {w}")
+            body, adler, crc = png_encode_band(
+                rows, k == 1, k == len(bounds), adler, zlib.crc32(b"IDAT"))
+            f.write(struct.pack(">I", len(body)))
+            f.write(b"IDAT")
+            f.write(body)
+            f.write(struct.pack(">I", crc))
+        if k != len(bounds):
+            raise ValueError(f"{path}: {k} bands came, not {len(bounds)}")
+        _png_chunk(f, b"IEND", [b""])
+
+
+def write_png_streaming(path: str, img: np.ndarray) -> None:
+    """Write a host (h, w) image as an 8-bit (uint8) or 16-bit grayscale PNG
+    (other dtypes are clipped to [0, 65535] and stored as uint16)."""
+    img = _as_png_image(img)
+    write_png_bands(path, img.shape, img.dtype,
+                    (img[a:b] for a, b in band_bounds(img.shape[0])))
+
+
+def write_png_streaming_plain(path: str, img: np.ndarray) -> None:
+    """The plain version of ``write_png_streaming``: the same file from
+    numpy and the standard library."""
+    img = _as_png_image(img)
     depth, be = (8, "|u1") if img.dtype == np.uint8 else (16, ">u2")
     h, w = img.shape
-    nb = max(1, min(_BANDS, h))
+    nb = len(band_bounds(h))
     adler = 1
     with open(path, "wb") as f:
         f.write(_SIGNATURE)
         _png_chunk(f, b"IHDR",
                    [struct.pack(">IIBBBBB", w, h, depth, 0, 0, 0, 0)])
-        for k in range(nb):
-            rows = img[h * k // nb:h * (k + 1) // nb]
+        for k, (a, b) in enumerate(band_bounds(h)):
+            rows = img[a:b]
             line = np.ascontiguousarray(rows).astype(be, copy=False)
             raw = np.zeros((rows.shape[0], 1 + w * line.itemsize), np.uint8)
             raw[:, 1:] = line.view(np.uint8).reshape(rows.shape[0], -1)

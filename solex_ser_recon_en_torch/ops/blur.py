@@ -8,14 +8,23 @@ images, round-half-to-even output.
   float64 cumulative sums, exact for the ellipse-fit inputs (block means of
   u16/65536 values).  Never a convolution: on CUDA, cuDNN would run a
   float32 convolution in TF32.
-- ``box_blur_u16_host`` (host, numpy, integer images): the line fit's blur
-  on the host mean image, bit-identical to the device program.
+- ``box_blur_host`` / ``box_blur_u16_host`` (host, integer images): the
+  line fit's blur on the host mean image, bit-identical to the device
+  program.  2-D uint16 images go through the native library's one-pass
+  blur (io/native.py:box_blur_u16) wherever its domain holds
+  (``box_blur_u16_fits``: the reflected border fits inside the image, and
+  kx * ky <= 32767).  Outside that domain, and for other integer dtypes or
+  ranks, the numpy twin below runs: that split is by the input alone.  A
+  library that cannot be built raises; numpy never stands in for it.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..io.native import box_blur_u16 as native_box_blur_u16
+from ..io.native import box_blur_u16_fits
 
 
 def _reflect_index(n: int, lo: int, hi: int, device) -> torch.Tensor:
@@ -72,8 +81,14 @@ def _window_sum_1d_host(x: np.ndarray, k: int, axis: int,
     return c[tuple(sl_hi)] - c[tuple(sl_lo)]
 
 
-def box_blur_host(img: np.ndarray, kx: int, ky: int) -> np.ndarray:
-    """numpy box blur of an INTEGER image (exact int32 sums) -> float32."""
+def _native_takes(img: np.ndarray, kx: int, ky: int) -> bool:
+    return (img.dtype == np.uint16 and img.ndim == 2
+            and box_blur_u16_fits(img.shape, kx, ky))
+
+
+def box_blur_host_plain(img: np.ndarray, kx: int, ky: int) -> np.ndarray:
+    """numpy box blur of an INTEGER image (exact int32 sums) -> float32:
+    the plain version of ``box_blur_host``."""
     if not np.issubdtype(img.dtype, np.integer):
         raise TypeError("box_blur_host is exact for integer inputs only")
     s = _window_sum_1d_host(img, ky, img.ndim - 2, np.int32)
@@ -84,7 +99,23 @@ def box_blur_host(img: np.ndarray, kx: int, ky: int) -> np.ndarray:
     return q.astype(np.float32) + r.astype(np.float32) / np.float32(k)
 
 
-def box_blur_u16_host(img: np.ndarray, kx: int, ky: int) -> np.ndarray:
-    """uint16 box blur with cv2's round-half-to-even output."""
-    out = box_blur_host(img, kx, ky)
+def box_blur_u16_host_plain(img: np.ndarray, kx: int, ky: int) -> np.ndarray:
+    """The plain version of ``box_blur_u16_host``."""
+    out = box_blur_host_plain(img, kx, ky)
     return np.clip(np.round(out), 0, 65535).astype(np.uint16)
+
+
+def box_blur_host(img: np.ndarray, kx: int, ky: int) -> np.ndarray:
+    """Box blur of an INTEGER host image (exact int32 sums) -> float32;
+    native for 2-D uint16 images inside ``box_blur_u16_fits``."""
+    if _native_takes(img, kx, ky):
+        return native_box_blur_u16(img, kx, ky, "f32")
+    return box_blur_host_plain(img, kx, ky)
+
+
+def box_blur_u16_host(img: np.ndarray, kx: int, ky: int) -> np.ndarray:
+    """uint16 box blur with cv2's round-half-to-even output; native for
+    2-D uint16 images inside ``box_blur_u16_fits``."""
+    if _native_takes(img, kx, ky):
+        return native_box_blur_u16(img, kx, ky, "u16")
+    return box_blur_u16_host_plain(img, kx, ky)

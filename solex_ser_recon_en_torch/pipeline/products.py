@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..config import Options, output_path
-from ..io.png import write_png_streaming
+from ..io.png import band_bounds, write_png_bands, write_png_streaming
 from ..io.writers import submit
 from ..ops.clahe import _clahe, percentile_from_hist, value_histogram
 from ..ops.dtypes import as_int16, to_u16, widen
@@ -75,7 +75,32 @@ def needed_products(options: Options, save: bool = True):
 
 
 def _save_png_sync(path: str, img: torch.Tensor) -> None:
-    write_png_streaming(path, img.cpu().numpy())
+    """Encode and write a (h, w) uint8/uint16 image.  From the card it
+    comes down in the encoder's row bands, into pinned memory with
+    non-blocking copies all queued at once, and band k is encoded while
+    the later ones are in flight (counterpart of the JAX encoder's
+    ``copy_to_host_async`` bands)."""
+    if img.device.type != "cuda":
+        write_png_streaming(path, img.numpy())
+        return
+    host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
+    arrived = []
+    # the writer pool's threads start on device 0: the events must be
+    # recorded on the image's device, on the stream that copies
+    with torch.cuda.device(img.device):
+        for a, b in band_bounds(img.shape[0]):
+            host[a:b].copy_(img[a:b], non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            arrived.append((a, b, ev))
+    rows = host.numpy()
+
+    def bands():
+        for a, b, ev in arrived:
+            ev.synchronize()
+            yield rows[a:b]
+
+    write_png_bands(path, rows.shape, rows.dtype, bands())
 
 
 def _save_png(path: str, img: torch.Tensor) -> None:

@@ -4,7 +4,8 @@ Counterpart of solex_ser_recon_en_tpu/pipeline/run.py (read_scan on the
 device feed, single_image_process on the fused-gain branch, process_scan,
 process_file).  reference: Solex_recon.py:49-174.  Data flow for one scan:
 
-  host memmap SER -> pinned staging -> raw chunks resident on the device
+  SER file -> native reader, copy threads -> pinned staging ring -> raw
+  chunks resident on the device                 (io/feeder.py, io/native.py)
       device: int32 sum + max over frames       (pass A, ops/fused.py)
       host:   cubic line fit (float64)          (geometry/linefit.py)
       device: multi-shift recon, kernel B3      (pass B, ops/recon_cuda.py)
@@ -12,7 +13,7 @@ process_file).  reference: Solex_recon.py:49-174.  Data flow for one scan:
       device: circularisation warp, kernel B4   (ops/warp_fast.py)
       device: transversalium row statistics     (ops/rowstats.py)
       device: gain multiply, CLAHE + stretch, kernel B5 (pipeline/products.py)
-      host:   PNG write
+      host:   PNG encode (native, band by band as the image comes down)
 
 Supported options are those of the ``-c`` (clahe-only) path: shifts
 (``-w``), ``-t``, ``-x``, ``-m``, ``-p`` and the image rotation; the
@@ -21,6 +22,7 @@ other product modes raise NotImplementedError.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 from dataclasses import dataclass
@@ -122,8 +124,10 @@ def read_scan(file: str, options: Options, device: torch.device,
             reader, options.frame_chunk, device)
         proc = RawScanProcessor(reader.Height, reader.Width, rotate, upscale,
                                 device)
-        for start, chunk in raw_iter:
-            proc.accumulate(start, chunk, keep=keep_resident)
+        # closing: an error between chunks must stop the feed's producer
+        with contextlib.closing(raw_iter):
+            for start, chunk in raw_iter:
+                proc.accumulate(start, chunk, keep=keep_resident)
         mean_img, max_img = proc.mean_max()
 
     with timer.stage("line fit"):
@@ -137,8 +141,9 @@ def read_scan(file: str, options: Options, device: torch.device,
         else:
             raw_iter, _, _ = raw_device_chunks(reader, options.frame_chunk,
                                                device)
-            disk_list = proc.reconstruct_streaming(raw_iter, lf.floor,
-                                                   lf.frac, shifts)
+            with contextlib.closing(raw_iter):
+                disk_list = proc.reconstruct_streaming(raw_iter, lf.floor,
+                                                       lf.frac, shifts)
         synchronize(device)
 
     if options.flip_x:

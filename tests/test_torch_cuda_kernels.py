@@ -11,7 +11,9 @@ every float32 step the same way (no FMA, same order); B6's FP64
 contraction and its plain version both form round_f64(a*w + b*(1-w)) from
 exact products.  B6 against B1: mean and max equal, disks within 1 LSB
 (float64 vs float32 sums of the same two products).  Pass A's sum/max
-kernel: bit-identical (integer sums and maxima, exact in any order).
+kernel: bit-identical (integer sums and maxima, exact in any order).  The
+feed's chunks on the card and the PNG of an image that comes down in
+bands: bit-identical to the plain feed's and the plain encoder's.
 """
 
 import numpy as np
@@ -586,3 +588,75 @@ def test_pass_a_accumulates_through_the_kernel(rng, cuda_device):
     mean_c, mx_c = cpu.mean_max()
     np.testing.assert_array_equal(mean, mean_c)
     np.testing.assert_array_equal(mx, mx_c)
+
+
+# ---- the feed and the product download, on the card ------------------------
+
+
+@pytest.mark.parametrize("depth", [8, 16])
+@pytest.mark.parametrize("threads,ring", [(1, 3), (4, 3), (2, 4)])
+def test_feed_on_the_card_equals_plain_feed_and_file(rng, cuda_device,
+                                                     tmp_path, threads, ring,
+                                                     depth):
+    from solex_ser_recon_en_torch.io import feeder
+    from solex_ser_recon_en_torch.io.ser import SerReader, write_ser
+
+    frames = rng.integers(0, 256 if depth == 8 else 65536,
+                          (50, 24, 40)).astype(np.uint8 if depth == 8
+                                               else np.uint16)
+    path = str(tmp_path / "s.ser")
+    write_ser(path, frames)
+    reader = SerReader(path)
+    new, _, _ = feeder.raw_device_chunks(reader, 7, cuda_device,
+                                         threads=threads, depth=ring)
+    plain, _, _ = feeder.raw_device_chunks_plain(reader, 7, cuda_device)
+    got, want = list(new), list(plain)
+    assert [s for s, _ in got] == [s for s, _ in want] == list(range(0, 50, 7))
+    def host(c):
+        c = c.cpu()
+        return (c.view(torch.int16).numpy().view(np.uint16) if depth == 16
+                else c.numpy())
+
+    for (_, a), (_, b) in zip(got, want):
+        assert a.is_cuda and a.dtype == b.dtype
+        np.testing.assert_array_equal(host(a), host(b))
+    np.testing.assert_array_equal(
+        np.concatenate([host(c) for _, c in got]), frames)
+    assert feeder.FEED["chunks"] == 8 and feeder.FEED["h2d_ms"] > 0
+
+
+def test_feed_closed_early_on_the_card(rng, cuda_device, tmp_path):
+    import threading
+
+    from solex_ser_recon_en_torch.io import feeder, native
+    from solex_ser_recon_en_torch.io.ser import SerReader, write_ser
+
+    path = str(tmp_path / "s.ser")
+    write_ser(path, rng.integers(0, 65536, (60, 8, 16)).astype(np.uint16))
+    closed = native.CALLS["ser_close"]
+    it, _, _ = feeder.raw_device_chunks(SerReader(path), 2, cuda_device)
+    next(it)
+    it.close()
+    torch.cuda.synchronize()
+    assert native.CALLS["ser_close"] == closed + 1
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith(("solex-torch-feed",
+                                      "solex-torch-copy"))]
+
+
+@pytest.mark.parametrize("shape,dtype", [((2048, 2204), np.uint16),
+                                         ((5, 33), np.uint16),
+                                         ((64, 100), np.uint8)])
+def test_png_of_a_device_image_equals_plain(rng, cuda_device, tmp_path, shape,
+                                            dtype):
+    """The image comes down in bands into pinned memory and each band is
+    encoded as it arrives: the same file as the plain encoder's."""
+    from solex_ser_recon_en_torch.io import png
+    from solex_ser_recon_en_torch.pipeline.products import _save_png_sync
+
+    img = rng.integers(0, np.iinfo(dtype).max + 1, shape).astype(dtype)
+    a, b = str(tmp_path / "a.png"), str(tmp_path / "b.png")
+    _save_png_sync(a, t(img, cuda_device))
+    png.write_png_streaming_plain(b, img)
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()

@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's jax-free leaf modules (config,
 SER I/O, synthetic scan, PNG encoder, run log, write pool) against the
-originals: the same inputs give the same fields, bytes and arrays."""
+originals: the same inputs give the same fields, bytes and arrays.  The
+native host library's source is a copy too, held byte for byte."""
 
 import dataclasses
 import os
@@ -18,6 +19,33 @@ from solex_ser_recon_en_torch.io import png, ser, writers
 from solex_ser_recon_en_torch.io.synthetic import SyntheticScan
 from solex_ser_recon_en_torch.utils.log import RunLog
 from solex_ser_recon_en_torch.utils.timer import StageTimer
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_native_source_is_a_byte_for_byte_copy():
+    """csrc/ser_io.cpp is native/ser_io.cpp: what the port needs beyond it
+    goes into a second source, never into the copy."""
+    with open(os.path.join(ROOT, "native", "ser_io.cpp"), "rb") as f:
+        original = f.read()
+    with open(os.path.join(ROOT, "solex_ser_recon_en_torch", "csrc",
+                           "ser_io.cpp"), "rb") as f:
+        assert f.read() == original
+    assert len(original) > 50_000
+
+
+def test_native_library_is_not_the_jax_packages():
+    """Two libraries of one source: the port loads only the file it built
+    from its own csrc/ into its own directory."""
+    from solex_ser_recon_en_tpu.io import native as jax_native
+    from solex_ser_recon_en_torch.io import native
+
+    native.get_lib()
+    assert str(native.library_path()).startswith(str(native.build_dir()))
+    assert os.path.abspath(jax_native._CACHE) != str(native.build_dir())
+    assert native.SOURCE.parent.name == "csrc"
+    assert native.SOURCE.parents[1].name == "solex_ser_recon_en_torch"
 
 
 def _defaults(cls):

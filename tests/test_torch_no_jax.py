@@ -3,8 +3,9 @@
 A fresh interpreter makes a tiny scan with the port's own synthetic-scan
 generator, runs the ``-c`` slice through the CLI on the CPU, the fused step
 (``models.shg_forward``, and ``shg_fused(..., mxu=True)``), the
-resident-path benchmark (``bench_device``) and the kernel shoot-out
-(``bench_kernels``), then checks sys.modules.  The sources of the port, of
+resident-path benchmark (``bench_device``), the feed measurements
+(``bench_feed``, which build and load the native host library) and the
+kernel shoot-out (``bench_kernels``), then checks sys.modules.  The sources of the port, of
 ``chip_smoke.py``, ``chip_profile.py``, ``chip_ring_probe.py`` and of the
 card tests (which run on a machine without jax) are checked for import
 statements.
@@ -23,6 +24,7 @@ SCRIPT = r"""
 import sys
 import torch
 import solex_ser_recon_en_torch.bench_device as bench_device
+import solex_ser_recon_en_torch.bench_feed as bench_feed
 import solex_ser_recon_en_torch.bench_kernels as bench_kernels
 import solex_ser_recon_en_torch.cli.main as cli
 from solex_ser_recon_en_torch.io.synthetic import SyntheticScan
@@ -40,6 +42,8 @@ assert out[2].shape == (2, 256, 8), out[2].shape
 out = shg_fused(*step, mxu=True)
 assert out[2].shape == (2, 256, 8), out[2].shape
 rc = bench_device.main(["tiny.ser", "--device", "cpu", "--output-dir", "dec"])
+assert rc == 0, rc
+rc = bench_feed.main(["tiny.ser", "--device", "cpu"])
 assert rc == 0, rc
 rc = bench_kernels.main(["--device", "cpu", "--frames", "16", "--ih", "24",
                          "--iw", "16", "--reps", "1"])

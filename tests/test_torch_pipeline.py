@@ -352,3 +352,65 @@ def test_mirror_flag_flips_disks(basic_scan, runs):
         shift=[0], clahe_only=True, flip_x=True, _nolog=True), CPU)
     np.testing.assert_array_equal(scan.disk_list.numpy(),
                                   runs["scan_t"].disk_list.numpy()[:, :, ::-1])
+
+
+# ---- the host library on the slice's path ----------------------------------
+
+
+def test_slice_through_native_library_equals_plain_routes(basic_scan, tmp_path,
+                                                          monkeypatch):
+    """-cw0 on the CPU reads, blurs and encodes through the native library
+    (counted), and its products equal, byte for byte, those of the same
+    run on the plain feed, the numpy blur and the stdlib encoder."""
+    from solex_ser_recon_en_torch.geometry import linefit
+    from solex_ser_recon_en_torch.io import feeder, native, png
+    from solex_ser_recon_en_torch.ops import blur
+
+    before = dict(native.CALLS)
+    out_n, out_p = tmp_path / "native", tmp_path / "plain"
+    assert cli_main(["-cw0", basic_scan["path"], "--device", "cpu",
+                     "--output-dir", str(out_n)]) == 0
+    called = {k: native.CALLS[k] - before[k] for k in before}
+    assert called["ser_read"] >= 1 and called["ser_close"] == 1
+    assert called["box_blur_u16_exact"] == 2        # detect_bord, the fit
+    assert called["png_encode_stored_band"] == 8
+
+    monkeypatch.setattr(port_run, "raw_device_chunks",
+                        feeder.raw_device_chunks_plain)
+    monkeypatch.setattr(linefit, "box_blur_u16_host",
+                        blur.box_blur_u16_host_plain)
+    monkeypatch.setattr(port_products, "write_png_streaming",
+                        png.write_png_streaming_plain)
+    before = dict(native.CALLS)
+    assert cli_main(["-cw0", basic_scan["path"], "--device", "cpu",
+                     "--output-dir", str(out_p)]) == 0
+    assert native.CALLS == before
+    names = sorted(p.name for p in out_n.iterdir())
+    assert names == sorted(p.name for p in out_p.iterdir())
+    assert "basic_shift=0_clahe.png" in names
+    for name in names:
+        if name.endswith(".png"):
+            assert (out_n / name).read_bytes() == (out_p / name).read_bytes()
+
+
+def test_read_scan_error_between_chunks_stops_the_feed(basic_scan,
+                                                       monkeypatch):
+    """An error in pass A leaves no producer thread and no open reader."""
+    import threading
+
+    from solex_ser_recon_en_torch.io import native
+    from solex_ser_recon_en_torch.ops.fused import RawScanProcessor
+
+    def accumulate(self, start, chunk, keep=True):
+        raise ValueError("pass A failed")
+
+    monkeypatch.setattr(RawScanProcessor, "accumulate", accumulate)
+    opened, closed = native.CALLS["ser_open"], native.CALLS["ser_close"]
+    with pytest.raises(ValueError, match="pass A failed"):
+        port_run.read_scan(basic_scan["path"], Options(
+            shift=[0], clahe_only=True, frame_chunk=16, _nolog=True), CPU)
+    assert native.CALLS["ser_open"] - opened == 1
+    assert native.CALLS["ser_close"] - closed == 1
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith(("solex-torch-feed",
+                                      "solex-torch-copy"))]
