@@ -79,6 +79,42 @@ Phases; any failure exits non-zero before the final result line:
    B5 over it must be > 0 (its "torch step" rows run PyTorch's own
    kernels only); a row that raises stops the script.
 
+8. product modes: the other modes of one scan on the phase-3 scan, each
+   driven with the launch counts set to 0 before it and read after it,
+   its wall and stage times printed with the card's name.
+   ``protus_only`` with ``-f`` at shift 0 (the fullest single-shift set
+   that needs no matplotlib), through the CLI's file handler:
+   ``_protus.png``, ``_mean``, ``_raw``, ``_circular``,
+   ``_detransversaliumed`` and ``_clahe.fits`` must exist and no other
+   product, each FITS read back with its shape and NAXIS1; the protus PNG
+   must be the stretch of the corrected disk with exactly the raster's
+   pixels painted at the fitted circle; ``_clahe.fits`` stretched (on the
+   CPU) must give phase 4's ``_clahe.png`` within 1 LSB.  A ``-c`` sweep
+   ``-w -9:9:3`` through ``cli.main.main``: one B4 launch for the 7 disks,
+   B5 twice an image, shift 0's ``_clahe.png`` byte-identical to phase
+   4's; the same sweep with ``-f``: 29 FITS (the mean and 4 a shift) read
+   back with their shapes, one ``fits_pack_u16`` call each, every
+   ``_clahe.png`` byte-identical to the sweep's without ``-f``.
+   ``-c -r 1001`` (odd width) and ``-c -s``: the crop identical to the
+   same function on a CPU copy of its captured input, the ``_clahe.png``
+   within one CLAHE level (its stretch slope + 1 LSB, on < 0.01% of
+   pixels) of the plain versions on the CPU.  ``-c`` with
+   ``stubborn_transversalium`` and with ``de_vignette`` through
+   ``process_file``: ``correct_transversalium`` and ``remove_vignette`` on
+   the card against the same functions on CPU copies of their captured
+   inputs (stubborn within 1 LSB, its mean filters sum in float64;
+   de-vignette within 3e-7 relative, its float-frame transversalium
+   within 1 LSB, gains within 1e-6).  The default mode must be refused
+   with exit code 2, an error naming matplotlib and no file, where
+   matplotlib is absent (and must write its 8 files where it is there);
+   the two stretches no mode can save there come from
+   ``_products_body(want=(True, True))`` and are held to a float64 numpy
+   stretch within 1 LSB.  B5 on the odd-width images and B4 on the sweep's
+   stack are held to their plain versions and timed (two more entries of
+   the ``kernels`` line, ``tile_hist_r1001`` and ``hresample_sweep``).
+   Information: ``image_process`` with its writes for one PNG, four PNGs
+   and four PNGs + FITS, and one FITS pull, pack and write.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the
 per-kernel JSON record (the host library's entry points have a JSON line
@@ -91,6 +127,7 @@ script imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import statistics
@@ -466,6 +503,433 @@ def host_phase(path, tmp, png, res, blur_args, args, calls, card,
     return records
 
 
+def modes_phase(path, tmp, png4, card, dev, n_chunks) -> list:
+    """Phase 8: the other product modes of one scan on the card (module
+    docstring); returns the records of B4 and B5 on this phase's shapes."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import torch
+
+    from solex_ser_recon_en_torch.cli import main as cli_main
+    from solex_ser_recon_en_torch.config import Options
+    from solex_ser_recon_en_torch.io import native, writers
+    from solex_ser_recon_en_torch.io.fits import read_fits
+    from solex_ser_recon_en_torch.io.png import read_png
+    from solex_ser_recon_en_torch.ops import clahe, cuda_build, warp_fast
+    from solex_ser_recon_en_torch.ops.clahe import (
+        image_tile_histograms_plain,
+        percentile_from_hist,
+        tile_keys,
+        value_histogram,
+    )
+    from solex_ser_recon_en_torch.ops.dtypes import as_int16, widen
+    from solex_ser_recon_en_torch.pipeline import products
+    from solex_ser_recon_en_torch.pipeline import run as run_mod
+    from solex_ser_recon_en_torch.pipeline import transversalium, vignette
+    from solex_ser_recon_en_torch.utils.timer import StageTimer
+
+    timers = []
+
+    class RecordingTimer(StageTimer):
+        def __init__(self):
+            super().__init__()
+            timers.append(self)
+
+    caps = {}
+    originals = {
+        (run_mod, "image_process"): run_mod.image_process,
+        (run_mod, "crop_width"): run_mod.crop_width,
+        (run_mod, "correct_transversalium"): run_mod.correct_transversalium,
+        (run_mod, "remove_vignette"): run_mod.remove_vignette,
+        (warp_fast, "hresample"): warp_fast.hresample,
+        (clahe, "image_tile_histograms"): clahe.image_tile_histograms,
+        (cli_main, "StageTimer"): cli_main.StageTimer,
+    }
+
+    def image_process(frame, circle, *a, **k):
+        caps["image_process"] = (frame, circle)
+        return originals[(run_mod, "image_process")](frame, circle, *a, **k)
+
+    def crop_width(img, circle, options):
+        out = originals[(run_mod, "crop_width")](img, circle, options)
+        caps["crop_width"] = (img, circle, out)
+        return out
+
+    def correct_transversalium(img, circle, borders, **k):
+        out = originals[(run_mod, "correct_transversalium")](
+            img, circle, borders, **k)
+        caps["correct_transversalium"] = (img, circle, borders, k, out)
+        return out
+
+    def remove_vignette(frame, circle):
+        out = originals[(run_mod, "remove_vignette")](frame, circle)
+        caps["remove_vignette"] = (frame, circle, out)
+        return out
+
+    def hresample(*a):
+        caps["hresample"] = a
+        return originals[(warp_fast, "hresample")](*a)
+
+    def image_tile_histograms(img, ty, tx, hs):
+        if img.is_cuda:          # not the CPU comparisons of this phase
+            caps.setdefault("tile_hist", {})[(tuple(img.shape), ty, tx)] = (
+                img, ty, tx, hs)
+        return originals[(clahe, "image_tile_histograms")](img, ty, tx, hs)
+
+    hooks = {"image_process": image_process, "crop_width": crop_width,
+             "correct_transversalium": correct_transversalium,
+             "remove_vignette": remove_vignette, "hresample": hresample,
+             "image_tile_histograms": image_tile_histograms,
+             "StageTimer": RecordingTimer}
+    for (obj, name) in originals:
+        setattr(obj, name, hooks[name])
+
+    def drive(tag, fn, expect):
+        """One mode: counts to 0, run, counts read; ``expect`` maps a
+        kernel to the launches the mode must make."""
+        caps.clear()
+        timers.clear()
+        for k in cuda_build.LAUNCHES:
+            cuda_build.LAUNCHES[k] = 0
+        for k in native.CALLS:
+            native.CALLS[k] = 0
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_build.LAUNCHES)
+        stages = {k: round(v * 1e3, 1) for k, v in timers[-1].times.items()
+                  } if timers else {}
+        print(f"mode {tag}: wall {wall:.3f} s, stages (ms) {stages}, "
+              f"launches {launches}, fits_pack_u16 "
+              f"{native.CALLS['fits_pack_u16']}, png bands "
+              f"{native.CALLS['png_encode_stored_band']} [{card}]",
+              flush=True)
+        for name, n in expect.items():
+            if launches[name] != n:
+                fail(f"mode {tag}: kernel {name} was launched "
+                     f"{launches[name]} times, not {n}")
+        return launches
+
+    def cli(tag, flags, out_dir, expect):
+        def run():
+            rc = cli_main.main([*flags, path, "--output-dir", out_dir])
+            if rc != 0:
+                fail(f"mode {tag}: the CLI returned {rc}")
+        return drive(tag, run, expect)
+
+    def names(d):
+        return sorted(os.listdir(d))
+
+    def stretch_levels(cl1):
+        """(dark, bright) of the CLAHE image's stretch, as _products_body
+        takes them."""
+        dark = percentile_from_hist(value_histogram(cl1, 65536), cl1.numel(),
+                                    10.0)
+        return dark, torch.maximum(widen(cl1).max().to(torch.float32),
+                                   dark + 1.0)
+
+    def lsb(a, b):
+        d = np.abs(np.asarray(a).astype(np.int64)
+                   - np.asarray(b).astype(np.int64))
+        return int(d.max()), float((d > 0).mean())
+
+    base = {"sum_max": n_chunks, "recon": 1, "hresample": 1}
+    try:
+        # protus_only with -f at shift 0 (protus_only has no CLI letter: the
+        # CLI's file handler with the options a GUI caller would set)
+        out_p = os.path.join(tmp, "out_protus")
+        os.makedirs(out_p)
+
+        def protus_run():
+            opts = Options(shift=[0], protus_only=True, save_fit=True,
+                           disk_display=True, output_dir=out_p)
+            run_mod.check_supported(opts)
+            if cli_main.handle_files([path], opts, dev) != 1:
+                fail("mode protus_only -f: the file was not processed")
+            writers.figure_barrier()
+
+        drive("protus_only -f", protus_run, {**base, "tile_hist": 2})
+        frame, circle = caps["image_process"]
+        h, w = frame.shape
+        want = {"scan_mean.fits": ((IH, IW), IW),
+                "scan_shift=0_raw.fits": ((IH, FRAMES), FRAMES),
+                "scan_shift=0_circular.fits": ((h, w), w),
+                "scan_shift=0_detransversaliumed.fits": ((h, w), w),
+                "scan_shift=0_clahe.fits": ((h, w), w)}
+        if names(out_p) != sorted([*want, "scan_log.txt",
+                                   "scan_shift=0_protus.png"]):
+            fail(f"mode protus_only -f wrote {names(out_p)}")
+        fits = {}
+        for name, (shape, naxis1) in want.items():
+            data, hdr = read_fits(os.path.join(out_p, name))
+            if data.shape != shape or hdr["NAXIS1"] != naxis1 or \
+                    data.dtype != np.uint16 or hdr["NAXIS2"] != shape[0]:
+                fail(f"{name}: shape {data.shape} {data.dtype}, header {hdr}")
+            fits[name] = data
+        detrans = torch.from_numpy(
+            fits["scan_shift=0_detransversaliumed.fits"].copy())
+        if not torch.equal(as_int16(detrans), as_int16(frame.cpu())):
+            fail("_detransversaliumed.fits is not the frame the products saw")
+        # the protus disc: the port's raster at the fitted circle, painted
+        # on the stretch of the corrected disk, and nothing else
+        x0, y0, r = int(circle[0]), int(circle[1]), int(circle[2])
+        stretch = products._products_body(frame, (False, True))[3].cpu().numpy()
+        yy, xx = np.ogrid[:h, :w]
+        disc = (xx - x0) ** 2 + (yy - y0) ** 2 <= r * r
+        got = read_png(os.path.join(out_p, "scan_shift=0_protus.png"))
+        if not (np.array_equal(got, np.where(disc, 80, stretch))
+                and disc.sum() > 3 * r * r and (stretch[disc] != 80).any()):
+            fail("the protus disc does not cover exactly the raster's pixels")
+        # _clahe.fits holds the image whose stretch is phase 4's _clahe.png
+        cl1 = torch.from_numpy(fits["scan_shift=0_clahe.fits"].copy())
+        dark, bright = stretch_levels(cl1)
+        mx, frac = lsb(products._stretch(cl1, dark, bright).numpy(),
+                       read_png(png4))
+        print(f"protus_only -f: files {names(out_p)}; disc of {int(disc.sum())}"
+              f" pixels at ({x0}, {y0}), r {r}; stretch of _clahe.fits vs "
+              f"phase 4's _clahe.png: max {mx} LSB on {100 * frac:.4f}% "
+              f"(stretched on the CPU)", flush=True)
+        if mx > 1:
+            fail(f"_clahe.fits stretched differs from _clahe.png by {mx} LSB")
+
+        # a -c Doppler sweep: one batched warp, then each shift's products
+        sweep = [s for s in range(-9, 10, 3)]
+        out_w = os.path.join(tmp, "out_sweep")
+        l_sweep = cli("-c sweep", ["-cw-9:9:3"], out_w,
+                      {**base, "tile_hist": 2 * len(sweep)})
+        sweep_args = caps["hresample"]
+        stages_w = dict(timers[-1].times)
+        pngs = [f"scan_shift={s}_clahe.png" for s in sweep]
+        if names(out_w) != sorted([*pngs, "scan_log.txt"]):
+            fail(f"the sweep wrote {names(out_w)}")
+        with open(os.path.join(out_w, "scan_shift=0_clahe.png"), "rb") as f, \
+                open(png4, "rb") as g:
+            if f.read() != g.read():
+                fail("the sweep's shift-0 _clahe.png differs from phase 4's")
+        print(f"sweep: {len(sweep)} _clahe.png, shift 0 byte-identical to "
+              f"phase 4's; products {1e3 * stages_w['products']:.1f} ms; warp "
+              f"{1e3 * stages_w['warp']:.1f} ms in one B4 launch over "
+              f"{tuple(sweep_args[0].shape)} [{card}]", flush=True)
+        # the same sweep with -f: 4 FITS a shift and the mean, each pulled
+        # and packed on a writer thread
+        out_f = os.path.join(tmp, "out_sweep_f")
+        cli("-cf sweep", ["-cfw-9:9:3"], out_f,
+            {**base, "tile_hist": 2 * len(sweep)})
+        kinds = ("raw", "circular", "detransversaliumed", "clahe")
+        fits_names = ["scan_mean.fits"] + [
+            f"scan_shift={s}_{k}.fits" for s in sweep for k in kinds]
+        if names(out_f) != sorted([*pngs, *fits_names, "scan_log.txt"]):
+            fail(f"the -f sweep wrote {names(out_f)}")
+        if native.CALLS["fits_pack_u16"] != len(fits_names):
+            fail(f"the -f sweep packed {native.CALLS['fits_pack_u16']} FITS, "
+                 f"not {len(fits_names)}")
+        h, w = read_png(os.path.join(out_f, pngs[0])).shape
+        for name in fits_names[1:]:
+            data, hdr = read_fits(os.path.join(out_f, name))
+            shape = (IH, FRAMES) if name.endswith("_raw.fits") else (h, w)
+            if data.shape != shape or data.dtype != np.uint16 or \
+                    hdr["NAXIS1"] != shape[1]:
+                fail(f"{name}: shape {data.shape} {data.dtype}, header {hdr}")
+        for name in pngs:
+            with open(os.path.join(out_f, name), "rb") as f, \
+                    open(os.path.join(out_w, name), "rb") as g:
+                if f.read() != g.read():
+                    fail(f"{name} differs between the sweep with and "
+                         "without -f")
+        print(f"sweep -f: {len(fits_names)} FITS read back, every _clahe.png "
+              f"byte-identical to the sweep's without -f; products "
+              f"{1e3 * timers[-1].times['products']:.1f} ms against "
+              f"{1e3 * stages_w['products']:.1f} ms without [{card}]",
+              flush=True)
+
+        # the crops: -r 1001 (odd width) and -s, each against the same
+        # functions on CPU copies of the captured inputs
+        records = []
+        reps = 20
+        for tag, flag, width in (("-c -r 1001", "-cr1001", 1001),
+                                 ("-c -s", "-cs", IH)):
+            out_c = os.path.join(tmp, "out" + flag)
+            l_crop = cli(tag, [flag], out_c, {**base, "tile_hist": 2})
+            img, circ, (cropped, circ2) = caps["crop_width"]
+            opts = Options(fixed_width=1001 if width == 1001 else None,
+                           crop_width_square=width != 1001)
+            ref, ref_circ = products.crop_width(img.cpu(), circ, opts)
+            if tuple(cropped.shape) != (IH, width) or circ2 != ref_circ or \
+                    not torch.equal(as_int16(cropped.cpu()), as_int16(ref)):
+                fail(f"mode {tag}: crop_width on the card differs from the "
+                     "CPU's")
+            # CLAHE's blend weights come from x / tile_width, which
+            # PyTorch computes on the card as x * (1 / tile_width): one ulp
+            # of a weight can turn a rounding tie, i.e. one CLAHE level,
+            # which the stretch multiplies by its slope
+            cl1_cpu, cc_cpu, _, _ = products._products_body(ref,
+                                                            (False, False))
+            dark, bright = stretch_levels(cl1_cpu)
+            slope = 65535.0 / float(bright - dark)
+            got = read_png(os.path.join(out_c, "scan_shift=0_clahe.png"))
+            mx, frac = lsb(got, cc_cpu.numpy())
+            print(f"mode {tag}: crop identical to the CPU's, _clahe.png "
+                  f"{got.shape} vs the plain versions on the CPU: max {mx} "
+                  f"LSB on {100 * frac:.4f}% (one CLAHE level is "
+                  f"{slope:.2f} LSB after the stretch)", flush=True)
+            if got.shape != (IH, width) or mx > math.ceil(slope) + 1 or \
+                    frac > 1e-4:
+                fail(f"mode {tag}: _clahe.png differs from the CPU's by "
+                     f"{mx} LSB on {100 * frac:.4f}%")
+            if width == 1001:
+                hist_odd = sorted(caps["tile_hist"].items())
+                l_r1001 = l_crop
+
+        # B5 on the odd-width image (tiles reach into the reflected padding)
+        hist = originals[(clahe, "image_tile_histograms")]
+        err, ms, pms, lms, nbytes, nvals = 0, 0.0, 0.0, 0.0, 0, 0
+        for _, a in hist_odd:
+            err = max(err, (hist(*a) - image_tile_histograms_plain(*a)
+                            ).abs().max().item())
+            ms += cuda_ms(lambda: hist(*a), reps)
+            pms += cuda_ms(lambda: image_tile_histograms_plain(*a), reps)
+            keys = tile_keys(*a)
+            T = a[1] * a[2]
+            lms += cuda_ms(lambda: torch.bincount(keys, minlength=T * a[3]),
+                           reps)
+            nbytes += a[0].nbytes + T * a[3] * 4
+            nvals += keys.numel()
+        records.append(dict(
+            name="tile_hist_r1001", kernel="tile_hist",
+            launches=l_r1001["tile_hist"], err=err,
+            ms=ms, plain_ms=pms, library_ms=lms,
+            bound=bound(nbytes, {"int32": nvals}),
+            note=f"images {[k for k, _ in hist_odd]} of the -c -r 1001 mode"))
+        # B4 on the sweep's stack: one launch for 7 disks
+        a = sweep_args
+        hres = originals[(warp_fast, "hresample")]
+        out = hres(*a)
+        records.append(dict(
+            name="hresample_sweep", kernel="hresample",
+            launches=l_sweep["hresample"],
+            err=(out - warp_fast.hresample_plain(*a)).abs().max().item(),
+            ms=cuda_ms(lambda: hres(*a), reps),
+            plain_ms=cuda_ms(lambda: warp_fast.hresample_plain(*a), reps),
+            library_ms=None,
+            bound=bound(sum(t.nbytes for t in a) + out.nbytes,
+                        {"f32": 4 * out.numel()}),
+            note=f"V {tuple(a[0].shape)} -> {tuple(out.shape)}, the 7-shift "
+                 f"sweep's one launch"))
+        del out, a, sweep_args
+
+        # stubborn transversalium and de-vignette through process_file
+        def lib_mode(tag, kw):
+            out_l = os.path.join(tmp, "out_" + tag)
+            os.makedirs(out_l)
+            drive(tag, lambda: run_mod.process_file(
+                path, Options(shift=[0], clahe_only=True, output_dir=out_l,
+                              **kw), dev, RecordingTimer()),
+                {**base, "tile_hist": 2})
+            if names(out_l) != ["scan_log.txt", "scan_shift=0_clahe.png"]:
+                fail(f"mode {tag} wrote {names(out_l)}")
+
+        lib_mode("stubborn", dict(stubborn_transversalium=True))
+        img, circ, borders, kw, (out, c) = caps["correct_transversalium"]
+        t0 = time.perf_counter()
+        ref, c_ref = transversalium.correct_transversalium(
+            img.cpu(), circ, borders, **kw)
+        cpu_s = time.perf_counter() - t0
+        mx, frac = lsb(out.cpu().numpy(), ref.numpy())
+        gain_err = float(np.abs(c / c_ref - 1).max())
+        print(f"stubborn: the card's image vs the same function on the CPU "
+              f"({cpu_s:.2f} s there): max {mx} LSB on {100 * frac:.3f}%, "
+              f"gains within {gain_err:.2e} relative", flush=True)
+        if mx > 1 or gain_err > 1e-6 or not kw["stubborn"]:
+            fail(f"stubborn transversalium differs from the CPU's by {mx} "
+                 f"LSB, gains {gain_err:.2e}")
+
+        lib_mode("de-vignette", dict(de_vignette=True))
+        frame, circ, out = caps["remove_vignette"]
+        ref = vignette.remove_vignette(frame.cpu(), circ)
+        if out.dtype != torch.float64 or out is frame:
+            fail("remove_vignette did not correct the frame in float64")
+        rel = ((out.cpu() - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+        img, circ, borders, kw, (out, c) = caps["correct_transversalium"]
+        ref, c_ref = transversalium.correct_transversalium(
+            img.cpu(), circ, borders, **kw)
+        mx, frac = lsb(out.cpu().numpy(), ref.numpy())
+        gain_err = float(np.abs(c / c_ref - 1).max())
+        print(f"de-vignette: float64 frame within {rel:.2e} relative of the "
+              f"CPU's; its transversalium (a float frame): max {mx} LSB on "
+              f"{100 * frac:.4f}%, gains within {gain_err:.2e}", flush=True)
+        if rel > 3e-7 or mx > 1 or gain_err > 1e-6 or \
+                not img.dtype.is_floating_point:
+            fail("de-vignette or its transversalium differs from the CPU's")
+
+        # the default mode: figures need matplotlib
+        out_d = os.path.join(tmp, "out_default")
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = cli_main.main([path, "--output-dir", out_d])
+        if importlib.util.find_spec("matplotlib") is None:
+            if rc != 2 or "matplotlib" not in text.getvalue() or \
+                    "protus_only" not in text.getvalue() or names(out_d):
+                fail(f"the default mode without matplotlib returned {rc}, "
+                     f"wrote {names(out_d)}: {text.getvalue()}")
+            print("default mode: refused with exit code 2, no file written: "
+                  + text.getvalue().strip(), flush=True)
+        elif rc != 0 or len(names(out_d)) != 8:
+            fail(f"the default mode returned {rc}, wrote {names(out_d)}")
+
+        # the two stretches no mode could save here, against float64 numpy
+        frame, circle = caps["image_process"]       # the de-vignette run's
+        frame = products.to_u16(frame) if frame.dtype != torch.uint16 else \
+            frame
+        f64 = widen(frame).cpu().numpy().astype(np.float64)
+        top = max(float(np.percentile(f64, 99.9999)), 1.0)
+        _, _, hc, pr = products._products_body(frame, (True, True))
+
+        def stretch64(lo, hi):
+            return np.clip(65535.0 * (f64 - lo) / (hi - lo), 0, 65535
+                           ).astype(np.uint16)
+
+        for tag, got, ref in (
+                ("high_contrast", hc, stretch64(top * 0.25, top)),
+                ("protus stretch", pr, stretch64(0.0, max(top * 0.18, 1.0)))):
+            mx, frac = lsb(got.cpu().numpy(), ref)
+            print(f"{tag} vs a float64 numpy stretch: max {mx} LSB on "
+                  f"{100 * frac:.4f}%", flush=True)
+            if mx > 1:
+                fail(f"{tag} differs from the float64 stretch by {mx} LSB")
+
+        # what the four PNGs of the default set, and -f, cost in products
+        hdr = {"NAXIS1": frame.shape[1]}
+        for tag, kw in (("-c (1 PNG)", dict(clahe_only=True)),
+                        ("default (4 PNGs)", dict()),
+                        ("default -f (4 PNGs, 1 FITS)", dict(save_fit=True))):
+            def one():
+                products.image_process(
+                    frame, circle, Options(**kw), hdr,
+                    os.path.join(tmp, "ip_shift=0"))
+                writers.barrier()
+            print(f"image_process + writes, {tag}: {host_ms(one, 3):.1f} ms "
+                  f"[{card}]", flush=True)
+        fits_img = products.to_host(frame)
+        from solex_ser_recon_en_torch.io.fits import (
+            write_fits,
+            write_fits_plain,
+        )
+        fpath = os.path.join(tmp, "one.fits")
+        print(f"one {fits_img.shape} u16 FITS: pinned pull "
+              f"{host_ms(lambda: products.to_host(frame), 5):.2f} ms, "
+              f"write_fits {host_ms(lambda: write_fits(fpath, fits_img, hdr), 5):.2f}"
+              f" ms, write_fits_plain "
+              f"{host_ms(lambda: write_fits_plain(fpath, fits_img, hdr), 5):.2f}"
+              f" ms [{card}]", flush=True)
+    finally:
+        for (obj, name), fn in originals.items():
+            setattr(obj, name, fn)
+    return records
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "solex_ser_recon_en_torch")):
         fail("solex_ser_recon_en_torch not found beside chip_smoke.py")
@@ -637,6 +1101,7 @@ def main() -> int:
             fail(f"{png} missing")
         from solex_ser_recon_en_torch.io.png import read_png
 
+        png4 = png
         cc = read_png(png)
         frame = res["frame"]
         if cc.shape != tuple(frame.shape):
@@ -1016,6 +1481,11 @@ def main() -> int:
             if launches7[name] <= 0:
                 fail(f"kernel {name} was not launched by the shoot-out")
 
+        # 8. the other product modes of one scan
+        torch.cuda.empty_cache()
+        records += modes_phase(path, tmp, png4, card, torch.device("cuda"),
+                               n_chunks)
+
         for r in records:
             if r["err"] != 0:
                 fail(f"kernel {r['name']} differs from its plain version "
@@ -1036,7 +1506,7 @@ def main() -> int:
             kernels.append({
                 "name": name, "route": "cuda", "source": src,
                 "replaces": rep,
-                "launches": (launches7[name] if r["launches"] is None
+                "launches": (launches7[r["kernel"]] if r["launches"] is None
                              else r["launches"]),
                 "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,

@@ -49,6 +49,7 @@ import torch
 from .config import Options
 from .geometry.linefit import LineFit, fit_spectral_line
 from .io.feeder import normalize_frames, raw_device_chunks
+from .io.fits import make_header
 from .io.ser import SerReader
 from .models.shg import shg_forward
 from .ops.fused_cuda import mean_max
@@ -195,7 +196,8 @@ def device_attached_decomposition(scan_path: str, device: torch.device,
         opts.shift_requested = [0]
         scan = ScanResult(
             disk_list=disks, shifts=list(SHIFTS), shift_requested=[0],
-            backup_bounds=(lf.y1, lf.y2), basefich0=base,
+            backup_bounds=(lf.y1, lf.y2),
+            header=make_header(r.iw, r.ih), basefich0=base,
             mean_img=mean_img, linefit=lf,
         )
         timer = StageTimer()

@@ -41,8 +41,8 @@ def usage() -> str:
         "'--mesh', '--feed', '--input-dir', '--num-processes',\n"
         "    '--process-id', '--profile' : options of the JAX CLI, refused\n"
         "    here (exit code 2) until they are ported.\n"
-        "This port runs the -c (clahe-only) path; the other product modes\n"
-        "are not ported yet."
+        "'d' is refused too.  Without 'c' the diagnostic figures are\n"
+        "written as well, which needs matplotlib."
     )
 
 

@@ -1,9 +1,12 @@
-"""Command line driver: ``python -m solex_ser_recon_en_torch.cli -c file.ser``.
+"""Command line entry point: ``python -m solex_ser_recon_en_torch.cli file.ser``.
 
-Counterpart of solex_ser_recon_en_tpu/cli/main.py for the ported ``-c``
-path: files are processed one after the other on ``--device`` (default
-``cuda``; asking for CUDA where it is absent is an error, never a silent
-CPU run).
+Counterpart of solex_ser_recon_en_tpu/cli/main.py: files are processed one
+after the other on ``--device`` (default ``cuda``; asking for CUDA where it
+is absent is an error, never a silent CPU run), with every product mode of
+one scan (the letters ``w x f c p s t m r``); the diagnostic figures of the
+default mode render after the last file.  ``-d`` is refused, and so is a
+mode that writes figures where matplotlib is absent (exit code 2, nothing
+written).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import traceback
 from typing import List, Optional
 
 from ..config import Options
+from ..io.writers import figure_barrier
 from ..pipeline.run import check_supported, process_scan, read_scan
 from ..utils.device import resolve_device
 from ..utils.timer import StageTimer
@@ -58,6 +62,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"ERROR: {e}")
         return 2
     n = handle_files(files, options, device)
+    # the deferred diagnostic figures: every file exists when main returns
+    figure_barrier()
     return 0 if n == len(files) else 1
 
 

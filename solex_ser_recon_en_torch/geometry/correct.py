@@ -36,6 +36,10 @@ class GeometryResult:
     phi: float                     # radians
     borders: list                  # [minx, miny, maxx, maxy] in corrected frame
     mat3: np.ndarray = None
+    # diagnostics for the _ellipse_fit.png plot
+    raw_edges: np.ndarray = None
+    kept_edges: np.ndarray = None
+    ellipse_pts: np.ndarray = None
 
 
 def _correction_mat3(shape, phi: float, ratio: float):
@@ -180,9 +184,10 @@ def ellipse_to_circle(
     """
     factor = 4
     small = downscale_mean(image_u16, factor)
-    X, _ = get_edge_list(small, image_u16.device)
+    X, raw_X = get_edge_list(small, image_u16.device)
     X = X * factor
-    center_yx, height, phi, ratio, X_f, _ = two_step(X)
+    raw_X = raw_X * factor
+    center_yx, height, phi, ratio, X_f, ell_pts = two_step(X)
     center = np.array([center_yx[1], center_yx[0]])  # (x, y)
 
     if need_image:
@@ -213,4 +218,7 @@ def ellipse_to_circle(
         phi=float(phi),
         borders=borders,
         mat3=mat3,
+        raw_edges=raw_X,
+        kept_edges=X_f,
+        ellipse_pts=ell_pts * 1.0,
     )

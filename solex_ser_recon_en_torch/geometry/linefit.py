@@ -46,6 +46,9 @@ class LineFit:
     frac: np.ndarray          # (ih,) float64 fractional part
     y1: int
     y2: int
+    # diagnostics for the _spectral_line_data.png plot
+    sharp_min: np.ndarray = None
+    mask_good: np.ndarray = None
 
 
 def _polyfit3(y: np.ndarray, x: np.ndarray) -> np.ndarray:
@@ -100,4 +103,6 @@ def fit_spectral_line(mean_img: np.ndarray, max_img: np.ndarray) -> LineFit:
         frac=curve - floor,
         y1=int(y1),
         y2=int(y2),
+        sharp_min=sharp,
+        mask_good=mask_good,
     )

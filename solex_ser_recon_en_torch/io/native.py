@@ -23,9 +23,10 @@ entry point, so a run can show that its main path went through them.
 
 Bound here: ``ser_open``, ``ser_prefetch``, ``ser_read``, ``ser_close``
 (``NativeSerReader``), ``box_blur_u16_exact`` (``box_blur_u16``),
-``png_pack_rows`` (``png_pack``) and ``png_encode_stored_band``
-(``png_encode_band``).  The library's other entry points are compiled
-with the copy and bound by the modules that will use them.
+``png_pack_rows`` (``png_pack``), ``png_encode_stored_band``
+(``png_encode_band``) and ``fits_pack_u16`` (``fits_pack_u16``, the FITS
+writer's payload).  The library's other entry points are compiled with the
+copy and bound by the modules that will use them.
 """
 
 from __future__ import annotations
@@ -70,6 +71,8 @@ _SIGNATURES = {
     # adler out, crc out -> bytes emitted
     "png_encode_stored_band": (_L, [_P, _L, _L, _I, _I, _I, _U, _U, _P, _UP,
                                     _UP]),
+    # src u16, n elements, out u16 (big-endian, offset by 32768)
+    "fits_pack_u16": (_I, [_P, _L, _P]),
 }
 
 #: calls of each entry point; reset by callers that want to count one run
@@ -341,3 +344,19 @@ def png_encode_band(rows: np.ndarray, first: bool, final: bool, adler: int,
     if total < 0 or total > cap:
         raise RuntimeError(f"png_encode_stored_band failed with {total}")
     return out[:total], a_out.value, c_out.value
+
+
+def fits_pack_u16(data: np.ndarray) -> np.ndarray:
+    """The BITPIX=16 / BZERO=32768 payload of a uint16 array in one pass
+    (``fits_pack_u16``: offset by 32768 and byte swap): the bytes of
+    ``(data - 32768).astype('>i2')``, as a flat uint16 array."""
+    if data.dtype != np.uint16:
+        raise TypeError(f"fits_pack_u16 takes uint16 data, not {data.dtype}")
+    data = np.ascontiguousarray(data)
+    out = np.empty(data.size, dtype=np.uint16)
+    lib = get_lib()
+    _count("fits_pack_u16")
+    rc = lib.fits_pack_u16(data.ctypes.data, data.size, out.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"fits_pack_u16 failed with {rc}")
+    return out

@@ -18,6 +18,14 @@ def widen(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32)
 
 
+def as_f32(t: torch.Tensor) -> torch.Tensor:
+    """Integer (uint16 included) or float tensor -> float32 with the same
+    values (a float64 value rounds to nearest)."""
+    if t.dtype.is_floating_point:
+        return t.to(torch.float32)
+    return widen(t).to(torch.float32)
+
+
 def as_int16(t: torch.Tensor) -> torch.Tensor:
     """Bit-identical int16 view of a uint16 tensor (for indexing, flips)."""
     return t.view(torch.int16) if t.dtype == torch.uint16 else t

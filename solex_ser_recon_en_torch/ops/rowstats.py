@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from .dtypes import to_u16, widen
+from .dtypes import as_f32, to_u16
 
 
 def _masked_row_median(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -61,8 +61,9 @@ def strip_mask(h: int, w: int, circle, borders, device):
 
 def row_log_ratio_stats(img: torch.Tensor, valid: torch.Tensor):
     """Per-row (mean, MAD-rejected mean) of log(img[y]/img[y-1]) over the
-    valid strip; rows with no valid pixels give 0."""
-    f = widen(img).to(torch.float32)
+    valid strip; rows with no valid pixels give 0.  ``img`` is an integer
+    image or a float one (the de-vignetted frame), taken as float32."""
+    f = as_f32(img)
     prev = torch.cat([f[:1], f[:-1]], dim=0)
     rat = torch.log(f / prev)
     zero = torch.zeros((), dtype=torch.float32, device=f.device)
@@ -87,6 +88,7 @@ def row_log_ratio_stats(img: torch.Tensor, valid: torch.Tensor):
 
 
 def apply_row_gain(img: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
-    """img * gain[:, None], clipped to uint16 (solex_util.py:489,515-516)."""
-    out = widen(img).to(torch.float32) * gain.to(torch.float32)[:, None]
+    """img * gain[:, None] in float32, clipped to uint16
+    (solex_util.py:489,515-516); ``img`` integer or float."""
+    out = as_f32(img) * gain.to(torch.float32)[:, None]
     return to_u16(torch.clamp(out, 0, 65535))

@@ -1,5 +1,6 @@
 """The port's own copies of the JAX package's jax-free leaf modules (config,
-SER I/O, synthetic scan, PNG encoder, run log, write pool) against the
+SER I/O, synthetic scan, PNG encoder, FITS writer, run log, write pool and
+figure lane, the three diagnostic plots, ``fix_edge_effect``) against the
 originals: the same inputs give the same fields, bytes and arrays.  The
 native host library's source is a copy too, held byte for byte."""
 
@@ -194,3 +195,159 @@ def test_write_pool_joins_and_reraises(tmp_path):
         writers.barrier()
     assert 3 in done
     writers.barrier()          # nothing left pending
+
+
+# ---- FITS, the figure lane, the plots, fix_edge_effect ----------------------
+
+
+def test_fits_module_copies_its_original(tmp_path):
+    """io/fits.py: the same header dict, the same cards, the same bytes for
+    every dtype the products use, and each reader reads the other's file
+    (tests/test_torch_fits.py holds every dtype and both routes)."""
+    from solex_ser_recon_en_tpu.io import fits as jax_fits
+    from solex_ser_recon_en_torch.io import fits
+
+    assert fits.make_header(2048, 300) == jax_fits.make_header(2048, 300)
+    assert fits.BLOCK == jax_fits.BLOCK
+    assert fits._DTYPE_TO_BITPIX == jax_fits._DTYPE_TO_BITPIX
+    for key, value, comment in (("SIMPLE", True, "conforms"), ("N", 7, ""),
+                                ("X", 1.5e-7, "f"), ("S", "it's", ""),
+                                ("LONGKEYWORD", np.int32(3), "")):
+        assert fits._card(key, value, comment) == \
+            jax_fits._card(key, value, comment)
+    rng = np.random.default_rng(6)
+    for arr in (rng.integers(0, 65536, (20, 30)).astype(np.uint16),
+                rng.normal(0, 1e4, (20, 30))):
+        a, b = str(tmp_path / "a.fits"), str(tmp_path / "b.fits")
+        fits.write_fits(a, arr, fits.make_header(30, 20))
+        jax_fits.write_fits(b, arr, jax_fits.make_header(30, 20))
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            assert fa.read() == fb.read()
+        np.testing.assert_array_equal(jax_fits.read_fits(a)[0],
+                                      fits.read_fits(b)[0])
+
+
+def test_fix_edge_effect_source_is_a_copy():
+    """pipeline/transversalium.py:fix_edge_effect is the JAX function line
+    for line (numpy only)."""
+    import inspect
+
+    from solex_ser_recon_en_tpu.pipeline import transversalium as jax_tr
+    from solex_ser_recon_en_torch.pipeline import transversalium as tr
+
+    for name in ("fix_edge_effect", "tukey_taper", "_row_band",
+                 "_gain_from_mean_r"):
+        ours = inspect.getsource(getattr(tr, name))
+        ref = inspect.getsource(getattr(jax_tr, name))
+        if name == "_gain_from_mean_r":      # the docstring's first line
+            ours, ref = ours.split('"""')[2], ref.split('"""')[2]
+        assert ours == ref, name
+
+
+def _linefit_for_plot(ih=120, iw=60):
+    from solex_ser_recon_en_torch.geometry.linefit import fit_spectral_line
+
+    rng = np.random.default_rng(3)
+    ys = np.arange(ih)
+    line = 30 + 0.02 * ys
+    mean = (20000 - 15000 * np.exp(-0.5 * ((np.arange(iw)[None, :]
+                                            - line[:, None]) / 2.0) ** 2))
+    mean[:15] = mean[-15:] = 50
+    mean = (mean + rng.normal(0, 20, mean.shape)).clip(0, 65535).astype(
+        np.uint16)
+    return mean, fit_spectral_line(mean, mean)
+
+
+def test_plots_write_the_same_png_bytes(tmp_path):
+    """pipeline/plots.py: the three figures from the same inputs, byte for
+    byte (matplotlib's Agg output is deterministic); the port's also take
+    tensors."""
+    import torch
+
+    from solex_ser_recon_en_tpu.geometry.correct import (
+        GeometryResult as JaxGeometry,
+    )
+    from solex_ser_recon_en_tpu.pipeline import plots as jax_plots
+    from solex_ser_recon_en_torch import interop
+    from solex_ser_recon_en_torch.pipeline import plots
+
+    def same(name, ours, ref):
+        ours(str(tmp_path / ("port_" + name)))
+        ref(str(tmp_path / ("jax_" + name)))
+        a = (tmp_path / ("port_" + name)).read_bytes()
+        assert a == (tmp_path / ("jax_" + name)).read_bytes()
+        assert a[:8] == b"\x89PNG\r\n\x1a\n" and len(a) > 5000
+
+    c = 1 + 0.1 * np.sin(np.arange(300) / 9.0)
+    same("t.png", lambda p: plots.save_transversalium_plot(p, c),
+         lambda p: jax_plots.save_transversalium_plot(p, c))
+
+    mean, lf = _linefit_for_plot()
+    assert lf.sharp_min is not None and lf.mask_good is not None
+    same("s.png", lambda p: plots.save_spectral_line_plot(p, mean, lf),
+         lambda p: jax_plots.save_spectral_line_plot(p, mean, lf))
+
+    rng = np.random.default_rng(4)
+    image = rng.integers(0, 65536, (90, 110)).astype(np.uint16)
+    th = np.linspace(0, 2 * np.pi, 50)
+    pts = np.stack([45 + 30 * np.sin(th), 55 + 35 * np.cos(th)], axis=1)
+    geo_j = JaxGeometry(image=image[:, ::-1].copy(), circle=(55.0, 45.0, 30.0),
+                        ratio=1.1, phi=0.05, borders=[20.0, 15.0, 90.0, 75.0],
+                        mat3=np.eye(3), raw_edges=pts + 1.0, kept_edges=pts,
+                        ellipse_pts=pts * 1.01)
+    geo_t = interop.geometry(geo_j)
+    assert isinstance(geo_t.image, torch.Tensor)
+    np.testing.assert_array_equal(geo_t.raw_edges, geo_j.raw_edges)
+    same("e.png",
+         lambda p: plots.save_ellipse_fit_plot(p, torch.from_numpy(image),
+                                               geo_t),
+         lambda p: jax_plots.save_ellipse_fit_plot(p, image, geo_j))
+    assert not hasattr(plots, "deferred_spectral_line_plot")
+
+
+def test_figure_lane_defers_spills_and_reraises(monkeypatch):
+    """io/writers.py's figure lane as in the original: nothing renders
+    before ``figure_barrier``; beyond the queue depth the oldest entries
+    spill to the background worker; the first error is re-raised after all
+    were tried; SOLEX_SYNC_WRITES=1 runs everything inline."""
+    from solex_ser_recon_en_tpu.io import writers as jax_writers
+
+    assert writers._FIG_QUEUE_DEPTH == jax_writers._FIG_QUEUE_DEPTH
+    monkeypatch.delenv("SOLEX_SYNC_WRITES", raising=False)
+    for mod in (writers, jax_writers):
+        # a lane of its own: figures other tests left queued stay queued
+        monkeypatch.setattr(mod, "_fig_queue", [])
+        monkeypatch.setattr(mod, "_pending_figs", [])
+        done = []
+        mod.submit_figure(done.append, "a")
+        mod.submit_figure(done.append, "b")
+        mod.barrier()                       # the data barrier renders none
+        assert done == []
+        mod.figure_barrier()
+        assert done == ["a", "b"]
+
+        n = mod._FIG_QUEUE_DEPTH + 3
+        for k in range(n):
+            mod.submit_figure(done.append, k)
+        assert len(mod._fig_queue) == mod._FIG_QUEUE_DEPTH
+        assert len(mod._pending_figs) == 3
+        mod.figure_barrier()
+        assert sorted(done[2:]) == list(range(n))
+        assert mod._fig_queue == [] and mod._pending_figs == []
+
+        def boom():
+            raise OSError("no display")
+
+        mod.submit_figure(boom)
+        mod.submit_figure(done.append, "after")
+        with pytest.raises(OSError, match="no display"):
+            mod.figure_barrier()
+        assert done[-1] == "after"
+        mod.figure_barrier()
+
+    monkeypatch.setenv("SOLEX_SYNC_WRITES", "1")
+    done = []
+    writers.submit_figure(done.append, 1)
+    writers.submit(done.append, 2)
+    assert done == [1, 2]
+    assert writers._fig_queue == [] and writers._pending == []

@@ -256,12 +256,32 @@ def test_cli_cuda_missing_fails(basic_scan, tmp_path, capsys):
     assert not (tmp_path / "basic_shift=0_clahe.png").exists()
 
 
-def test_unported_options_raise(basic_scan):
-    with pytest.raises(NotImplementedError, match="save_fit"):
+def test_unported_options_raise(basic_scan, tmp_path, monkeypatch):
+    """What still raises: ``flag_display``, ``mesh``, and figures where
+    matplotlib is absent; the product modes that used to raise run."""
+    import sys
+
+    import solex_ser_recon_en_torch.pipeline as pipeline_pkg
+
+    with pytest.raises(NotImplementedError, match="flag_display"):
         port_run.read_scan(basic_scan["path"],
-                           Options(clahe_only=True, save_fit=True), CPU)
-    with pytest.raises(NotImplementedError, match="clahe_only=False"):
-        port_run.read_scan(basic_scan["path"], Options(), CPU)
+                           Options(clahe_only=True, flag_display=True), CPU)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        port_run.read_scan(basic_scan["path"],
+                           Options(clahe_only=True, mesh="1x2"), CPU)
+    for kw in (dict(), dict(save_fit=True), dict(protus_only=True),
+               dict(crop_width_square=True), dict(fixed_width=300),
+               dict(stubborn_transversalium=True), dict(de_vignette=True)):
+        port_run.check_supported(Options(**kw))
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    monkeypatch.delitem(sys.modules, "solex_ser_recon_en_torch.pipeline.plots",
+                        raising=False)
+    monkeypatch.delattr(pipeline_pkg, "plots", raising=False)
+    with pytest.raises(RuntimeError, match="matplotlib"):
+        port_run.read_scan(basic_scan["path"],
+                           Options(output_dir=str(tmp_path)), CPU)
+    assert list(tmp_path.iterdir()) == []
+    port_run.check_supported(Options(clahe_only=True))
 
 
 def test_batched_warp_matches_per_image(runs):
