@@ -114,14 +114,39 @@ Phases; any failure exits non-zero before the final result line:
    the ``kernels`` line, ``tile_hist_r1001`` and ``hresample_sweep``).
    Information: ``image_process`` with its writes for one PNG, four PNGs
    and four PNGs + FITS, and one FITS pull, pack and write.
+9. session: the session driver (cli/main.py) on a folder of three
+   symlinks to the phase-3 scan, its frames at 8 bits as a SER and as a
+   Y800 AVI (written here in RIFF/AVIX segments of <= 1 GiB), all stored
+   wide: ``cli.main.main(["-c", "--input-dir", dir, ...])`` with the
+   launch counts set to 0 before it must return 0, write one
+   ``_clahe.png`` a scan, the symlinks' byte-identical to phase 4's and
+   the AVI's to the 8-bit SER's (whose mean, max and disks the AVI's must
+   equal), and launch B3 and B5 once and twice a scan, B4 at least once a
+   scan and pass A once a chunk (the u8 launches counted apart); its
+   wall, each file's stages and the peak device memory are printed, and
+   beside them the wall of one ``main`` call per file (information).
+   Pass A's kernel and B3 on the AVI's u8 chunks against their plain
+   versions (two more entries of the ``kernels`` line, ``sum_max_u8`` and
+   ``recon_u8``).  A folder of four same-shape 200 x 1024 x 150 u16 scans
+   and a straggler of 180 frames: the session reads every file through
+   ``read_scan`` (B3 once each), every ``_clahe.png`` byte-identical to
+   its file run alone; ``pipeline/batch.py:read_scans_batched``, which the
+   driver does not call, is called directly on the same five files: it
+   must take the four (B3 once each) and leave the straggler, and the
+   four's products must equal the session's; its wall and the session's
+   over the four are printed side by side; ``--num-processes 2`` with
+   ``--process-id`` 0 and 1 over it must write disjoint shares that cover
+   it; ``--profile=dir`` on one ``-c`` run must write one trace that names
+   a kernel of the port.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the
 per-kernel JSON record (the host library's entry points have a JSON line
 of their own before it, ``host_entry_points``): each entry's launches are those of the path whose
-inputs its times were taken on, and pass A has two entries, ``sum_max``
-(the -cw0 path's raw chunks) and ``sum_max_resident`` (the slab).  The
-script imports nothing of JAX.
+inputs its times were taken on, and pass A has three entries, ``sum_max``
+(the -cw0 path's raw chunks), ``sum_max_resident`` (the slab) and
+``sum_max_u8`` (the session's u8 chunks).  The script imports nothing of
+JAX, and prints the seconds phases 1-9 took.
 """
 
 from __future__ import annotations
@@ -298,6 +323,50 @@ def make_scan(path: str):
     full = scan.generate()                      # (F, ih, iw) normalised
     write_ser(path, np.rot90(full, k=-1, axes=(1, 2)))   # stored wide
     return scan, full
+
+
+def write_y800_avi(path: str, frames, segment_bytes: int = 1 << 30) -> None:
+    """(F, H, W) uint8 frames as an uncompressed grey-scale (Y800) AVI, one
+    '00dc' chunk a plane, in a 'RIFF AVI ' segment and as many OpenDML
+    'RIFF AVIX' segments as ``segment_bytes`` (at most 1 GiB each) asks
+    for; written frame by frame (after tests/test_avi.py's
+    _write_y800_avi_raw)."""
+    import struct
+
+    n, h, w = frames.shape
+    plane = h * w
+    step = 8 + plane + (plane & 1)          # chunk header, plane, padding
+
+    def chunk(fourcc, data):
+        return fourcc + struct.pack("<I", len(data)) + data + (
+            b"\x00" if len(data) & 1 else b"")
+
+    def lst(ltype, payload):
+        return chunk(b"LIST", ltype + payload)
+
+    avih = struct.pack("<14I", 33333, 0, 0, 0, n, 0, 1, 0, w, h, 0, 0, 0, 0)
+    strh = (b"vids" + b"Y800" + struct.pack("<I", 0)
+            + struct.pack("<10I", 0, 0, 0, 1, 30, 0, n, 0, 0, 0))
+    strf = struct.pack("<I2i2H2I2i2I", 40, w, h, 1, 8, 0x30303859,
+                       plane, 0, 0, 0, 0)
+    hdrl = lst(b"hdrl", chunk(b"avih", avih)
+               + lst(b"strl", chunk(b"strh", strh) + chunk(b"strf", strf)))
+    with open(path, "wb") as f:
+        start, first = 0, True
+        while start < n or first:
+            head = 12 + (len(hdrl) if first else 0) + 12
+            k = min(n - start, max(1, (segment_bytes - head) // step))
+            movi = 4 + k * step
+            riff = 4 + (len(hdrl) if first else 0) + 8 + movi
+            f.write(b"RIFF" + struct.pack("<I", riff)
+                    + (b"AVI " + hdrl if first else b"AVIX"))
+            f.write(b"LIST" + struct.pack("<I", movi) + b"movi")
+            for i in range(start, start + k):
+                f.write(b"00dc" + struct.pack("<I", plane))
+                f.write(np.ascontiguousarray(frames[i]).tobytes())
+                if plane & 1:
+                    f.write(b"\x00")
+            start, first = start + k, False
 
 
 def ground_truth_checks(scan, full, res, frame) -> dict:
@@ -930,7 +999,391 @@ def modes_phase(path, tmp, png4, card, dev, n_chunks) -> list:
     return records
 
 
+def session_phase(path, tmp, png4, card, dev, frames8) -> list:
+    """Phase 9: the session driver on the card (module docstring); returns
+    the records of pass A's kernel and B3 on the AVI's u8 chunks."""
+    import contextlib
+    import io
+
+    import torch
+
+    from solex_ser_recon_en_torch.cli import main as cli_main
+    from solex_ser_recon_en_torch.config import Options
+    from solex_ser_recon_en_torch.io import feeder, native
+    from solex_ser_recon_en_torch.io.ser import write_ser
+    from solex_ser_recon_en_torch.io.synthetic import SyntheticScan
+    from solex_ser_recon_en_torch.ops import cuda_build, fused, fused_cuda
+    from solex_ser_recon_en_torch.ops.dtypes import as_int16, widen
+    from solex_ser_recon_en_torch.ops.recon import recon_chunks_plain
+    from solex_ser_recon_en_torch.parallel.distributed import assign_files
+    from solex_ser_recon_en_torch.pipeline.batch import read_scans_batched
+    from solex_ser_recon_en_torch.pipeline.run import process_scan
+    from solex_ser_recon_en_torch.utils.timer import StageTimer
+
+    def zero_counts():
+        for k in cuda_build.LAUNCHES:
+            cuda_build.LAUNCHES[k] = 0
+        for k in native.CALLS:
+            native.CALLS[k] = 0
+
+    def pngs(d):
+        out = {}
+        for name in sorted(os.listdir(d)):
+            if name.endswith("_clahe.png"):
+                with open(os.path.join(d, name), "rb") as f:
+                    out[name] = f.read()
+        return out
+
+    def quiet_main(argv):
+        """cli.main with its per-file lines kept out of this output."""
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = cli_main.main(argv)
+        if rc != 0:
+            print(text.getvalue()[-4000:], flush=True)
+            fail(f"session: cli.main({argv}) returned {rc}")
+        return text.getvalue()
+
+    # the folder: three names of the phase-3 scan, its frames at 8 bits as
+    # a SER and as a Y800 AVI in RIFF/AVIX segments of <= 1 GiB
+    folder = os.path.join(tmp, "session")
+    os.makedirs(folder)
+    links = [f"s{i}.ser" for i in (1, 2, 3)]
+    for name in links:
+        os.symlink(path, os.path.join(folder, name))
+    t0 = time.perf_counter()
+    write_ser(os.path.join(folder, "e8.ser"), frames8)
+    t_ser = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_y800_avi(os.path.join(folder, "v8.avi"), frames8)
+    t_avi = time.perf_counter() - t0
+    print(f"session folder: 3 symlinks, e8.ser and v8.avi "
+          f"{tuple(frames8.shape)} u8 ({os.path.getsize(os.path.join(folder, 'v8.avi')) / 1e9:.3f}"
+          f" GB in {1 + (frames8.nbytes >> 30)} RIFF segments), written in "
+          f"{t_ser:.1f} + {t_avi:.1f} s", flush=True)
+
+    timers = {}
+
+    class RecordingTimer(StageTimer):
+        def __init__(self):
+            super().__init__()
+            timers[len(timers)] = self
+
+    caps = {"u8_sum_max": 0, "u8_recon": 0, "scans": {}, "max": {}}
+    orig = {"sum_max": fused.sum_max, "recon_chunks": fused.recon_chunks,
+            "read_scan": cli_main.read_scan, "StageTimer": cli_main.StageTimer,
+            "mean_max": fused.RawScanProcessor.mean_max}
+
+    def sum_max(frames, total, mx):
+        if frames.dtype == torch.uint8:
+            caps["u8_sum_max"] += 1
+        return orig["sum_max"](frames, total, mx)
+
+    def recon_chunks(chunks, ind_l, left_w, rotate, upscale, out=None,
+                     frame_offset=0):
+        if chunks[0].dtype == torch.uint8:
+            caps["u8_recon"] += 1
+            if caps["file"].endswith(".avi"):   # the last of the folder
+                caps["recon_u8"] = (list(chunks), ind_l, left_w, rotate,
+                                    upscale)
+        return orig["recon_chunks"](chunks, ind_l, left_w, rotate, upscale,
+                                    out, frame_offset)
+
+    def read_scan(file, opts, device, timer=None):
+        caps["file"] = file
+        sr = orig["read_scan"](file, opts, device, timer)
+        caps["scans"][os.path.basename(file)] = sr
+        caps["max"][os.path.basename(file)] = caps.pop("last_max", None)
+        return sr
+
+    def mean_max(self):
+        got = orig["mean_max"](self)
+        caps["last_max"] = got[1]
+        return got
+
+    out_f = os.path.join(tmp, "session_out")
+    files = sorted(os.listdir(folder))
+    try:
+        fused.sum_max, fused.recon_chunks = sum_max, recon_chunks
+        cli_main.read_scan, cli_main.StageTimer = read_scan, RecordingTimer
+        fused.RawScanProcessor.mean_max = mean_max
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        held_r = torch.cuda.memory_reserved()
+        zero_counts()
+        t0 = time.perf_counter()
+        quiet_main(["-c", "--input-dir", folder, "--output-dir", out_f])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_build.LAUNCHES)
+        feed_last = dict(feeder.FEED)
+        peak = torch.cuda.max_memory_allocated() - held
+        reserved = torch.cuda.max_memory_reserved() - held_r
+    finally:
+        fused.sum_max, fused.recon_chunks = orig["sum_max"], orig[
+            "recon_chunks"]
+        cli_main.read_scan, cli_main.StageTimer = orig["read_scan"], orig[
+            "StageTimer"]
+        fused.RawScanProcessor.mean_max = orig["mean_max"]
+    stages = {files[k]: {s: round(v * 1e3, 1) for s, v in t.times.items()}
+              for k, t in timers.items()}
+    print(f"session: {len(files)} scans in {wall:.3f} s (read of scan N+1 "
+          f"beside the post-processing of scan N); peak device memory "
+          f"{peak / 1e9:.3f} GB allocated, {reserved / 1e9:.3f} GB reserved "
+          f"by the caching allocator (above the {held / 1e9:.3f} and "
+          f"{held_r / 1e9:.3f} GB held before the run); launches "
+          f"{launches}, of them u8: "
+          f"pass A {caps['u8_sum_max']}, B3 {caps['u8_recon']} [{card}]",
+          flush=True)
+    print("session stages (ms): " + json.dumps(stages), flush=True)
+    chunks16 = -(-FRAMES // feeder.auto_chunk_frames(IH * IW * 2, 512))
+    chunks8 = -(-frames8.shape[0] // feeder.auto_chunk_frames(
+        frames8[0].nbytes, 512))
+    expect = {"sum_max": 3 * chunks16 + 2 * chunks8, "recon": len(files),
+              "tile_hist": 2 * len(files)}
+    for name, n in expect.items():
+        if launches[name] != n:
+            fail(f"session: kernel {name} was launched {launches[name]} "
+                 f"times, not {n}")
+    if launches["hresample"] < len(files) or caps["u8_recon"] != 2 or \
+            caps["u8_sum_max"] != 2 * chunks8:
+        fail(f"session: B4 {launches['hresample']} launches, u8 B3 "
+             f"{caps['u8_recon']}, u8 pass A {caps['u8_sum_max']}")
+    got = pngs(out_f)
+    if sorted(got) != sorted(f[:-4] + "_shift=0_clahe.png" for f in files):
+        fail(f"session wrote {sorted(got)}")
+    with open(png4, "rb") as f:
+        ref = f.read()
+    for name in links:
+        if got[name[:-4] + "_shift=0_clahe.png"] != ref:
+            fail(f"session: {name}'s _clahe.png differs from phase 4's")
+    if got["v8_shift=0_clahe.png"] != got["e8_shift=0_clahe.png"]:
+        fail("session: the AVI's _clahe.png differs from the 8-bit SER's")
+    a, b = caps["scans"]["v8.avi"], caps["scans"]["e8.ser"]
+    if not (np.array_equal(a.mean_img, b.mean_img)
+            and np.array_equal(caps["max"]["v8.avi"], caps["max"]["e8.ser"])
+            and torch.equal(as_int16(a.disk_list), as_int16(b.disk_list))):
+        fail("session: the AVI's mean, max or disks differ from the 8-bit "
+             "SER's")
+    print("session: the symlinks' _clahe.png equal phase 4's; the AVI's "
+          "mean, max, disks and _clahe.png equal the 8-bit SER's", flush=True)
+    del a, b, caps["scans"]
+
+    print(f"session: the AVI's feed (the last scan, read beside s3.ser's "
+          f"post-processing): {feed_last['chunks']} chunks, wall "
+          f"{1e3 * feed_last['wall_s']:.1f} ms, copy threads busy "
+          f"{1e3 * feed_last['copy_thread_s']:.1f} ms, filling "
+          f"{1e3 * feed_last['fill_s']:.1f} ms, consumer waited "
+          f"{1e3 * feed_last['consumer_wait_s']:.1f} ms for filled buffers "
+          f"and {1e3 * feed_last['upload_wait_s']:.1f} ms for uploads "
+          f"[{card}]", flush=True)
+
+    # the same files, one main call each (the serial wall and each file's
+    # stages with nothing beside it, information)
+    out_s = os.path.join(tmp, "serial_out")
+    timers.clear()
+    t0 = time.perf_counter()
+    try:
+        cli_main.StageTimer = RecordingTimer
+        for name in files:
+            quiet_main(["-c", os.path.join(folder, name), "--output-dir",
+                        out_s])
+        torch.cuda.synchronize()
+    finally:
+        cli_main.StageTimer = orig["StageTimer"]
+    wall_s = time.perf_counter() - t0
+    print("serial stages (ms): " + json.dumps(
+        {files[k]: {s: round(v * 1e3, 1) for s, v in t.times.items()}
+         for k, t in timers.items()}), flush=True)
+    if pngs(out_s) != got:
+        fail("session: the per-file runs' _clahe.png differ from the "
+             "session's")
+    print(f"session: overlapped {wall:.3f} s, one main call per file "
+          f"{wall_s:.3f} s, the same _clahe.png bytes [{card}]", flush=True)
+
+    # the u8 rows of the kernels line: the AVI's raw chunks
+    reps = 20
+    records = []
+    chunks, ind_l, left_w, rotate, upscale = caps.pop("recon_u8")
+    hw = chunks[0].shape[1:]
+
+    def pass_a(step):
+        total = torch.zeros(hw, dtype=torch.int32, device=dev)
+        mx = torch.zeros_like(total)
+        for c in chunks:
+            step(c, total, mx)
+        return total, mx
+
+    err = max((widen(x) - widen(y)).abs().max().item() for x, y in zip(
+        pass_a(fused_cuda.sum_max), pass_a(fused_cuda.sum_max_plain)))
+    acc_s = torch.zeros(hw, dtype=torch.int32, device=dev)
+    acc_m = torch.zeros_like(acc_s)
+    dms = device_ms(lambda: [fused_cuda.sum_max(c, acc_s, acc_m)
+                             for c in chunks], reps)
+    raw_bytes = sum(c.nbytes for c in chunks)
+    bA = bound(raw_bytes + len(chunks) * 4 * acc_s.nbytes,
+               {"int32": 2 * raw_bytes})
+    records.append(dict(
+        name="sum_max_u8", kernel="sum_max", launches=caps["u8_sum_max"],
+        err=err, ms=cuda_ms(lambda: pass_a(fused_cuda.sum_max), reps),
+        plain_ms=cuda_ms(lambda: pass_a(fused_cuda.sum_max_plain), reps),
+        library_ms=None, bound=bA,
+        note=f"{len(chunks)} launches, one a u8 chunk {tuple(chunks[0].shape)}"
+             f" of the Y800 AVI (the last {chunks[-1].shape[0]} frames); "
+             f"device {dms:.4f} ms, {raw_bytes / dms / 1e9:.3f} TB/s, "
+             f"{100 * bA[0] / dms:.1f}% of bound; launches: the session's "
+             f"u8 chunks (AVI and 8-bit SER)"))
+    del acc_s, acc_m
+    a = (chunks, ind_l, left_w, rotate, upscale)
+    out = orig["recon_chunks"](*a)
+    err = (widen(out) - widen(recon_chunks_plain(*a))).abs().max().item()
+    n = sum(c.shape[0] for c in chunks)
+    S, ih = ind_l.shape
+    iw = chunks[0].shape[1] if rotate else chunks[0].shape[2]
+    b3 = bound(tap_columns(ind_l, iw) * n + S * ih * n * 2 + ind_l.nbytes
+               + left_w.nbytes, {"f32": 3 * S * ih * n})
+    dms = device_ms(lambda: orig["recon_chunks"](*a), reps)
+    records.append(dict(
+        name="recon_u8", kernel="recon", launches=caps["u8_recon"], err=err,
+        ms=cuda_ms(lambda: orig["recon_chunks"](*a), reps),
+        plain_ms=cuda_ms(lambda: recon_chunks_plain(*a), reps),
+        library_ms=None, bound=b3,
+        note=f"1 launch over {len(chunks)} u8 chunks of "
+             f"{tuple(chunks[0].shape)} (the Y800 AVI); device {dms:.4f} ms, "
+             f"{100 * b3[0] / dms:.1f}% of bound; launches: the session's u8 "
+             f"scans (AVI and 8-bit SER)"))
+    del chunks, a, out
+
+    # a group of small same-shape scans and a straggler
+    small = os.path.join(tmp, "small")
+    os.makedirs(small)
+    kw = dict(ih=1024, iw=150, depth=16, line_poly=(75.0, 0.005, 0.0, 0.0),
+              squash_y=SQUASH, noise=0.002)
+    t0 = time.perf_counter()
+    for i in range(4):
+        SyntheticScan(frames=200, seed=20 + i, **kw).write(
+            os.path.join(small, f"g{i}.ser"), transpose_to_wide=True)
+    SyntheticScan(frames=180, seed=30, **kw).write(
+        os.path.join(small, "x.ser"), transpose_to_wide=True)
+    members = [os.path.join(small, f"g{i}.ser") for i in range(4)]
+    straggler = os.path.join(small, "x.ser")
+    sizes = sorted(os.path.getsize(f) / 1e6 for f in members)
+    print(f"small-scan group: 4 scans of 200 x 1024 x 150 u16 "
+          f"({sizes[0]:.1f} MB each) and one of 180 frames, written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    per_file = []
+
+    def read_scan_small(file, *a, **k):
+        per_file.append(file)
+        return orig["read_scan"](file, *a, **k)
+
+    out_g = os.path.join(tmp, "small_out")
+    try:
+        cli_main.read_scan = read_scan_small
+        zero_counts()
+        t0 = time.perf_counter()
+        quiet_main(["-c", "--input-dir", small, "--output-dir", out_g])
+        torch.cuda.synchronize()
+        wall_g = time.perf_counter() - t0
+        launches_g = dict(cuda_build.LAUNCHES)
+    finally:
+        cli_main.read_scan = orig["read_scan"]
+    if per_file != members + [straggler] or launches_g["recon"] != 5:
+        fail(f"small-scan session: read per file {per_file}, B3 launches "
+             f"{launches_g['recon']}")
+    out_a = os.path.join(tmp, "small_alone")
+    t0 = time.perf_counter()
+    for f in members + [straggler]:
+        quiet_main(["-c", f, "--output-dir", out_a])
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    got_g = pngs(out_g)
+    if got_g != pngs(out_a) or len(got_g) != 5:
+        fail("small-scan session: the session's _clahe.png differ from the "
+             "files run alone")
+    print(f"small-scan session: 5 scans through read_scan (B3 "
+          f"{launches_g['recon']}) in {wall_g:.3f} s, one main call per file "
+          f"{wall_a:.3f} s; every _clahe.png equal to its file run alone "
+          f"[{card}]", flush=True)
+
+    # the group read of pipeline/batch.py, called directly (the driver
+    # does not call it), against the session's overlapped read of the four
+    def quiet(fn, *a):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(*a)
+
+    def opts_in(d):
+        os.makedirs(d, exist_ok=True)
+        return Options(shift=[0], clahe_only=True, output_dir=d)
+
+    out_m = os.path.join(tmp, "small_members")
+    t0 = time.perf_counter()
+    quiet(cli_main.handle_files, members, opts_in(out_m), dev)
+    torch.cuda.synchronize()
+    wall_m = time.perf_counter() - t0
+    out_b = os.path.join(tmp, "small_batched")
+    opts_b = opts_in(out_b)
+    zero_counts()
+    t0 = time.perf_counter()
+    tasks_b = [(f, opts_b.copy()) for f in members + [straggler]]
+    got_b = quiet(read_scans_batched, tasks_b, {}, dev)
+    for f, o in tasks_b:
+        if f in got_b:
+            quiet(process_scan, got_b[f], o)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    launches_b = cuda_build.LAUNCHES["recon"]
+    if sorted(got_b) != members or launches_b != 4:
+        fail(f"read_scans_batched took {sorted(got_b)}, B3 launches "
+             f"{launches_b}")
+    if pngs(out_b) != {k: v for k, v in got_g.items()
+                       if not k.startswith("x_")}:
+        fail("read_scans_batched: the members' _clahe.png differ from the "
+             "session's")
+    print(f"read_scans_batched (called directly): the 4 same-shape scans "
+          f"(B3 once each: {launches_b}), the straggler left out; read and "
+          f"post-processed in {wall_b:.3f} s against {wall_m:.3f} s for the "
+          f"session's overlapped per-file read of the same 4; every "
+          f"_clahe.png equal [{card}]", flush=True)
+
+    # --num-processes 2: disjoint shares that cover the folder
+    shares = []
+    for pid in (0, 1):
+        out_p = os.path.join(tmp, f"share{pid}")
+        quiet_main(["-c", "--input-dir", small, "--num-processes", "2",
+                    "--process-id", str(pid), "--output-dir", out_p])
+        shares.append(set(pngs(out_p)))
+    every = {f[:-4] + "_shift=0_clahe.png" for f in os.listdir(small)}
+    mine = [assign_files(sorted(members + [straggler]), 2, p) for p in (0, 1)]
+    if shares[0] & shares[1] or shares[0] | shares[1] != every:
+        fail(f"--num-processes 2: shares {shares}")
+    print(f"--num-processes 2: process 0 wrote {sorted(shares[0])}, process "
+          f"1 {sorted(shares[1])}: disjoint, every file once "
+          f"({[len(m) for m in mine]} by assign_files)", flush=True)
+
+    # --profile on one -c run of the bench scan
+    prof = os.path.join(tmp, "profile")
+    said = quiet_main([f"--profile={prof}", "-c", path, "--output-dir",
+                       os.path.join(tmp, "profile_out")])
+    traces = os.listdir(prof)
+    if len(traces) != 1:
+        fail(f"--profile wrote {traces}")
+    with open(os.path.join(prof, traces[0])) as f:
+        text = f.read()
+    names = [k for k in ("recon_chunks_kernel", "sum_max_kernel",
+                         "hist_kernel", "hresample_kernel") if k in text]
+    if not names or "profiler trace written to" not in said:
+        fail(f"--profile: the trace {traces[0]} names none of the port's "
+             "kernels")
+    print(f"--profile: {traces[0]} ({len(text) / 1e6:.1f} MB) names "
+          f"{names}", flush=True)
+    return records
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "solex_ser_recon_en_torch")):
         fail("solex_ser_recon_en_torch not found beside chip_smoke.py")
     sys.path.insert(0, ROOT)
@@ -1485,6 +1938,22 @@ def main() -> int:
         torch.cuda.empty_cache()
         records += modes_phase(path, tmp, png4, card, torch.device("cuda"),
                                n_chunks)
+
+        # 9. the session driver: a folder of scans, AVI input, the
+        # small-scan group, the process split, --profile
+        torch.cuda.empty_cache()
+        from solex_ser_recon_en_torch.io.ser import SerReader
+
+        raw = SerReader(path).raw_frames()           # stored wide, u16
+        frames8 = np.empty(raw.shape, np.uint8)
+        for i in range(0, FRAMES, 100):
+            frames8[i:i + 100] = raw[i:i + 100] >> 8
+        del raw
+        records += session_phase(path, tmp, png4, card, torch.device("cuda"),
+                                 frames8)
+        del frames8
+        print(f"chip_smoke: phases 1-9 took {time.perf_counter() - t_start:.1f}"
+              f" s [{card}]", flush=True)
 
         for r in records:
             if r["err"] != 0:

@@ -63,13 +63,13 @@ def scan_bytes(reader: SerReader) -> int:
 def staging_rate(reader: SerReader, threads: int, pin: bool) -> float:
     """GB/s of the feed's producer alone: the whole scan from the page
     cache into the ring of staging buffers, ``threads`` copy threads."""
-    chunk, dtype = _chunk_and_dtype(reader)
+    chunk, _ = _chunk_and_dtype(reader)
     stats = dict(copy_thread_s=0.0, fill_s=0.0, producer_wait_s=0.0,
                  close_s=0.0)
     t0 = time.perf_counter()
     with contextlib.closing(feeder._staged_chunks(
-            reader, chunk, dtype, pin, threads, feeder.RING_DEPTH,
-            stats)) as staged:
+            feeder._chunk_source(reader), chunk, pin, threads,
+            feeder.RING_DEPTH, stats)) as staged:
         for _, _, release in staged:
             release()
     return scan_bytes(reader) / (time.perf_counter() - t0) / 1e9

@@ -1,9 +1,11 @@
 """Reference-compatible single-letter flag parser.
 
 A copy of solex_ser_recon_en_tpu/cli/flags.py (that package imports jax on
-import) with the port's long options: ``--device`` and ``--output-dir``.
-The JAX CLI's other long options, and any unknown ``--name``, are refused
-(``UnsupportedOption``).
+import) with the port's long options: ``--device``, ``--output-dir``,
+``--input-dir``, ``--num-processes`` and ``--process-id`` (with the
+``SOLEX_NUM_PROCESSES`` / ``SOLEX_PROCESS_ID`` fallback); ``--profile`` is
+taken by cli/main.py, as there.  ``--mesh`` and ``--feed``, and any
+unknown ``--name``, are refused (``UnsupportedOption``).
 
 reference: CLI_handler.py:10-114 — flags may be packed (``-tw 0,5``); ``w``
 consumes a shift spec (``a,b,c`` / ``x:y`` / ``x:y:w``); ``r`` consumes an
@@ -38,9 +40,14 @@ def usage() -> str:
         "    when asked for.\n"
         "'--output-dir DIR' : write products to DIR (default: next to\n"
         "    each input file).\n"
-        "'--mesh', '--feed', '--input-dir', '--num-processes',\n"
-        "    '--process-id', '--profile' : options of the JAX CLI, refused\n"
-        "    here (exit code 2) until they are ported.\n"
+        "'--input-dir DIR' : folder batch over DIR's *.ser and *.avi\n"
+        "    (used when no file is named).\n"
+        "'--num-processes N --process-id I' : process this host's\n"
+        "    deterministic 1/N share of the folder batch (every process\n"
+        "    computes the same split locally).\n"
+        "'--profile[=dir]' : write a torch.profiler trace of the run.\n"
+        "'--mesh', '--feed' : options of the JAX CLI, refused here (exit\n"
+        "    code 2) until they are ported.\n"
         "'d' is refused too.  Without 'c' the diagnostic figures are\n"
         "written as well, which needs matplotlib."
     )
@@ -150,10 +157,9 @@ def _apply_flag_group(options: Options, argument: str) -> None:
 
 
 #: long options of the JAX package's CLI (solex_ser_recon_en_tpu/cli/
-#: flags.py:193-202, and --profile[=dir] at cli/main.py:250-261) that this
-#: port does not run yet; each is refused, never read as packed letters
-UNPORTED_LONG_OPTS = ("--mesh", "--feed", "--input-dir", "--num-processes",
-                      "--process-id", "--profile")
+#: flags.py:193-202) that this port does not run yet; each is refused,
+#: never read as packed letters
+UNPORTED_LONG_OPTS = ("--mesh", "--feed")
 
 
 class UnsupportedOption(ValueError):
@@ -174,9 +180,29 @@ def parse_cli(options: Options, argv: List[str]) -> Tuple[List[str], str]:
     def set_output_dir(path: str) -> None:
         state["output_dir"] = path
 
+    def set_int(name: str, field: str):
+        def setter(value: str) -> None:
+            try:
+                setattr(options, field, int(value))
+            except ValueError:
+                print(f"{name} needs an integer, got {value!r}")
+                sys.exit(1)
+        return setter
+
+    def set_input_dir(path: str) -> None:
+        options.input_dir = path
+
+    # --num-processes/--process-id select this host's deterministic share
+    # of a folder batch (parallel/distributed.assign_files) — the
+    # host-scale analogue of the reference's Pool(4), Solex_recon.py:30.
     long_opts = {
         "--device": (set_device, "a device (cuda|cpu)"),
         "--output-dir": (set_output_dir, "a folder path"),
+        "--num-processes": (set_int("--num-processes", "num_processes"),
+                            "an integer"),
+        "--process-id": (set_int("--process-id", "process_id"),
+                         "an integer"),
+        "--input-dir": (set_input_dir, "a folder path"),
     }
 
     files: List[str] = []
@@ -219,4 +245,18 @@ def parse_cli(options: Options, argv: List[str]) -> Tuple[List[str], str]:
             print(f"--output-dir: cannot create {path!r}: {e}")
             sys.exit(1)
         options.output_dir = path
+    # env fallbacks for orchestrators that set one env per process instead
+    # of editing argv (multi-host launchers)
+    if options.num_processes == 1 and "SOLEX_NUM_PROCESSES" in os.environ:
+        try:
+            # parse BOTH before assigning either: a malformed process id
+            # must not leave num_processes applied with process_id=0 (this
+            # host would silently take shard 0's files and nobody else's)
+            n = int(os.environ["SOLEX_NUM_PROCESSES"])
+            pid = int(os.environ.get("SOLEX_PROCESS_ID", "0"))
+        except ValueError:
+            print("malformed SOLEX_NUM_PROCESSES/SOLEX_PROCESS_ID ignored")
+        else:
+            options.num_processes = n
+            options.process_id = pid
     return files, state["device"]

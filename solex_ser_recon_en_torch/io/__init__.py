@@ -1,1 +1,2 @@
-"""Scan input: the raw SER device feed and the PNG writer."""
+"""Scan input: SER and AVI readers, the raw device feed, and the product
+writers (PNG, FITS)."""

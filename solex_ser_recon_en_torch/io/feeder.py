@@ -1,4 +1,4 @@
-"""Raw SER chunks to the device, and their normalisation there.
+"""Raw SER and AVI chunks to the device, and their normalisation there.
 
 Counterpart of solex_ser_recon_en_tpu/io/feeder.py: ``prefetch_iter``,
 ``raw_device_chunks`` and ``normalize_frames``.  The chunks keep the
@@ -11,7 +11,8 @@ native reader (io/native.py: ``ser_prefetch`` of the next chunk, then
 ``ser_read``, one chunk's frames split over ``COPY_THREADS`` threads;
 ``ctypes`` drops the GIL for each copy).  The consumer, the caller's
 thread, makes every CUDA call: it uploads a filled buffer with
-``copy_(non_blocking=True)`` on a side stream into a fresh device tensor,
+``copy_(non_blocking=True)`` on the card's upload stream (one for every
+feed, ``_copy_stream``) into a fresh device tensor,
 lets the caller's stream wait on the upload's event, and hands the buffer
 back to the producer once that upload has finished.  So the file is read
 for chunks k+1 and k+2 while chunk k is uploaded and used; the producer's
@@ -24,17 +25,24 @@ the tests and comparisons: one thread copies each memmap slice into one of
 two staging buffers and uploads it, so the card waits while the host
 copies.  Nothing on the main path calls it.
 
+The feed's chunk source depends on the scan (``_chunk_source``): a SER's
+frames through the native reader; an uncompressed 8-bit grey-scale AVI's
+u8 planes, copied untouched by the same copy threads from the file's
+memmap at their offsets (an 8-byte chunk header and padding lie between
+planes) and yielded like an 8-bit SER's, so pass A and kernel B3 do the
+rot90 and the x256; a compressed AVI's frames decoded by OpenCV on one
+thread, already normalised (u16, no rotate, no upscale).
+
 Not ported from the JAX module: ``pad_to_bucket`` (it keeps XLA at one
 compiled program a shape; PyTorch compiles none, and ops/fused.py takes a
 short last chunk), and the policy of the other feeds
 (``probe_transfer_rate``, ``d2h_responsive``, ``FeedRateMonitor``,
 ``FeedCollapse``, ``note_collapse``, ``note_small_scan``).
-
-SER only (the AVI demuxer needs OpenCV).
 """
 
 from __future__ import annotations
 
+import mmap
 import queue
 import threading
 import time
@@ -47,6 +55,7 @@ import torch
 from ..ops.dtypes import as_int16, to_u16, widen
 from .native import NativeSerReader
 from .ser import SerReader
+from .video import _AviVideo, _SerVideo
 
 TARGET_CHUNK_BYTES = 96 * 1024 * 1024
 #: threads that share one chunk's copy from the page cache into staging.
@@ -71,6 +80,23 @@ _POLL_S = 0.05
 #: when the reader closes) and for an upload's event; device milliseconds
 #: of the uploads (CUDA only, when the run reached its end)
 FEED = {}
+
+#: the upload stream of each card, shared by every feed.  The chunks are
+#: allocated from its pool of the caching allocator, so the next scan of a
+#: session reuses the blocks the last one freed; a new stream a scan would
+#: leave each scan's 2.5 GB cached under a stream no later scan uses.
+_COPY_STREAMS: dict = {}
+_copy_streams_lock = threading.Lock()
+
+
+def _copy_stream(device: torch.device) -> "torch.cuda.Stream":
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    with _copy_streams_lock:
+        if index not in _COPY_STREAMS:
+            _COPY_STREAMS[index] = torch.cuda.Stream(index)
+        return _COPY_STREAMS[index]
 
 
 def auto_chunk_frames(frame_bytes: int, requested: int) -> int:
@@ -154,27 +180,160 @@ def _frame_ranges(n: int, parts: int):
     return [(n * i // parts, n * (i + 1) // parts) for i in range(parts)]
 
 
-def _staged_chunks(reader: SerReader, chunk: int, dtype, pin: bool,
-                   threads: int, depth: int, stats: dict):
+class _SerSource:
+    """A SER's raw frames through the native reader (any copy thread may
+    read any frame range)."""
+
+    max_threads = None
+
+    def __init__(self, reader: SerReader):
+        self.reader = reader
+        self.frame_count = reader.frame_count
+        self.shape = (reader.Height, reader.Width)
+        self.frame_bytes = reader.header.frame_bytes
+        self.dtype = torch.uint8 if reader.pixel_depth == 8 else torch.uint16
+        self.rotate = reader.flag_rotate
+        self.upscale = reader.pixel_depth == 8
+        self._native = None
+
+    def open(self) -> None:
+        r = self.reader
+        self._native = NativeSerReader(r.path)
+        n = self._native
+        if (n.frame_count, n.Height, n.Width, n.pixel_depth) != (
+                r.frame_count, r.Height, r.Width, r.pixel_depth):
+            raise RuntimeError(f"{r.path}: the native reader and the "
+                               "Python reader disagree on the header")
+
+    def prefetch(self, start: int, count: int) -> None:
+        self._native.prefetch(start, count)
+
+    def read_into(self, start: int, count: int, host: torch.Tensor) -> int:
+        self._native.read_into(start, count, host)
+        return count
+
+    def close(self) -> None:
+        if self._native is not None:
+            self._native.close()
+
+
+class _AviPlaneSource:
+    """An uncompressed 8-bit grey-scale AVI's planes, stored as they are
+    (u8, the file's orientation), copied from the video's memmap at their
+    offsets; numpy drops the interpreter lock for each copy.  Planes are
+    evenly spaced within a RIFF segment, so a frame range is copied as one
+    strided copy a run of equal steps; the next chunk's planes are asked
+    for ahead (``MADV_WILLNEED``), as the SER reader's ``ser_prefetch``
+    does."""
+
+    max_threads = None
+
+    def __init__(self, video: _AviVideo):
+        self.video = video
+        self.frame_count = video.frame_count
+        self.shape = (video.Height, video.Width)
+        self.frame_bytes = video.Height * video.Width
+        self.dtype = torch.uint8
+        self.rotate = video.Width > video.Height
+        self.upscale = True
+
+    def open(self) -> None:
+        pass
+
+    def prefetch(self, start: int, count: int) -> None:
+        offsets = self.video._raw[start:start + count]
+        if len(offsets):
+            first = int(offsets[0]) & ~(mmap.PAGESIZE - 1)
+            end = int(offsets[-1]) + self.frame_bytes
+            self.video._mm.base.madvise(mmap.MADV_WILLNEED, first,
+                                        end - first)
+
+    def read_into(self, start: int, count: int, host: torch.Tensor) -> int:
+        mm, h, w = self.video._mm, *self.shape
+        dst = host.numpy()
+        offsets = self.video._raw[start:start + count]
+        steps = np.diff(offsets)
+        i = 0
+        while i < count:
+            step = int(steps[i]) if i < count - 1 else self.frame_bytes
+            # planes i .. i + n - 1 lie ``step`` bytes apart
+            off = np.flatnonzero(steps[i:] != step)
+            n = int(off[0]) + 1 if len(off) else count - i
+            np.copyto(dst[i:i + n], np.lib.stride_tricks.as_strided(
+                mm[int(offsets[i]):], shape=(n, h, w), strides=(step, w, 1)))
+            i += n
+        return count
+
+    def close(self) -> None:
+        pass
+
+
+class _Cv2Source:
+    """A compressed AVI decoded by OpenCV, in order, on one thread: frames
+    already normalised (u16, rotated, x256).  A capture may hold fewer
+    frames than its header says; ``read_into`` returns the count decoded."""
+
+    max_threads = 1
+
+    def __init__(self, video: _AviVideo):
+        self.video = video
+        self.frame_count = video.frame_count
+        self.shape = (video.ih, video.iw)
+        self.frame_bytes = video.ih * video.iw * 2
+        self.dtype = torch.uint16
+        self.rotate = False
+        self.upscale = False
+
+    def open(self) -> None:
+        pass
+
+    def prefetch(self, start: int, count: int) -> None:
+        pass
+
+    def read_into(self, start: int, count: int, host: torch.Tensor) -> int:
+        frames = self.video._read_cv2(start, count)
+        n = frames.shape[0]
+        host[:n].view(torch.int16).numpy()[...] = frames.view(np.int16)
+        return n
+
+    def close(self) -> None:
+        pass
+
+
+def _ser_reader(video) -> SerReader:
+    """The SER reader of a VideoReader of a SER scan, or the reader given
+    (io/ser.py:SerReader, or a reader with its fields)."""
+    if isinstance(video, _AviVideo):
+        raise TypeError(f"{video._path}: not a SER scan")
+    return video._r if isinstance(video, _SerVideo) else video
+
+
+def _chunk_source(video):
+    """The feed's source of raw chunks of a SER reader or a VideoReader
+    (io/video.py:open_video)."""
+    if isinstance(video, _AviVideo):
+        if video._raw is not None:
+            return _AviPlaneSource(video)
+        return _Cv2Source(video)
+    return _SerSource(_ser_reader(video))
+
+
+def _staged_chunks(source, chunk: int, pin: bool, threads: int, depth: int,
+                   stats: dict):
     """Generator of (start, filled staging view (n, H, W), release): the
     producer side of the feed.  ``release()`` hands the view's buffer back
     for refilling; the caller calls it once nothing reads the view any
-    more.  Closing the generator stops the producer and closes the file.
+    more.  Closing the generator stops the producer and closes the source.
     """
     if threads < 1 or depth < 2:
         raise ValueError("the feed needs a copy thread and two buffers")
-    native = NativeSerReader(reader.path)
+    source.open()
     pool = None
     staged = None
     try:
-        if (native.frame_count, native.Height, native.Width,
-                native.pixel_depth) != (reader.frame_count, reader.Height,
-                                        reader.Width, reader.pixel_depth):
-            raise RuntimeError(f"{reader.path}: the native reader and the "
-                               "Python reader disagree on the header")
-        total = reader.frame_count
-        staging = [torch.empty((chunk, reader.Height, reader.Width),
-                               dtype=dtype, pin_memory=pin)
+        total = source.frame_count
+        staging = [torch.empty((chunk, *source.shape), dtype=source.dtype,
+                               pin_memory=pin)
                    for _ in range(depth)]
         free: "queue.Queue" = queue.Queue()
         for slot in range(depth):
@@ -185,12 +344,13 @@ def _staged_chunks(reader: SerReader, chunk: int, dtype, pin: bool,
                                   thread_name_prefix="solex-torch-copy") \
             if threads > 1 else None
 
-        def copy(start: int, a: int, b: int, host) -> None:
+        def copy(start: int, a: int, b: int, host) -> int:
             t0 = time.perf_counter()
-            native.read_into(start + a, b - a, host[a:b])
+            got = source.read_into(start + a, b - a, host[a:b])
             dt = time.perf_counter() - t0
             with busy_lock:
                 stats["copy_thread_s"] += dt
+            return got
 
         def fill():
             for start in range(0, total, chunk):
@@ -207,16 +367,18 @@ def _staged_chunks(reader: SerReader, chunk: int, dtype, pin: bool,
                 t1 = time.perf_counter()
                 stats["producer_wait_s"] += t1 - t0
                 if start + n < total:
-                    native.prefetch(start + n, chunk)
+                    source.prefetch(start + n, chunk)
                 host = staging[slot][:n]
                 ranges = _frame_ranges(n, threads)
                 futures = [pool.submit(copy, start, a, b, host)
                            for a, b in ranges[1:]]
-                copy(start, *ranges[0], host)
-                for f in futures:
-                    f.result()
+                got = copy(start, *ranges[0], host)
+                got += sum(f.result() for f in futures)
                 stats["fill_s"] += time.perf_counter() - t1
-                yield start, host, slot
+                if got:
+                    yield start, host[:got], slot
+                if got < n:         # a decoder that ran out of frames
+                    return
 
         staged = prefetch_iter(fill(), depth)
         for start, host, slot in staged:
@@ -228,24 +390,29 @@ def _staged_chunks(reader: SerReader, chunk: int, dtype, pin: bool,
         if pool is not None:
             pool.shutdown(wait=True)
         t0 = time.perf_counter()
-        native.close()
+        source.close()
         stats["close_s"] = time.perf_counter() - t0
 
 
 def raw_device_chunks(
-    reader: SerReader, chunk: int, device: torch.device, *,
+    video, chunk: int, device: torch.device, *,
     threads: int = COPY_THREADS, depth: int = RING_DEPTH,
 ) -> Tuple[Iterator[Tuple[int, torch.Tensor]], bool, bool]:
-    """(iterator of (start, raw chunk on ``device``), rotate, upscale).
+    """(iterator of (start, raw chunk on ``device``), rotate, upscale) of a
+    SerReader or a VideoReader (io/video.py:open_video).
 
-    Every yielded tensor is a fresh (n, Height, Width) allocation, ready to
-    use on the current stream and safe to keep resident.  The iterator is a
-    generator: ``close()`` it (or run it to its end) to stop the producer
-    thread and close the file.  ``threads`` and ``depth`` default to the
-    module's constants; tests and measurements pass others.
+    Every yielded tensor is a fresh (n, H, W) allocation, ready to use on
+    the current stream and safe to keep resident; (H, W) is the source's
+    frame shape (the stored one, or (ih, iw) for frames OpenCV decoded).
+    The iterator is a generator: ``close()`` it (or run it to its end) to
+    stop the producer thread and close the source.  ``threads`` and
+    ``depth`` default to the module's constants; tests and measurements
+    pass others.
     """
-    chunk = auto_chunk_frames(reader.header.frame_bytes, chunk)
-    dtype = torch.uint8 if reader.header.pixel_depth == 8 else torch.uint16
+    source = _chunk_source(video)
+    chunk = auto_chunk_frames(source.frame_bytes, chunk)
+    dtype = source.dtype
+    threads = min(threads, source.max_threads or threads)
     cuda = device.type == "cuda"
 
     def gen():
@@ -254,9 +421,8 @@ def raw_device_chunks(
                      wall_s=0.0, copy_thread_s=0.0, fill_s=0.0, producer_wait_s=0.0,
                      consumer_wait_s=0.0, upload_wait_s=0.0, close_s=0.0,
                      h2d_ms=None)
-        staged = _staged_chunks(reader, chunk, dtype, cuda, threads, depth,
-                                stats)
-        copy_stream = torch.cuda.Stream(device) if cuda else None
+        staged = _staged_chunks(source, chunk, cuda, threads, depth, stats)
+        copy_stream = _copy_stream(device) if cuda else None
         uploads = []            # (begin, end) timing events of each upload
         try:
             while True:
@@ -302,16 +468,17 @@ def raw_device_chunks(
             FEED.clear()
             FEED.update(stats)
 
-    return gen(), reader.flag_rotate, reader.header.pixel_depth == 8
+    return gen(), source.rotate, source.upscale
 
 
 def raw_device_chunks_plain(
-    reader: SerReader, chunk: int, device: torch.device
+    reader, chunk: int, device: torch.device
 ) -> Tuple[Iterator[Tuple[int, torch.Tensor]], bool, bool]:
-    """The plain version of ``raw_device_chunks``: the same chunks, read
-    from the Python reader's memmap by the consumer's thread alone (on
-    CUDA through two pinned staging buffers, each refilled only after the
-    upload that last read it has finished)."""
+    """The plain version of ``raw_device_chunks`` for SER scans: the same
+    chunks, read from the Python reader's memmap by the consumer's thread
+    alone (on CUDA through two pinned staging buffers, each refilled only
+    after the upload that last read it has finished)."""
+    reader = _ser_reader(reader)
     chunk = auto_chunk_frames(reader.header.frame_bytes, chunk)
     dtype = torch.uint8 if reader.header.pixel_depth == 8 else torch.uint16
     shape = (reader.Height, reader.Width)
@@ -322,7 +489,7 @@ def raw_device_chunks_plain(
             yield start, torch.from_numpy(np.array(reader.raw_frames(start, n)))
 
     def gen_cuda():
-        copy_stream = torch.cuda.Stream(device)
+        copy_stream = _copy_stream(device)
         staging = [torch.empty((chunk, *shape), dtype=dtype, pin_memory=True)
                    for _ in range(2)]
         done = [None, None]

@@ -10,6 +10,13 @@ file exists when those return.  A worker's exception is re-raised at the
 barrier.  SOLEX_SYNC_WRITES=1 restores strictly sequential writes
 (debugging / timing attribution).
 
+**Writes belong to a scan** (not in the JAX module): a session overlaps
+one scan's post-processing with the next scan's read (cli/main.py), so
+``process_scan`` of scan N would, with the global ``barrier()``, also wait
+on scan N+1's ``-f`` writes and take their errors for its own.  Inside
+``scan_writes(futures)`` every write submitted on the thread is also put
+into ``futures``, and ``barrier(futures)`` joins only those.
+
 **Diagnostic figures ride a separate deferred lane** (``submit_figure``):
 the three matplotlib plots are pure sinks, nothing downstream reads them.
 They are queued, rendered by ``figure_barrier()``, which the CLI calls
@@ -23,6 +30,8 @@ accumulate unbounded image references.
 from __future__ import annotations
 
 import atexit
+import contextlib
+import contextvars
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -34,6 +43,9 @@ _fig_pool: ThreadPoolExecutor | None = None
 _fig_queue: list = []  # (fn, args, kwargs), rendered lazily
 _pending_figs: list = []  # in-flight overflow renders
 _FIG_QUEUE_DEPTH = 8  # bound on the images the queue keeps alive
+#: the scan whose writes this thread submits (``scan_writes``)
+_scan: contextvars.ContextVar = contextvars.ContextVar("solex_torch_scan",
+                                                       default=None)
 
 
 def _get_pool() -> ThreadPoolExecutor:
@@ -69,7 +81,22 @@ def submit(fn, *args, **kwargs) -> None:
         fn(*args, **kwargs)
         return
     with _lock:
-        _pending.append(_get_pool().submit(fn, *args, **kwargs))
+        fut = _get_pool().submit(fn, *args, **kwargs)
+        _pending.append(fut)
+        scan = _scan.get()
+        if scan is not None:
+            scan.append(fut)
+
+
+@contextlib.contextmanager
+def scan_writes(futures: list):
+    """Within the block, every write this thread submits is also appended
+    to ``futures`` (one scan's writes), for ``barrier(futures)``."""
+    token = _scan.set(futures)
+    try:
+        yield futures
+    finally:
+        _scan.reset(token)
 
 
 def submit_figure(fn, *args, **kwargs) -> None:
@@ -107,13 +134,20 @@ def _drain(pending: list) -> None:
         raise first_err
 
 
-def barrier() -> None:
-    """Wait for every queued DATA write; re-raise the first worker error
+def barrier(futures: list | None = None) -> None:
+    """Wait for every queued DATA write, or with ``futures`` (one scan's,
+    ``scan_writes``) for those alone; re-raise the first worker error
     after all of them have finished.  Deferred figures are not joined
     here: see ``figure_barrier``."""
     with _lock:
-        pending = _pending[:]
-        _pending.clear()
+        if futures is None:
+            pending = _pending[:]
+            _pending.clear()
+        else:
+            pending = futures[:]
+            futures.clear()
+            mine = set(pending)
+            _pending[:] = [f for f in _pending if f not in mine]
     _drain(pending)
 
 

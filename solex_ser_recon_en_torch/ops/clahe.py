@@ -94,7 +94,7 @@ def _launch_hist(img: torch.Tensor, tiles_y: int, tiles_x: int,
             tiles_y, tiles_x, hist_size, out.data_ptr(),
             cuda_build.stream_handle(img.device))
     cuda_build.check(rc, "tile_hist")
-    cuda_build.LAUNCHES["tile_hist"] += 1
+    cuda_build.count_launch("tile_hist")
     return out
 
 

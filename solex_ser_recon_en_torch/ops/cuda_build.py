@@ -35,10 +35,18 @@ NVCC_FLAGS = [
 ]
 
 #: kernel launches per wrapper (ops/recon_cuda.py, ops/warp_fast.py,
-#: ops/clahe.py, ops/fused_cuda.py); reset by callers that want to count
-#: one run
+#: ops/clahe.py, ops/fused_cuda.py), added by ``count_launch``; reset by
+#: callers that want to count one run
 LAUNCHES = {"recon": 0, "hresample": 0, "tile_hist": 0, "shg_fused": 0,
             "shg_fused_mxu": 0, "sum_max": 0}
+_launches_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name`` (a session launches from two threads:
+    read_scan's and process_scan's)."""
+    with _launches_lock:
+        LAUNCHES[name] += 1
 
 #: the most raw chunks one launch of kernel B3 takes (its pointer table,
 #: csrc/recon.cu:kMaxChunks; checked against the library when it loads)

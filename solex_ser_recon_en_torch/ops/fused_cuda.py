@@ -117,7 +117,7 @@ def sum_max(frames: torch.Tensor, total: torch.Tensor,
             frames.data_ptr(), frames.element_size(), total.data_ptr(),
             mx.data_ptr(), F, h * w, cuda_build.stream_handle(frames.device))
     cuda_build.check(rc, "sum_max")
-    cuda_build.LAUNCHES["sum_max"] += 1
+    cuda_build.count_launch("sum_max")
 
 
 def mean_max(frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -342,7 +342,7 @@ def _launch(entry: str, frames: torch.Tensor, ind_l: torch.Tensor,
             cuda_build.stream_handle(dev),
         )
     cuda_build.check(rc, entry)
-    cuda_build.LAUNCHES[entry] += 1
+    cuda_build.count_launch(entry)
     # as in the JAX package, the mean division and the u16 casts sit
     # outside the kernel (ops/fused_pallas.py:232-233, :290-291)
     return to_u16(total // F), to_u16(mx), disks

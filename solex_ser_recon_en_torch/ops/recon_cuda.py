@@ -104,7 +104,7 @@ def recon_chunks(chunks: Sequence[torch.Tensor], ind_l: torch.Tensor,
             cuda_build.stream_handle(dev),
         )
     cuda_build.check(rc, "recon")
-    cuda_build.LAUNCHES["recon"] += 1
+    cuda_build.count_launch("recon")
     return out
 
 

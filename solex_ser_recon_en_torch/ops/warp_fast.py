@@ -99,7 +99,7 @@ def hresample(V, loc, w0, w1, cadd) -> torch.Tensor:
             cuda_build.stream_handle(V.device),
         )
     cuda_build.check(rc, "hresample")
-    cuda_build.LAUNCHES["hresample"] += 1
+    cuda_build.count_launch("hresample")
     return out
 
 

@@ -4,8 +4,9 @@ Counterpart of solex_ser_recon_en_tpu/pipeline/run.py (read_scan on the
 device feed, single_image_process, process_scan, process_file).  reference: Solex_recon.py:49-174.  Data flow for
 one scan:
 
-  SER file -> native reader, copy threads -> pinned staging ring -> raw
-  chunks resident on the device                 (io/feeder.py, io/native.py)
+  SER or AVI file -> native reader (SER) or memmap planes (Y800 AVI),
+  copy threads -> pinned staging ring -> raw chunks resident on the device
+                                                (io/feeder.py, io/native.py)
       device: int32 sum + max over frames       (pass A, ops/fused.py)
       host:   cubic line fit (float64)          (geometry/linefit.py)
       device: multi-shift recon, kernel B3      (pass B, ops/recon_cuda.py)
@@ -32,7 +33,7 @@ from __future__ import annotations
 import contextlib
 import math
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -49,9 +50,9 @@ from ..geometry.correct import (
 from ..geometry.linefit import fit_spectral_line
 from ..io.feeder import raw_device_chunks
 from ..io.fits import make_header
-from ..io.ser import SerReader
+from ..io.video import open_video
 from ..io.writers import barrier as write_barrier
-from ..io.writers import submit_figure
+from ..io.writers import scan_writes, submit_figure
 from ..ops.dtypes import as_int16
 from ..ops.fused import RawScanProcessor
 from ..utils.device import synchronize
@@ -84,6 +85,9 @@ class ScanResult:
     basefich0: str
     mean_img: np.ndarray = None
     linefit: object = None
+    #: this scan's queued product writes (io/writers.py:scan_writes);
+    #: process_scan joins them
+    writes: list = field(default_factory=list)
 
 
 class FiguresNeedMatplotlib(RuntimeError):
@@ -124,15 +128,35 @@ def check_supported(options: Options) -> None:
 
 def read_scan(file: str, options: Options, device: torch.device,
               timer: Optional[StageTimer] = None) -> ScanResult:
-    """Read a SER scan and reconstruct the per-shift disks on ``device``.
+    """Read a SER or AVI scan and reconstruct the per-shift disks on
+    ``device``.
 
     reference: Solex_recon.py:49-83 — prepends the hidden
     [ellipse_fit_shift, 0] shifts (deduplicated), computes the mean and
     the line fit, and runs the recon; saves ``_mean.fits`` / ``_raw.fits``
-    (``-f``) and queues the spectral-line figure.
+    (``-f``) and queues the spectral-line figure.  The scan is opened
+    before its log is written: a file that cannot be read (a compressed
+    AVI where cv2 is absent) leaves no file behind.  The writes it queues
+    are the scan's (``ScanResult.writes``); if it fails, they are joined
+    before its error propagates.
     """
+    writes = []
+    try:
+        with scan_writes(writes):
+            scan = _read_scan(file, options, device, timer)
+    except BaseException:
+        write_barrier(writes)
+        raise
+    scan.writes = writes
+    return scan
+
+
+def _read_scan(file: str, options: Options, device: torch.device,
+               timer: Optional[StageTimer]) -> ScanResult:
     check_supported(options)
     timer = timer or StageTimer()
+    with timer.stage("open"):
+        vid = open_video(file)
     basefich0 = os.path.splitext(file)[0]
     options.basefich0 = basefich0
     log = RunLog(basefich0, options)
@@ -142,21 +166,18 @@ def read_scan(file: str, options: Options, device: torch.device,
     options.shift_requested = requested
     shifts = list(dict.fromkeys([options.ellipse_fit_shift, 0] + requested))
 
-    with timer.stage("open"):
-        if os.path.splitext(file)[1].lower() != ".ser":
-            raise NotImplementedError(f"{file}: only SER scans are supported")
-        reader = SerReader(file)
-    hdr = make_header(reader.iw, reader.ih)
-    log(f"Width, Height : {reader.Width} {reader.Height}")
-    log(f"Number of frames : {reader.frame_count}")
+    hdr = make_header(vid.iw, vid.ih)
+    log(f"Width, Height : {vid.Width} {vid.Height}")
+    log(f"Number of frames : {vid.frame_count}")
 
-    keep_resident = (reader.frame_count * reader.ih * reader.iw * 2
+    keep_resident = (vid.frame_count * vid.ih * vid.iw * 2
                      <= RESIDENT_CAP_BYTES)
     with timer.stage("mean/max"):
         raw_iter, rotate, upscale = raw_device_chunks(
-            reader, options.frame_chunk, device)
-        proc = RawScanProcessor(reader.Height, reader.Width, rotate, upscale,
-                                device)
+            vid, options.frame_chunk, device)
+        # the raw chunks' frame shape: stored, or (ih, iw) once decoded
+        shape = (vid.Height, vid.Width) if rotate else (vid.ih, vid.iw)
+        proc = RawScanProcessor(*shape, rotate, upscale, device)
         # closing: an error between chunks must stop the feed's producer
         with contextlib.closing(raw_iter):
             for start, chunk in raw_iter:
@@ -185,7 +206,7 @@ def read_scan(file: str, options: Options, device: torch.device,
         if keep_resident:
             disk_list = proc.reconstruct(lf.floor, lf.frac, shifts)
         else:
-            raw_iter, _, _ = raw_device_chunks(reader, options.frame_chunk,
+            raw_iter, _, _ = raw_device_chunks(vid, options.frame_chunk,
                                                device)
             with contextlib.closing(raw_iter):
                 disk_list = proc.reconstruct_streaming(raw_iter, lf.floor,
@@ -310,10 +331,21 @@ def process_scan(scan: ScanResult, options: Options,
                  timer: Optional[StageTimer] = None):
     """Geometric + photometric corrections and products for every shift.
 
-    reference: Solex_recon.py:93-133 (solex_process).
+    reference: Solex_recon.py:93-133 (solex_process).  On return, or on an
+    error, the scan's product writes (its own and read_scan's) are joined:
+    every data file exists, and a failed write is this scan's error.
     """
     check_supported(options)
     timer = timer or StageTimer()
+    try:
+        with scan_writes(scan.writes):
+            return _process_shifts(scan, options, timer)
+    finally:
+        with timer.stage("products"):
+            write_barrier(scan.writes)
+
+
+def _process_shifts(scan: ScanResult, options: Options, timer: StageTimer):
     basefich0 = scan.basefich0
     log = RunLog(basefich0, options)
     if options.transversalium:
@@ -426,11 +458,6 @@ def process_scan(scan: ScanResult, options: Options,
             )
         results.append((s, out))
         log.complete()
-
-    # join the overlapped product-file writes: on return every data file
-    # exists (and worker errors surface here, attributed to this scan)
-    with timer.stage("products"):
-        write_barrier()
     return results
 
 

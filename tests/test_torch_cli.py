@@ -1,31 +1,51 @@
-"""The PyTorch port's command line refuses the JAX CLI's unported long
-options, and any unknown ``--name``, with exit code 2 (CPU).
+"""The PyTorch port's command line and the JAX CLI's long options (CPU).
 
-Before, such a token fell into the packed single-letter flag parser:
-``--mesh 8`` reached the ``h`` of "mesh" and exited 0 with nothing done,
-``--feed host`` set ``-f``/``-d``.  Each case here runs a real scan that
-would otherwise be processed, and checks that nothing is written.
+``--input-dir``, ``--num-processes``, ``--process-id`` and ``--profile``
+run as in the JAX CLI: each case here, in both the ``--name value`` and
+the ``--name=value`` form, exits 0 and writes its products.  The options
+that are not ported yet, ``--mesh`` and ``--feed``, and any unknown
+``--name``, exit 2 with nothing written.  Before the port refused them, such
+a token fell into the packed single-letter flag parser: ``--mesh 8``
+reached the ``h`` of "mesh" and exited 0 with nothing done, ``--feed host``
+set ``-f``/``-d``.
 """
+
+import os
+import shutil
+import tempfile
 
 import pytest
 
 from solex_ser_recon_en_torch.cli.flags import UNPORTED_LONG_OPTS
 from solex_ser_recon_en_torch.cli.main import main as cli_main
+from solex_ser_recon_en_torch.parallel.distributed import assign_files
 
 VALUES = {"--mesh": "frame=8", "--feed": "host", "--input-dir": "scans",
           "--num-processes": "2", "--process-id": "1"}
+UNPORTED = ("--mesh", "--feed")
+PORTED = ("--input-dir", "--num-processes", "--process-id")
 
-CASES = (
-    [(name, [name, value]) for name, value in VALUES.items()]
-    + [(name, [f"{name}={value}"]) for name, value in VALUES.items()]
-    + [("--profile", ["--profile"]), ("--profile", ["--profile=prof"]),
-       ("--frobnicate", ["--frobnicate"]),
-       ("--frobnicate", ["--frobnicate=3"])]
-)
+
+def _cases(names):
+    return ([(name, [name, VALUES[name]]) for name in names]
+            + [(name, [f"{name}={VALUES[name]}"]) for name in names])
+
+
+CASES = _cases(UNPORTED) + [("--frobnicate", ["--frobnicate"]),
+                            ("--frobnicate", ["--frobnicate=3"])]
+RUN_CASES = _cases(PORTED) + [("--profile", ["--profile"]),
+                              ("--profile", ["--profile=prof"])]
+#: the folder of the folder cases: ``--num-processes 2`` gives c.ser to
+#: process 0 and a.ser, b.ser to process 1
+SCANS = ("a.ser", "b.ser", "c.ser")
 
 
 def test_every_jax_long_option_is_named():
-    assert set(VALUES) | {"--profile"} == set(UNPORTED_LONG_OPTS)
+    """Each long option of the JAX CLI is either refused here or run by a
+    case of ``test_ported_long_option_runs``."""
+    assert set(UNPORTED_LONG_OPTS) == set(UNPORTED)
+    assert set(VALUES) | {"--profile"} == \
+        set(UNPORTED_LONG_OPTS) | {name for name, _ in RUN_CASES}
 
 
 @pytest.mark.parametrize("name,tokens", CASES,
@@ -43,3 +63,42 @@ def test_unported_long_option_exits_2(basic_scan, tmp_path, capsys, name,
     else:
         assert "unknown option" in said
     assert not out.exists() or not any(out.iterdir())
+
+
+@pytest.mark.parametrize("name,tokens", RUN_CASES,
+                         ids=[" ".join(tok) for _, tok in RUN_CASES])
+def test_ported_long_option_runs(basic_scan, tmp_path, monkeypatch, capsys,
+                                 name, tokens):
+    """The folder options run over ./scans (the share of ``--process-id``
+    is process 1's of 2, that of ``--num-processes 2`` alone process 0's);
+    ``--profile`` runs one file and writes its trace (bare: into the
+    temporary directory's solex_profile)."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    os.makedirs("scans")
+    for s in SCANS:
+        shutil.copy(basic_scan["path"], os.path.join("scans", s))
+    out = tmp_path / "out"
+    argv = [*tokens, "-cw0", "--device", "cpu", "--output-dir", str(out)]
+    if name == "--profile":
+        argv.append(basic_scan["path"])
+        want = ["basic"]
+    else:
+        if name != "--input-dir":
+            argv += ["--input-dir", "scans"]
+        if name == "--process-id":
+            argv += ["--num-processes", "2"]
+        files = [os.path.join("scans", s) for s in SCANS]
+        pid = {"--num-processes": 0, "--process-id": 1}.get(name)
+        share = files if pid is None else assign_files(files, 2, pid)
+        want = sorted(os.path.basename(f)[:-4] for f in share)
+    rc = cli_main(argv)
+    assert rc == 0
+    assert sorted(p.name for p in out.iterdir() if p.suffix == ".png") == \
+        [f"{w}_shift=0_clahe.png" for w in want]
+    if name == "--profile":
+        trace_dir = tmp_path / ("prof" if "=" in tokens[0]
+                                else "solex_profile")
+        traces = list(trace_dir.iterdir())
+        assert len(traces) == 1 and traces[0].name.endswith(".trace.json")
+        assert "profiler trace written to" in capsys.readouterr().out

@@ -625,6 +625,30 @@ def test_feed_on_the_card_equals_plain_feed_and_file(rng, cuda_device,
     assert feeder.FEED["chunks"] == 8 and feeder.FEED["h2d_ms"] > 0
 
 
+def test_feeds_of_a_session_reuse_the_cached_chunks(rng, cuda_device,
+                                                    tmp_path):
+    """Each scan of a session feeds on the same upload stream, so the next
+    scan's chunks take the blocks the last one freed: the allocator
+    reserves no more after the first scan (with a stream a feed it
+    reserved one scan more each time)."""
+    from solex_ser_recon_en_torch.io import feeder
+    from solex_ser_recon_en_torch.io.ser import SerReader, write_ser
+
+    path = str(tmp_path / "s.ser")
+    write_ser(path, rng.integers(0, 65536, (24, 256, 512)).astype(np.uint16))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = []
+    for _ in range(3):
+        it, _, _ = feeder.raw_device_chunks(SerReader(path), 8, cuda_device)
+        chunks = [c for _, c in it]
+        assert len(chunks) == 3
+        del chunks
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved(cuda_device))
+    assert reserved[0] > 0 and reserved[1] == reserved[2] == reserved[0]
+
+
 def test_feed_closed_early_on_the_card(rng, cuda_device, tmp_path):
     import threading
 
@@ -660,3 +684,119 @@ def test_png_of_a_device_image_equals_plain(rng, cuda_device, tmp_path, shape,
     png.write_png_streaming_plain(b, img)
     with open(a, "rb") as fa, open(b, "rb") as fb:
         assert fa.read() == fb.read()
+
+
+@pytest.mark.parametrize("shape", [(24, 40), (23, 37)])
+def test_avi_feed_and_passes_on_the_card_equal_the_8bit_sers(
+        rng, cuda_device, tmp_path, shape):
+    """A Y800 AVI (RIFF/AVIX segments, planes not evenly spaced) and an
+    8-bit SER of the same wide frames: the same u8 chunks on the card,
+    then pass A's kernel and B3 give the same mean, max and disks, equal
+    to the CPU's; 23 x 37 = 851 bytes a frame sends pass A to its
+    granule copies."""
+    import os
+    import sys
+
+    from solex_ser_recon_en_torch.io import feeder
+    from solex_ser_recon_en_torch.io.ser import SerReader, write_ser
+    from solex_ser_recon_en_torch.io.video import open_video
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from chip_smoke import write_y800_avi
+
+    frames = rng.integers(0, 256, (50, *shape)).astype(np.uint8)
+    avi, ser = str(tmp_path / "s.avi"), str(tmp_path / "s.ser")
+    write_y800_avi(avi, frames, segment_bytes=20 * (frames[0].size + 8) + 40)
+    write_ser(ser, frames)
+    assert open_video(avi)._stride is None
+
+    def run(video, dev):
+        it, rot, up = feeder.raw_device_chunks(video, 7, dev)
+        proc = RawScanProcessor(shape[0], shape[1], rot, up, dev)
+        chunks = []
+        for start, c in it:
+            proc.accumulate(start, c)
+            chunks.append(c.cpu())
+        mean, mx = proc.mean_max()
+        floor = np.full(shape[1], 3, np.int64)
+        frac = np.linspace(0.1, 0.9, shape[1])
+        disks = proc.reconstruct(floor, frac, [2, 0, -1]).cpu()
+        return chunks, mean, mx, disks.view(torch.int16)
+
+    a = run(open_video(avi), cuda_device)
+    b = run(SerReader(ser), cuda_device)
+    c = run(open_video(avi), torch.device("cpu"))
+    for x in (b, c):
+        assert len(a[0]) == len(x[0]) == 8
+        assert all(torch.equal(p, q) for p, q in zip(a[0], x[0]))
+        np.testing.assert_array_equal(a[1], x[1])
+        np.testing.assert_array_equal(a[2], x[2])
+        assert torch.equal(a[3], x[3])
+
+
+def test_session_on_the_card_equals_per_file_runs(cuda_device, tmp_path):
+    """Three same-shape small scans (two 16-bit, one a Y800 AVI of 8-bit
+    frames) and a straggler: the session reads each file through read_scan
+    beside the last one's post-processing, and every _clahe.png is the
+    bytes of its file run alone; read_scans_batched, called directly,
+    groups the three and gives each the disks of its own read_scan."""
+    import os
+    import sys
+
+    from solex_ser_recon_en_torch.cli import main as cli
+    from solex_ser_recon_en_torch.config import Options
+    from solex_ser_recon_en_torch.io.ser import write_ser
+    from solex_ser_recon_en_torch.io.synthetic import SyntheticScan
+    from solex_ser_recon_en_torch.pipeline import batch
+    from solex_ser_recon_en_torch.pipeline.run import read_scan
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from chip_smoke import write_y800_avi
+
+    folder = tmp_path / "in"
+    folder.mkdir()
+    kw = dict(ih=256, iw=96, depth=16, line_poly=(48.0, 0.02, -1e-4, 2e-7),
+              noise=0.002)
+    wide = np.rot90(SyntheticScan(frames=200, seed=1, **kw).generate(),
+                    k=-1, axes=(1, 2))
+    write_ser(str(folder / "a.ser"), wide)
+    SyntheticScan(frames=200, seed=2, **kw).write(str(folder / "b.ser"),
+                                                  transpose_to_wide=True)
+    write_y800_avi(str(folder / "c.avi"),
+                   np.ascontiguousarray((wide >> 8).astype(np.uint8)))
+    SyntheticScan(frames=150, seed=3, **kw).write(str(folder / "x.ser"),
+                                                  transpose_to_wide=True)
+    read = []
+    orig = cli.read_scan
+
+    def spy(file, *a, **k):
+        read.append(os.path.basename(file))
+        return orig(file, *a, **k)
+
+    session, alone = tmp_path / "session", tmp_path / "alone"
+    cli.read_scan = spy
+    try:
+        assert cli.main(["-c", "--input-dir", str(folder), "--output-dir",
+                         str(session)]) == 0
+    finally:
+        cli.read_scan = orig
+    assert read == ["a.ser", "b.ser", "c.avi", "x.ser"]
+    for name in ("a.ser", "b.ser", "c.avi", "x.ser"):
+        assert cli.main(["-c", str(folder / name), "--output-dir",
+                         str(alone)]) == 0
+    names = sorted(p.name for p in session.iterdir() if p.suffix == ".png")
+    assert len(names) == 4
+    for name in names:
+        assert (session / name).read_bytes() == (alone / name).read_bytes()
+
+    opts = Options(shift=[0], clahe_only=True, output_dir=str(tmp_path))
+    files = [str(folder / n) for n in ("a.ser", "b.ser", "c.avi", "x.ser")]
+    got = batch.read_scans_batched([(f, opts.copy()) for f in files], {},
+                                   cuda_device)
+    assert sorted(got) == files[:3]
+    for f in files[:3]:
+        ref = read_scan(f, opts.copy(), cuda_device)
+        assert torch.equal(got[f].disk_list.view(torch.int16),
+                           ref.disk_list.view(torch.int16))

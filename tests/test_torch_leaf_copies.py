@@ -351,3 +351,74 @@ def test_figure_lane_defers_spills_and_reraises(monkeypatch):
     writers.submit(done.append, 2)
     assert done == [1, 2]
     assert writers._fig_queue == [] and writers._pending == []
+
+
+def test_scan_write_groups_join_one_scans_writes():
+    """io/writers.py's one addition to the original: writes submitted in
+    ``scan_writes(futures)`` also go into ``futures``, and
+    ``barrier(futures)`` joins those alone, with their error."""
+    import threading
+
+    gate = threading.Event()
+    done = []
+
+    def slow_fail():
+        gate.wait(5)
+        raise OSError("disk full")
+
+    mine, theirs = [], []
+    with writers.scan_writes(theirs):
+        writers.submit(slow_fail)
+    with writers.scan_writes(mine):
+        writers.submit(done.append, "mine")
+    writers.submit(done.append, "loose")         # in no scan
+    writers.barrier(mine)                        # does not wait on theirs
+    assert "mine" in done and mine == [] and len(theirs) == 1
+    gate.set()
+    with pytest.raises(OSError, match="disk full"):
+        writers.barrier(theirs)
+    writers.barrier()                            # joins the loose write
+    assert "loose" in done
+
+
+# ---- the session driver's copies ---------------------------------------------
+
+
+@pytest.mark.parametrize("module,names", [
+    ("parallel.distributed", ("assign_files", "shard_folder_batch")),
+    ("io.video", ("VideoReader", "_SerVideo", "_parse_raw_gray_avi")),
+    ("io.hostreduce", ("host_mean_max_frames",)),
+    ("cli.main", ("read_ini", "write_ini", "precheck_files", "is_openable",
+                  "folder_scan_files")),
+    ("pipeline.batch", ("_group_key",)),
+])
+def test_session_sources_are_copies(module, names):
+    """Functions of the session driver that the port copies line for line
+    (pipeline/batch.py:_group_key and io/video.py's readers import the
+    port's own modules)."""
+    import importlib
+    import inspect
+
+    ours = importlib.import_module("solex_ser_recon_en_torch." + module)
+    ref = importlib.import_module("solex_ser_recon_en_tpu." + module)
+    for name in names:
+        assert inspect.getsource(getattr(ours, name)) == \
+            inspect.getsource(getattr(ref, name)), name
+
+
+def test_avi_reader_differs_only_in_how_it_imports_cv2():
+    """io/video.py's _AviVideo is the JAX class but for its import of
+    OpenCV, which raises an error naming cv2 where it is absent."""
+    import inspect
+
+    from solex_ser_recon_en_tpu.io import video as jax_video
+    from solex_ser_recon_en_torch.io import video
+
+    ours = inspect.getsource(video._AviVideo).splitlines()
+    ref = inspect.getsource(jax_video._AviVideo).splitlines()
+    gone = [line for line in ref if line not in ours]
+    added = [line for line in ours if line not in ref]
+    assert [g.strip() for g in gone] == ["import cv2",
+                                         "import cv2  # gated import"]
+    assert [a.strip() for a in added] == ["cv2 = self._cv2",
+                                          "cv2 = _import_cv2(path)"]

@@ -1,7 +1,9 @@
 """The PyTorch port imports neither jax nor the JAX package.
 
 A fresh interpreter makes a tiny scan with the port's own synthetic-scan
-generator, runs the ``-c`` slice through the CLI on the CPU, then every
+generator, runs the ``-c`` slice through the CLI on the CPU, a folder of
+it as an 8-bit SER and a Y800 AVI (``chip_smoke.write_y800_avi``) with
+``--input-dir`` and ``--profile``, then every
 product mode that writes no figure (``-f``, the crops, a sweep,
 ``protus_only``, stubborn, de-vignette: none of cv2, PIL or matplotlib may
 be loaded by then) and the default mode (which loads matplotlib, in
@@ -39,6 +41,15 @@ SyntheticScan(ih=128, iw=48, frames=100, depth=8, squash_y=1.1,
               line_poly=(24.0, 0.01, 0.0, 0.0), noise=0.002,
               seed=3).write("tiny.ser", transpose_to_wide=True)
 rc = cli.main(["-cw0", "tiny.ser", "--device", "cpu"])
+assert rc == 0, rc
+import os, shutil
+from chip_smoke import write_y800_avi
+from solex_ser_recon_en_torch.io.ser import SerReader
+os.makedirs("folder")
+shutil.copy("tiny.ser", "folder/a.ser")
+write_y800_avi("folder/b.avi", SerReader("tiny.ser").raw_frames())
+rc = cli.main(["-c", "--input-dir", "folder", "--device", "cpu",
+               "--output-dir", "session", "--profile=prof"])
 assert rc == 0, rc
 from solex_ser_recon_en_torch.config import Options
 from solex_ser_recon_en_torch.pipeline.run import process_file
@@ -109,6 +120,10 @@ def test_port_runs_without_importing_jax(tmp_path):
     assert res.returncode == 0, res.stdout + res.stderr
     assert "NO_JAX_OK" in res.stdout
     assert (tmp_path / "tiny_shift=0_clahe.png").exists()
+    session = tmp_path / "session"
+    assert (session / "a_shift=0_clahe.png").read_bytes() == \
+        (session / "b_shift=0_clahe.png").read_bytes()
+    assert len(list((tmp_path / "prof").iterdir())) == 1
     assert (tmp_path / "dec" / "decomp_shift=0_clahe.png").exists()
     modes = sorted(p.name for p in (tmp_path / "modes").iterdir())
     for name in ("tiny_shift=-2_clahe.fits", "tiny_shift=2_raw.fits",
@@ -154,6 +169,10 @@ def test_port_sources_import_no_cv2_no_pil_and_matplotlib_in_plots_only():
             assert root not in ("cv2", "PIL"), (path, line)
             if root == "matplotlib":
                 assert path.endswith((plots, run)), (path, line)
+        # OpenCV decodes compressed AVIs alone, loaded by name on demand
+        with open(path) as f:
+            if 'import_module("cv2")' in f.read():
+                assert path.endswith(os.path.join("io", "video.py")), path
     assert any(root == "matplotlib" for root, _ in _imported_roots(
         os.path.join(ROOT, "solex_ser_recon_en_torch", plots)))
 
