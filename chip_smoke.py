@@ -138,6 +138,26 @@ Phases; any failure exits non-zero before the final result line:
    ``--process-id`` 0 and 1 over it must write disjoint shares that cover
    it; ``--profile=dir`` on one ``-c`` run must write one trace that names
    a kernel of the port.
+10. feeds: phase 4's default run (``--feed auto``) must have taken the
+   ``device`` feed (the probed link rate is printed).  ``-cw0 --feed
+   device``, ``--feed band`` and ``--feed host`` run twice each through
+   ``cli.main.main``, the launch counts and host-library calls set to 0
+   before each run and read after it; each run-2 wall, its stages, which
+   pass A and pass B ran, the page-cache pin's result and the calls are
+   printed with the card's name, and each run's line fit must equal phase
+   4's.  ``band``: pass A on the host (0 launches of pass A's kernel), B3
+   at least once, B4 once, B5 twice; mean and max equal phase 4's, its
+   disks phase 4's B3 disks bit for bit.  ``host``: the fast pass A
+   (``fast_passa``), no launch of pass A, B3, B4 or B5, host disks within
+   1 LSB of phase 4's on < 2% of pixels, and the native sweeps, recon,
+   warp, row medians, CLAHE and LUTs called.  Each feed's ``_clahe.png``
+   against phase 4's and its fitted geometry are printed (information).
+   A 7-shift ``-cw-9:9:3 --feed host`` sweep: no launch, one
+   ``warp_u16_u16_batch`` call, shift 0's ``_clahe.png`` byte-identical to
+   ``--feed host -cw0``'s.  B3 on the band run's chunks against its plain
+   version (bit-identical; the ``recon_band`` entry of the ``kernels``
+   line), and the newly driven host entry points against their numpy
+   twins on the host run's inputs (entries of ``host_entry_points``).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the
@@ -145,8 +165,9 @@ per-kernel JSON record (the host library's entry points have a JSON line
 of their own before it, ``host_entry_points``): each entry's launches are those of the path whose
 inputs its times were taken on, and pass A has three entries, ``sum_max``
 (the -cw0 path's raw chunks), ``sum_max_resident`` (the slab) and
-``sum_max_u8`` (the session's u8 chunks).  The script imports nothing of
-JAX, and prints the seconds phases 1-9 took.
+``sum_max_u8`` (the session's u8 chunks); B3 has ``recon``, ``recon_u8``
+and ``recon_band`` (the band feed's chunks).  The script imports nothing
+of JAX, and prints the seconds phases 1-10 took.
 """
 
 from __future__ import annotations
@@ -415,6 +436,10 @@ def ground_truth_checks(scan, full, res, frame) -> dict:
     return out
 
 
+#: numbers one phase measures for a later one (the host's best copy rate)
+MEASURED = {}
+
+
 def host_ms(fn, reps: int = 5) -> float:
     """Median host-clock milliseconds of ``fn()`` (after one warm call)."""
     fn()
@@ -505,6 +530,7 @@ def host_phase(path, tmp, png, res, blur_args, args, calls, card,
     m = bench_feed.measure(path, dev)
     print(f"feed measurements: {json.dumps(m)} [{card}]", flush=True)
     best = max(m["staging_gbps"].values())
+    MEASURED["copy_gbps"] = best
     scan_gb = m["scan_gb"]
     # the feed's bound: the larger of the uploads alone and the scan's bytes
     # over the host's best copy rate
@@ -1382,6 +1408,463 @@ def session_phase(path, tmp, png4, card, dev, frames8) -> list:
     return records
 
 
+def small_ops_diff(disk, dev, card) -> None:
+    """The ellipse fit's small ops (geometry/edges.py) on the card and on
+    the CPU, stage by stage, for one disk (the fit shift's): the blurs, the
+    flood threshold, Canny's intermediates, the edge points and the
+    ellipses (information: the band and host feeds run them on the CPU)."""
+    import torch
+
+    from solex_ser_recon_en_torch.geometry import edges
+    from solex_ser_recon_en_torch.geometry.correct import downscale_mean
+    from solex_ser_recon_en_torch.geometry.ellipse import two_step
+    from solex_ser_recon_en_torch.ops import canny as canny_mod
+
+    cpu = torch.device("cpu")
+    small = downscale_mean(disk, 4)
+    out = {}
+    for role, d in (("card", dev), ("cpu", cpu)):
+        o = out[role] = {}
+        o["blur5"] = edges._blur(small, 5, 5, d)
+        o["thresh"], o["blurred"] = edges.flood_threshold(small, d)
+        o["flooded"] = edges.get_flood_image(small, d)
+        f = torch.from_numpy(out["card"]["flooded"]).to(d)
+        k = canny_mod._gaussian_kernel_1d(2.0)
+        sm = canny_mod._conv1d(canny_mod._conv1d(f, k, 0), k, 1)
+        gy, gx = canny_mod._sobel(sm)
+        o["sm"], o["mag"] = sm.cpu().numpy(), torch.hypot(gy, gx).cpu().numpy()
+        o["ang"] = torch.atan2(gy, gx).cpu().numpy()
+        X, raw = edges.get_edge_list(small, d)
+        o["X"], o["raw"] = X, raw
+        c, h, phi, ratio, _, _ = two_step(X * 4)
+        o["ellipse"] = (tuple(float(v) for v in c), float(h), float(phi),
+                        float(ratio))
+    a, b = out["card"], out["cpu"]
+
+    def pts(x):
+        return {tuple(p) for p in x.astype(int)}
+
+    print(f"small ops, card vs CPU, on the fit disk's {small.shape} "
+          f"downscale: 5x5 blur max diff "
+          f"{float(np.abs(a['blur5'] - b['blur5']).max())}, flood blur max "
+          f"diff {float(np.abs(a['blurred'] - b['blurred']).max())}, "
+          f"threshold {a['thresh']!r} vs {b['thresh']!r}, flooded pixels "
+          f"differing {int((a['flooded'] != b['flooded']).sum())}; on the "
+          f"card's flooded image: Gaussian max diff "
+          f"{float(np.abs(a['sm'] - b['sm']).max())}, gradient magnitude "
+          f"max diff {float(np.abs(a['mag'] - b['mag']).max())} "
+          f"({int((a['mag'] != b['mag']).sum())} px), angle max diff "
+          f"{float(np.abs(a['ang'] - b['ang']).max())} "
+          f"({int((a['ang'] != b['ang']).sum())} px); raw edge points "
+          f"{len(a['raw'])} vs {len(b['raw'])} ({len(pts(a['raw']) ^ pts(b['raw']))}"
+          f" differ), kept {len(a['X'])} vs {len(b['X'])} "
+          f"({len(pts(a['X']) ^ pts(b['X']))} differ); ellipse (center, "
+          f"height, phi, ratio) {a['ellipse']} vs {b['ellipse']} [{card}]",
+          flush=True)
+
+
+def feeds_phase(path, tmp, png4, card, dev, res, wall2):
+    """Phase 10: the band and host feeds on the phase-3 scan (module
+    docstring); returns (the records of B3 on the band chunks, the host
+    library's records of the newly driven entry points)."""
+    import torch
+
+    from solex_ser_recon_en_torch.cli import main as cli_main
+    from solex_ser_recon_en_torch.geometry import correct
+    from solex_ser_recon_en_torch.io import feeder, native, pagecache
+    from solex_ser_recon_en_torch.io import hostreduce as hr
+    from solex_ser_recon_en_torch.io.png import read_png
+    from solex_ser_recon_en_torch.io.ser import SerReader
+    from solex_ser_recon_en_torch.ops import cuda_build, fused
+    from solex_ser_recon_en_torch.ops.dtypes import as_int16, widen
+    from solex_ser_recon_en_torch.ops.recon import recon_chunks_plain
+    from solex_ser_recon_en_torch.ops.warp import (
+        warp_host_u16,
+        warp_host_u16_plain,
+    )
+    from solex_ser_recon_en_torch.pipeline import products
+    from solex_ser_recon_en_torch.pipeline import run as run_mod
+    from solex_ser_recon_en_torch.pipeline import transversalium
+
+    scan4 = res["scan"]
+    rate = feeder.cached_probe_rate()
+    print(f"feeds: phase 4's auto run took the {scan4.feed} feed; the "
+          f"probed link rate {rate / 1e9:.3f} GB/s [{card}]", flush=True)
+    if scan4.feed != "device":
+        fail(f"phase 4's auto run took the {scan4.feed} feed, not device")
+
+    def zero_counts():
+        for k in cuda_build.LAUNCHES:
+            cuda_build.LAUNCHES[k] = 0
+        for k in native.CALLS:
+            native.CALLS[k] = 0
+
+    got = {"capture": False, "band": [], "host": {}}
+    names = ("read_scan", "host_mean_max", "host_mean_max_band",
+             "transversalium_gain", "image_process")
+    mods = {"read_scan": cli_main, "recon_chunks": fused}
+    mods.update({n: run_mod for n in names[1:]})
+    orig = {n: getattr(m, n) for n, m in mods.items()}
+
+    def read_scan(file, opts, device, timer=None):
+        got["timer"], got["opts"] = timer, opts
+        got["scan"] = orig["read_scan"](file, opts, device, timer)
+        return got["scan"]
+
+    def host_mean_max(r):
+        got["mean_max"] = orig["host_mean_max"](r)
+        return got["mean_max"]
+
+    def host_mean_max_band(r, x0, x1):
+        out = orig["host_mean_max_band"](r, x0, x1)
+        got["mean_max"] = out[:2]
+        return out
+
+    def recon_chunks(chunks, ind_l, left_w, rotate, upscale, out=None,
+                     frame_offset=0):
+        if got["capture"]:
+            got["band"].append((list(chunks), ind_l, left_w, rotate,
+                                upscale))
+        return orig["recon_chunks"](chunks, ind_l, left_w, rotate, upscale,
+                                    out, frame_offset)
+
+    def transversalium_gain(img, circle, borders, strength):
+        if got["capture"]:
+            got["host"]["rows"] = (img.clone(), circle, borders)
+        return orig["transversalium_gain"](img, circle, borders, strength)
+
+    def image_process(frame, *a, **k):
+        if got["capture"]:
+            got["host"]["core"] = (frame.clone(), k.get("gain"))
+        return orig["image_process"](frame, *a, **k)
+
+    hooks = dict(read_scan=read_scan, host_mean_max=host_mean_max,
+                 host_mean_max_band=host_mean_max_band,
+                 recon_chunks=recon_chunks,
+                 transversalium_gain=transversalium_gain,
+                 image_process=image_process)
+    runs = {}
+    for n, m in mods.items():
+        setattr(m, n, hooks[n])
+    try:
+        for feed in ("device", "band", "host"):
+            out = os.path.join(tmp, f"feed_{feed}")
+            for k in (1, 2):
+                got["capture"] = k == 1 and feed in ("band", "host")
+                got.pop("mean_max", None)
+                zero_counts()
+                t0 = time.perf_counter()
+                rc = cli_main.main(["-cw0", path, "--feed", feed,
+                                    "--output-dir", out])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if rc != 0:
+                    fail(f"-cw0 --feed {feed} (run {k}) failed")
+                timer = got["timer"]
+                runs[feed, k] = dict(
+                    wall=wall, launches=dict(cuda_build.LAUNCHES),
+                    calls={n: c for n, c in native.CALLS.items() if c},
+                    times=dict(timer.times), notes=dict(timer.notes),
+                    scan=got["scan"], opts=got["opts"],
+                    mean_max=got.get("mean_max"))
+            with open(os.path.join(out, "scan_log.txt")) as f:
+                runs[feed, 2]["log"] = [
+                    line for line in f.read().splitlines()
+                    if line.startswith(("Feed :", "Page-cache pin :",
+                                        "Pass A :", "Pass B :",
+                                        "Fast pass A not taken",
+                                        "Band slab does not cover"))]
+        got["capture"] = False
+        # the 7-shift host sweep: the shifts' warps in one batched call
+        zero_counts()
+        out_sweep = os.path.join(tmp, "feed_host_sweep")
+        t0 = time.perf_counter()
+        rc = cli_main.main(["-cw-9:9:3", path, "--feed", "host",
+                            "--output-dir", out_sweep])
+        wall_sweep = time.perf_counter() - t0
+        sweep = dict(launches=dict(cuda_build.LAUNCHES),
+                     calls={n: c for n, c in native.CALLS.items() if c},
+                     times=dict(got["timer"].times))
+    finally:
+        for n, m in mods.items():
+            setattr(m, n, orig[n])
+        pagecache.clear()
+    if rc != 0:
+        fail("-cw-9:9:3 --feed host failed")
+
+    def png_of(feed):
+        return os.path.join(tmp, f"feed_{feed}", "scan_shift=0_clahe.png")
+
+    with open(png4, "rb") as f:
+        png4_bytes = f.read()
+    cc4 = read_png(png4)
+    for feed in ("device", "band", "host"):
+        r2 = runs[feed, 2]
+        stages = ", ".join(f"{n} {1e3 * v:.1f}" for n, v in
+                           r2["times"].items())
+        print(f"feeds: --feed {feed} run 1 {runs[feed, 1]['wall']:.3f} s, run "
+              f"2 {r2['wall']:.3f} s (phase 4's device run 2 {wall2:.3f} s); "
+              f"run 2 stages (ms): {stages}; {r2['notes']}; launches "
+              f"{ {k: v for k, v in r2['launches'].items() if v} }; host "
+              f"library calls {r2['calls']}; log {r2['log']} [{card}]",
+              flush=True)
+        if r2["scan"].feed != feed:
+            fail(f"--feed {feed} took the {r2['scan'].feed} feed")
+        if not np.array_equal(r2["scan"].linefit.poly, scan4.linefit.poly):
+            fail(f"--feed {feed}: the line fit differs from phase 4's")
+        cc = read_png(png_of(feed))
+        with open(png_of(feed), "rb") as f:
+            same = f.read() == png4_bytes
+        mx = int(np.abs(cc.astype(np.int64) - cc4.astype(np.int64)).max()) \
+            if cc.shape == cc4.shape else None
+        o, o4 = r2["opts"], res["opts"]
+        print(f"feeds: --feed {feed} _clahe.png {'equals' if same else 'differs from'}"
+              f" phase 4's (max {mx} LSB, shape {cc.shape} vs {cc4.shape}); "
+              f"Y/X {o.ratio_fixe!r} vs {o4.ratio_fixe!r}, tilt "
+              f"{o.slant_fix!r} vs {o4.slant_fix!r}", flush=True)
+
+    # band: host pass A, B3 on the band, the post on the card
+    b2 = runs["band", 2]
+    la = b2["launches"]
+    if la["sum_max"] != 0 or la["recon"] < 1 or la["hresample"] != 1 \
+            or la["tile_hist"] != 2:
+        fail(f"--feed band launched {la}: want pass A 0, B3 >= 1, B4 1, B5 2")
+    if "sweep" not in b2["notes"]["pass A"]:
+        fail(f"--feed band ran pass A as {b2['notes']['pass A']}")
+    mean_b, max_b = b2["mean_max"]
+    if not (np.array_equal(mean_b, scan4.mean_img)
+            and np.array_equal(max_b, res["max_img"])):
+        fail("--feed band: mean or max differs from phase 4's")
+    if not torch.equal(as_int16(b2["scan"].disk_list),
+                       as_int16(scan4.disk_list)):
+        fail("--feed band: the disks differ from phase 4's B3 disks")
+    print("feeds: --feed band mean, max, line fit and disks equal phase 4's",
+          flush=True)
+
+    # host: fast pass A, the float64 recon, the post on the host, no launch
+    h2 = runs["host", 2]
+    la = h2["launches"]
+    if any(la[k] for k in ("sum_max", "recon", "hresample", "tile_hist")):
+        fail(f"--feed host launched {la}: want none of pass A, B3, B4, B5")
+    if not h2["notes"]["pass A"].startswith("fast_passa"):
+        fail(f"--feed host ran pass A as {h2['notes']['pass A']}")
+    for name in ("ser_sample_stats", "ser_band_stats", "ser_recon_f64",
+                 "warp_u16_u16", "clahe_u16", "gain_hist_u16", "lut_u16",
+                 "row_medstats_sorted_f32", "mask_interval_f32"):
+        if not h2["calls"].get(name):
+            fail(f"--feed host did not call {name}")
+    dh = h2["scan"].disk_list
+    if dh.device.type != "cpu":
+        fail("--feed host: the disks are not host tensors")
+    d = (widen(dh) - widen(scan4.disk_list).cpu()).abs()
+    frac = (d > 0).double().mean().item()
+    print(f"feeds: --feed host disks against phase 4's B3 disks: max "
+          f"{d.max().item()} LSB on {100 * frac:.4f}% of pixels", flush=True)
+    if d.max().item() > 1 or frac >= 0.02:
+        fail("--feed host: disks beyond 1 LSB on 2% of pixels of phase 4's")
+    ls = sweep["launches"]
+    print(f"feeds: -cw-9:9:3 --feed host {wall_sweep:.3f} s, stages "
+          f"{ {n: round(1e3 * v, 1) for n, v in sweep['times'].items()} } ms, "
+          f"host library calls {sweep['calls']} [{card}]", flush=True)
+    if any(ls[k] for k in ("sum_max", "recon", "hresample", "tile_hist")):
+        fail(f"the host sweep launched {ls}")
+    if sweep["calls"].get("warp_u16_u16_batch") != 1:
+        fail("the host sweep did not warp its 7 shifts in one "
+             "warp_u16_u16_batch call")
+    with open(png_of("host"), "rb") as f, open(os.path.join(
+            out_sweep, "scan_shift=0_clahe.png"), "rb") as g:
+        if f.read() != g.read():
+            fail("the host sweep's shift 0 differs from --feed host -cw0")
+
+    small_ops_diff(scan4.disk_list[0], dev, card)
+
+    # kernel B3 on the band run's chunks against its plain version
+    reps = 20
+    rc_args = got["band"]
+
+    def max_abs_err(x, y):
+        return (widen(x) - widen(y)).abs().max().item()
+
+    err = max(max_abs_err(orig["recon_chunks"](*a), recon_chunks_plain(*a))
+              for a in rc_args)
+    ms = cuda_ms(lambda: [orig["recon_chunks"](*a) for a in rc_args], reps)
+    dms = device_ms(lambda: [orig["recon_chunks"](*a) for a in rc_args],
+                    reps)
+    pms = cuda_ms(lambda: [recon_chunks_plain(*a) for a in rc_args], reps)
+    nbytes, flops = 0, 0
+    for chunks, ind_l, left_w, rotate, _ in rc_args:
+        raw = chunks[0]
+        n = sum(c.shape[0] for c in chunks)
+        S, ih = ind_l.shape
+        bw = raw.shape[1] if rotate else raw.shape[2]
+        nbytes += (tap_columns(ind_l, bw) * n * raw.element_size()
+                   + S * ih * n * 2 + ind_l.nbytes + left_w.nbytes)
+        flops += 3 * S * ih * n
+    b3 = bound(nbytes, {"f32": flops})
+    records = [dict(
+        name="recon_band", kernel="recon", launches=b2["launches"]["recon"],
+        err=err, ms=ms, plain_ms=pms, library_ms=None, bound=b3,
+        note=f"{len(rc_args)} launch over {len(rc_args[0][0])} band chunks "
+             f"of {tuple(rc_args[0][0][0].shape)}; device {dms:.4f} ms, "
+             f"{100 * b3[0] / dms:.1f}% of bound")]
+    del rc_args, got["band"]
+
+    # the host library's newly driven entry points, on the host run's
+    # inputs, against their numpy twins (host clock, medians)
+    rate = MEASURED["copy_gbps"] * 1e6          # bytes per millisecond
+    r = SerReader(path)
+    lf = scan4.linefit
+    shifts = scan4.shifts
+    hrec = []
+
+    def once(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    def row(name, replaces, calls, fn, twin, nbytes, note, reps=3,
+            same=None):
+        ms = host_ms(fn, reps)
+        pms, want = once(twin)
+        out = fn()
+        eq = same(out, want) if same else all(
+            np.array_equal(a, b) for a, b in zip(out, want))
+        hrec.append(dict(name=name, replaces=replaces, calls=calls,
+                         max_abs_err=0 if eq else 1, ms=ms, plain_ms=pms,
+                         bound_ms=nbytes / rate, note=note))
+
+    def twin(fn, *a):
+        def run():
+            hr.NATIVE = False
+            try:
+                return fn(*a)
+            finally:
+                hr.NATIVE = True
+        return run
+
+    scan_bytes = r.frame_count * r.header.frame_bytes
+    h1 = runs["host", 2]["calls"]
+    b1 = runs["band", 2]["calls"]
+    row("ser_mean_max", "numpy sum and max of each 256-frame memmap slice "
+        "(io/hostreduce.py with NATIVE False)", b1.get("ser_mean_max", 0),
+        lambda: hr.host_mean_max(r), twin(hr.host_mean_max, r), scan_bytes,
+        "the full host sweep of the scan (the band feed's pass A)", reps=2)
+    step = max(1, r.frame_count // 64)
+    x0, x1 = hr.spectral_band(lf.floor, shifts, r.iw, margin=18)
+    rect = hr._band_rect(r, x0, x1)
+
+    def numpy_fast():
+        raw = r.raw_frames()
+        sub = raw[::step]
+        band = raw[:, rect[0]:rect[1], rect[2]:rect[3]]
+        return (sub.sum(axis=0, dtype=np.uint64), sub.max(axis=0),
+                band.sum(axis=0, dtype=np.uint64), band.max(axis=0))
+
+    def native_fast():
+        with native.NativeSerReader(path) as nr:
+            s, m, _ = nr.sample_stats(step)
+            return (s, m) + nr.band_stats(*rect)
+
+    band_bytes = r.frame_count * (rect[1] - rect[0]) * (rect[3] - rect[2]) * 2
+    row("ser_sample_stats + ser_band_stats", "numpy sums and maxima of the "
+        "frame subsample and of the band", h1.get("ser_band_stats", 0),
+        native_fast, numpy_fast, band_bytes + scan_bytes // step,
+        f"fast pass A's two sweeps: every {step}th frame, then the band "
+        f"[{x0}, {x1}) of every frame ({band_bytes / 1e9:.3f} GB)", reps=2)
+    row("ser_mean_max_band", "numpy sums, maxima and band copy of each "
+        "memmap slice", b1.get("ser_mean_max_band", 0),
+        lambda: hr.host_mean_max_band(r, x0, x1),
+        twin(hr.host_mean_max_band, r, x0, x1), scan_bytes + band_bytes,
+        "the fused band sweep (the band and host feeds when the scan is "
+        "not pinned)", reps=1)
+    nd = len(shifts) * r.ih * r.frame_count
+    row("ser_recon_f64", "numpy np.take pair and float64 lerp a chunk "
+        "(io/hostreduce.py with NATIVE False)", h1.get("ser_recon_f64", 0),
+        lambda: (hr.host_reconstruct(r, lf.floor, lf.frac, shifts),),
+        lambda: (twin(hr.host_reconstruct, r, lf.floor, lf.frac, shifts)(),),
+        nd * 2 * 2 + nd * 2,
+        f"the host feed's pass B, S = {len(shifts)}: two taps a disk pixel "
+        "from the page cache", reps=2)
+    o = runs["host", 2]["opts"]
+    disk = dh[1].numpy()
+    _, _, mat3, _, _, oh, ow = correct._correction_mat3(
+        disk.shape, math.radians(o.slant_fix), o.ratio_fixe)
+    cval = float(disk[0, 0]) / 65536.0
+    row("warp_u16_u16", "the numpy float32 four-term warp "
+        "(ops/warp.py:warp_host_u16_plain)", h1.get("warp_u16_u16", 0),
+        lambda: (warp_host_u16(disk, mat3, oh, ow, cval),),
+        lambda: (warp_host_u16_plain(disk, mat3, oh, ow, cval),),
+        disk.nbytes + oh * ow * 2, f"{disk.shape} -> ({oh}, {ow})")
+    stack = [disk] * 7
+    row("warp_u16_u16_batch", "7 calls of warp_u16_u16 (one a shift)",
+        sweep["calls"].get("warp_u16_u16_batch", 0),
+        lambda: (native.warp_u16_batch(stack, mat3, oh, ow, [cval] * 7,
+                                       None),),
+        lambda: (np.stack([warp_host_u16(s, mat3, oh, ow, cval)
+                           for s in stack]),),
+        7 * (disk.nbytes + oh * ow * 2), "the 7 shifts of the host sweep")
+    img, circle, borders = got["host"]["rows"]
+    img = img.numpy()
+    h, w = img.shape
+
+    def rows_twin():
+        y1b, y2b = transversalium._row_band(circle, borders)
+        a, b = max(y1b, 0), min(y2b, h)
+        valid = transversalium._strip_mask_host(h, w, circle, borders, a, b)
+        mean_r = np.zeros(h)
+        mean_r[a + 1:b] = transversalium._row_stats_host(img[a:b],
+                                                         valid)[1:]
+        return (mean_r,)
+
+    row("row_medstats_sorted_f32 + mask_interval_f32", "numpy masked row "
+        "sorts (pipeline/transversalium.py:_row_stats_host)",
+        h1.get("row_medstats_sorted_f32", 0),
+        lambda: (transversalium._mean_r_host(img, circle, borders),),
+        rows_twin, img.nbytes * 3, f"the corrected disk {img.shape}'s "
+        "correction band")
+    frame, gain = got["host"]["core"]
+    f16 = frame.numpy()
+    want = (False, False)
+
+    def core_plain():
+        g = torch.as_tensor(np.asarray(gain), dtype=torch.float32)
+        out = products._products_core_gained(frame, g, want)
+        return tuple(t.numpy() for t in out[:2])
+
+    def core_host():
+        return products._products_core_gained_host(f16, gain, want)[:2]
+
+    def within_cv2(a, b):
+        """The row-gained image equal, CLAHE within 1 LSB (ROADMAP C3:
+        float32 ties in the LUT blend round either way)."""
+        return np.array_equal(a[0], b[0]) and int(np.abs(
+            a[1].astype(np.int64) - b[1]).max()) <= 1
+
+    row("gain_hist_u16 + clahe_u16 + lut_u16", "the port's plain torch "
+        "product core on the CPU (pipeline/products.py:_products_core_gained)",
+        h1.get("clahe_u16", 0), core_host, core_plain, f16.nbytes * 5,
+        f"the -c product core of {f16.shape}: row gain and CLAHE with its "
+        "histogram (the gained image equal, CLAHE within 1 LSB)",
+        same=within_cv2)
+    lut = np.arange(65536, dtype=np.uint16)[::-1].copy()
+    row("hist_u16", "np.bincount", h1.get("hist_u16", 0),
+        lambda: (native.hist_u16(f16),),
+        lambda: (np.bincount(f16.ravel(), minlength=65536),), f16.nbytes,
+        f"{f16.shape}")
+    row("lut_u16", "a numpy gather lut[img]", h1.get("lut_u16", 0),
+        lambda: (native.lut_u16(f16, lut),), lambda: (lut[f16],),
+        2 * f16.nbytes, f"{f16.shape}")
+    for rr in hrec:
+        print(f"host {rr['name']}: {rr['ms']:.3f} ms, numpy/plain "
+              f"{rr['plain_ms']:.3f} ms, bound {rr['bound_ms']:.3f} ms at "
+              f"{MEASURED['copy_gbps']:.2f} GB/s, {rr['calls']} calls in "
+              f"the run, max_abs_err {rr['max_abs_err']} ({rr['note']}; "
+              f"before: {rr['replaces']}) [{card}]", flush=True)
+        if rr["max_abs_err"] != 0:
+            fail(f"host entry point {rr['name']} differs from its twin")
+    return records, hrec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "solex_ser_recon_en_torch")):
@@ -1952,8 +2435,15 @@ def main() -> int:
         records += session_phase(path, tmp, png4, card, torch.device("cuda"),
                                  frames8)
         del frames8
-        print(f"chip_smoke: phases 1-9 took {time.perf_counter() - t_start:.1f}"
-              f" s [{card}]", flush=True)
+
+        # 10. the band and host feeds of read_scan
+        torch.cuda.empty_cache()
+        recs, hrecs = feeds_phase(path, tmp, png4, card,
+                                  torch.device("cuda"), res, wall2)
+        records += recs
+        host_records += hrecs
+        print(f"chip_smoke: phases 1-10 took "
+              f"{time.perf_counter() - t_start:.1f} s [{card}]", flush=True)
 
         for r in records:
             if r["err"] != 0:

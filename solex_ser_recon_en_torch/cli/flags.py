@@ -3,9 +3,10 @@
 A copy of solex_ser_recon_en_tpu/cli/flags.py (that package imports jax on
 import) with the port's long options: ``--device``, ``--output-dir``,
 ``--input-dir``, ``--num-processes`` and ``--process-id`` (with the
-``SOLEX_NUM_PROCESSES`` / ``SOLEX_PROCESS_ID`` fallback); ``--profile`` is
-taken by cli/main.py, as there.  ``--mesh`` and ``--feed``, and any
-unknown ``--name``, are refused (``UnsupportedOption``).
+``SOLEX_NUM_PROCESSES`` / ``SOLEX_PROCESS_ID`` fallback) and ``--feed``;
+``--profile`` is taken by cli/main.py, as there.  ``--mesh``, a bad
+``--feed`` mode and any unknown ``--name`` are refused
+(``UnsupportedOption``).
 
 reference: CLI_handler.py:10-114 — flags may be packed (``-tw 0,5``); ``w``
 consumes a shift spec (``a,b,c`` / ``x:y`` / ``x:y:w``); ``r`` consumes an
@@ -46,8 +47,11 @@ def usage() -> str:
         "    deterministic 1/N share of the folder batch (every process\n"
         "    computes the same split locally).\n"
         "'--profile[=dir]' : write a torch.profiler trace of the run.\n"
-        "'--mesh', '--feed' : options of the JAX CLI, refused here (exit\n"
-        "    code 2) until they are ported.\n"
+        "'--feed MODE' : auto (default) | device | band | host: how much\n"
+        "    of the scan crosses to the card (band: only the recon's\n"
+        "    spectral band; host: nothing, everything on the host).\n"
+        "'--mesh' : an option of the JAX CLI, refused here (exit code 2)\n"
+        "    until it is ported.\n"
         "'d' is refused too.  Without 'c' the diagnostic figures are\n"
         "written as well, which needs matplotlib."
     )
@@ -159,7 +163,7 @@ def _apply_flag_group(options: Options, argument: str) -> None:
 #: long options of the JAX package's CLI (solex_ser_recon_en_tpu/cli/
 #: flags.py:193-202) that this port does not run yet; each is refused,
 #: never read as packed letters
-UNPORTED_LONG_OPTS = ("--mesh", "--feed")
+UNPORTED_LONG_OPTS = ("--mesh",)
 
 
 class UnsupportedOption(ValueError):
@@ -192,6 +196,12 @@ def parse_cli(options: Options, argv: List[str]) -> Tuple[List[str], str]:
     def set_input_dir(path: str) -> None:
         options.input_dir = path
 
+    def set_feed(mode: str) -> None:
+        if mode not in ("auto", "device", "band", "host"):
+            print(f"invalid feed mode {mode!r} (auto|device|band|host)")
+            raise UnsupportedOption(f"--feed {mode!r}: not a feed mode")
+        options.feed_mode = mode
+
     # --num-processes/--process-id select this host's deterministic share
     # of a folder batch (parallel/distributed.assign_files) — the
     # host-scale analogue of the reference's Pool(4), Solex_recon.py:30.
@@ -203,6 +213,7 @@ def parse_cli(options: Options, argv: List[str]) -> Tuple[List[str], str]:
         "--process-id": (set_int("--process-id", "process_id"),
                          "an integer"),
         "--input-dir": (set_input_dir, "a folder path"),
+        "--feed": (set_feed, "a mode (auto|device|band|host)"),
     }
 
     files: List[str] = []

@@ -19,13 +19,17 @@ file that queued it.  The diagnostic figures of the default mode render
 after the last file.  ``-d`` is refused, and so is a mode that writes
 figures where matplotlib is absent (exit code 2, nothing written).
 
+A batch of more than ``PROBE_BATCH_BYTES`` rates the link to the card
+once up front (io/feeder.py:probe_transfer_rate), so every file of it,
+however small, takes the ``auto`` feed on the same reading (pipeline/
+run.py:auto_feed).
+
 Not ported from the JAX driver: the relay-link probe
 (``utils/backend.py:ensure_responsive_backend``, which falls back to the
-CPU), ``probe_transfer_rate`` (the feed policy), the inline branch for
-one-core hosts (it needs the host pipeline of the other feeds), the GUI's
-progress meter, and the small-scan group read of pipeline/batch.py, which
-on the card is slower than reading each scan beside the last one's
-post-processing (that module's docstring).
+CPU), the inline branch for one-core hosts, the GUI's progress meter, and
+the small-scan group read of pipeline/batch.py, which on the card is
+slower than reading each scan beside the last one's post-processing (that
+module's docstring).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from typing import Iterable, List, Optional
 import torch
 
 from ..config import Options
+from ..io.feeder import probe_transfer_rate
 from ..io.video import open_video
 from ..io.writers import figure_barrier
 from ..parallel.distributed import shard_folder_batch
@@ -51,6 +56,8 @@ from ..utils.timer import StageTimer
 from .flags import UnsupportedOption, parse_cli, usage
 
 CONFIG_NAME = "SHG_config.txt"
+#: a batch of more bytes than this gets one link probe before its first file
+PROBE_BATCH_BYTES = 256 * 1024**2
 
 
 def read_ini(path: str = CONFIG_NAME) -> Options:
@@ -109,6 +116,14 @@ def handle_files(files: Iterable[str], options: Options,
     number of files fully processed.
     """
     tasks = precheck_files(files, options)
+    # a batch worth more bytes than a link probe costs gets one probe up
+    # front (memoised), so every file rides the feed the same rate chose
+    try:
+        batch_bytes = sum(os.path.getsize(f) for f, _ in tasks)
+    except OSError:
+        batch_bytes = 0     # a file went away: its own read reports it
+    if batch_bytes > PROBE_BATCH_BYTES:
+        probe_transfer_rate(device)
 
     def drain(pending: list) -> int:
         n = 0

@@ -5,7 +5,12 @@ ellipse_to_circle.py:94-145 (correct_image) and :294-342
 (ellipse_to_circle).  The 3x3 matrix math stays on the host in float64;
 the warp runs on the disk's device: the separable path (ops/warp_fast.py,
 kernel B4) for every matrix with second row [0, 1, ty] — all the
-pipeline builds — and the four-term warp (ops/warp.py) otherwise.
+pipeline builds — and the four-term warp (ops/warp.py) otherwise.  In the
+host pipeline (utils/placement.py, the ``host`` feed) the disks are CPU
+tensors and the warp is the native library's (ops/warp.py:warp_host_u16;
+a sweep's shifts through ``warp_u16_u16_batch``), as in the JAX package's
+host branches.  The ellipse fit's small ops go where the feed puts them
+(geometry/edges.py).
 """
 
 from __future__ import annotations
@@ -18,9 +23,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..io.native import warp_u16_batch
 from ..ops.dtypes import widen
-from ..ops.warp import warp_projective_u16, warp_to_u16
+from ..ops.warp import warp_host_u16, warp_projective_u16, warp_to_u16
 from ..ops.warp_fast import unit_y_row, warp_unit_y_u16, window_for
+from ..utils.placement import host_pipeline, small_ops_device
 from .edges import get_edge_list
 from .ellipse import get_correction_matrix, two_step
 
@@ -98,7 +105,17 @@ def correction_geometry(
 def _warp_u16(images: torch.Tensor, mat3: np.ndarray, out_h: int,
               out_w: int) -> torch.Tensor:
     """Warp uint16 images (K, h, w), each with cval = its [0, 0] pixel,
-    -> uint16 (K, out_h, out_w)."""
+    -> uint16 (K, out_h, out_w).  In the host pipeline: the native warp
+    of CPU tensors (one image: ``warp_u16_u16``; several:
+    ``warp_u16_u16_batch``)."""
+    if host_pipeline():
+        ds = [im.numpy() for im in images]
+        cvals = [float(d[0, 0]) / 65536.0 for d in ds]
+        if len(ds) == 1:
+            warped = warp_host_u16(ds[0], mat3, out_h, out_w, cvals[0])[None]
+        else:
+            warped = warp_u16_batch(ds, mat3, out_h, out_w, cvals, None)
+        return torch.from_numpy(warped)
     if unit_y_row(mat3) and window_for(mat3) > 0:
         return warp_to_u16(warp_unit_y_u16(images, mat3, out_h, out_w))
     cvals = widen(images[:, 0, 0]).cpu().numpy() / 65536.0
@@ -184,7 +201,7 @@ def ellipse_to_circle(
     """
     factor = 4
     small = downscale_mean(image_u16, factor)
-    X, raw_X = get_edge_list(small, image_u16.device)
+    X, raw_X = get_edge_list(small, small_ops_device(image_u16.device))
     X = X * factor
     raw_X = raw_X * factor
     center_yx, height, phi, ratio, X_f, ell_pts = two_step(X)

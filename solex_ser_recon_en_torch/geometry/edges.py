@@ -2,9 +2,13 @@
 
 Counterpart of solex_ser_recon_en_tpu/geometry/edges.py.  reference:
 ellipse_to_circle.py:148-291.  The image-sized work (box blurs, Canny)
-runs on ``device``; the small point-set work (histogram threshold search,
-connected-component labelling, convex hull) runs on the host with scipy,
-as in the JAX package.
+runs on ``device`` (the CPU when the feed puts the small ops there,
+utils/placement.py:small_ops_device); the small point-set work (histogram
+threshold search, connected-component labelling, convex hull) runs on the
+host with scipy, as in the JAX package.  A blob of ``HOST_CANNY_MAX_PX``
+pixels or fewer takes the numpy/scipy Canny (ops/canny_host.py) on every
+feed: the choice is by size only, so every feed of a scan finds the same
+edges.
 """
 
 from __future__ import annotations
@@ -19,8 +23,12 @@ from scipy.spatial import ConvexHull
 
 from ..ops.blur import box_blur
 from ..ops.canny import canny
+from ..ops.canny_host import canny as canny_host
 
 NUM_REG = 2  # include biggest NUM_REG regions (ellipse_to_circle.py:31)
+#: blobs of this many pixels or fewer take the host Canny (JAX
+#: geometry/edges.py:113-122: a launch's latency dwarfs their math)
+HOST_CANNY_MAX_PX = 65536
 
 
 def _blur(img: np.ndarray, kx: int, ky: int, device) -> np.ndarray:
@@ -88,9 +96,14 @@ def get_edge_list(image: np.ndarray, device, sigma: float = 2.0
     while sigma > 0:
         low = float(np.median(_blur(image, 5, 5, device))) / 10
         high = low * 1.5
-        flooded = torch.from_numpy(get_flood_image(image, device)).to(device)
-        edges = canny(flooded, sigma=float(sigma), low_threshold=low,
-                      high_threshold=high).cpu().numpy()
+        flooded = get_flood_image(image, device)
+        if flooded.size <= HOST_CANNY_MAX_PX:
+            edges = canny_host(flooded, sigma=float(sigma),
+                               low_threshold=low, high_threshold=high)
+        else:
+            edges = canny(torch.from_numpy(flooded).to(device),
+                          sigma=float(sigma), low_threshold=low,
+                          high_threshold=high).cpu().numpy()
         raw_X = np.argwhere(edges)
         labelled, nf = scipy.ndimage.label(edges, structure=np.ones((3, 3)))
         if nf > 0:

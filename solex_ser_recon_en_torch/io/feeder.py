@@ -33,11 +33,23 @@ planes) and yielded like an 8-bit SER's, so pass A and kernel B3 do the
 rot90 and the x256; a compressed AVI's frames decoded by OpenCV on one
 thread, already normalised (u16, no rotate, no upscale).
 
+The ``band`` feed (pipeline/run.py) uploads only the recon's spectral
+band through the same producer, ring, copy threads and upload stream
+(``band_device_chunks``, source ``_BandSource``): each copy thread copies
+its frames' band rows (wide-stored) or band columns (tall-stored) out of
+the native reader's mapping in one strided copy, or out of the band slab
+that the host's fused sweep already extracted.  It takes the place of the
+JAX module's ``prefetch_iter`` thread feeding ``jax.device_put``.
+
+``probe_transfer_rate``, ``cached_probe_rate`` and ``note_small_scan``
+rate the host-to-device link for the ``auto`` feed policy, memoised a
+process.
+
 Not ported from the JAX module: ``pad_to_bucket`` (it keeps XLA at one
 compiled program a shape; PyTorch compiles none, and ops/fused.py takes a
-short last chunk), and the policy of the other feeds
-(``probe_transfer_rate``, ``d2h_responsive``, ``FeedRateMonitor``,
-``FeedCollapse``, ``note_collapse``, ``note_small_scan``).
+short last chunk), ``d2h_responsive``, ``FeedRateMonitor``,
+``FeedCollapse`` and ``note_collapse`` (silent fallbacks for a remote
+link; ROADMAP A6 says why).
 """
 
 from __future__ import annotations
@@ -97,6 +109,69 @@ def _copy_stream(device: torch.device) -> "torch.cuda.Stream":
         if index not in _COPY_STREAMS:
             _COPY_STREAMS[index] = torch.cuda.Stream(index)
         return _COPY_STREAMS[index]
+
+
+#: the memoised link rate: (bytes/s, time.monotonic() of the probe)
+_PROBE_CACHE = None
+#: seconds a probe's reading stays fresh
+PROBE_TTL_S = 600.0
+#: bytes of small scans fed since the process started (note_small_scan)
+_SMALL_BYTES_SEEN = 0
+_probe_lock = threading.Lock()
+
+
+def probe_transfer_rate(device: torch.device,
+                        sample_bytes: int = 24 * 1024 * 1024) -> float:
+    """Host-to-``device`` copy rate (bytes/s) for the ``auto`` feed policy:
+    a 4 MB warm-up copy, then the worse of two timed copies of
+    ``sample_bytes`` / 2 from pageable host memory.  Memoised for
+    ``PROBE_TTL_S`` seconds within the process."""
+    global _PROBE_CACHE
+    with _probe_lock:
+        rate = _fresh_rate()
+        if rate is not None:
+            return rate
+        now = time.monotonic()
+        device = torch.device(device)
+
+        def put(n: int) -> float:
+            src = torch.ones(n, dtype=torch.uint8)
+            dst = torch.empty(n, dtype=torch.uint8, device=device)
+            t0 = time.perf_counter()
+            dst.copy_(src)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            return max(time.perf_counter() - t0, 1e-6)
+
+        put(4 * 1024 * 1024)
+        n = sample_bytes // 2
+        rate = min(n / put(n) for _ in range(2))
+        _PROBE_CACHE = (rate, now)
+        return rate
+
+
+def _fresh_rate():
+    if _PROBE_CACHE is not None and \
+            time.monotonic() - _PROBE_CACHE[1] < PROBE_TTL_S:
+        return _PROBE_CACHE[0]
+    return None
+
+
+def cached_probe_rate():
+    """The memoised probe reading (bytes/s), or None when none is fresh:
+    a small scan's feed decision consults an earlier probe for free."""
+    with _probe_lock:
+        return _fresh_rate()
+
+
+def note_small_scan(nbytes: int) -> int:
+    """Add a small scan's bytes to the process's count and return it: once
+    a folder of small scans has fed more than a probe costs, a probe pays
+    for itself."""
+    global _SMALL_BYTES_SEEN
+    with _probe_lock:
+        _SMALL_BYTES_SEEN += int(nbytes)
+        return _SMALL_BYTES_SEEN
 
 
 def auto_chunk_frames(frame_bytes: int, requested: int) -> int:
@@ -300,6 +375,69 @@ class _Cv2Source:
         pass
 
 
+class _BandSource:
+    """The raw frames' spectral band, columns [x0, x1) of the normalised
+    frame: raw rows [x0, x1) of a wide-stored SER (rotate), raw columns of
+    a tall-stored one.  Copied from the native reader's mapping
+    (``ser_data``) or from ``slab``, the (F, ...) band slab of exactly
+    [x0, x1) that the fused host sweep extracted; each copy thread copies
+    its frame range in one strided numpy copy (the interpreter lock is
+    dropped for it)."""
+
+    max_threads = None
+
+    def __init__(self, reader: SerReader, x0: int, x1: int, slab=None):
+        self.reader = reader
+        self.frame_count = reader.frame_count
+        self.rotate = reader.flag_rotate
+        self.upscale = reader.pixel_depth == 8
+        self.dtype = torch.uint8 if self.upscale else torch.uint16
+        if self.rotate:
+            self.rect = (slice(x0, x1), slice(None))
+            self.shape = (x1 - x0, reader.Width)
+        else:
+            self.rect = (slice(None), slice(x0, x1))
+            self.shape = (reader.Height, x1 - x0)
+        self.frame_bytes = (self.shape[0] * self.shape[1]
+                            * reader.header.dtype.itemsize)
+        if slab is not None and (slab.shape[0] != self.frame_count
+                                 or tuple(slab.shape[1:]) != self.shape):
+            raise ValueError(f"band slab {slab.shape} is not the "
+                             f"({self.frame_count}, {self.shape}) band")
+        self.slab = slab
+        self._native = None
+        self._frames = None
+
+    def open(self) -> None:
+        if self.slab is not None:
+            self._frames = self.slab
+            return
+        self._native = NativeSerReader(self.reader.path)
+        frames = self._native.frames()
+        if frames.shape != (self.frame_count, self.reader.Height,
+                            self.reader.Width):
+            raise RuntimeError(f"{self.reader.path}: the native reader and "
+                               "the Python reader disagree on the header")
+        self._frames = frames[(slice(None), *self.rect)]
+
+    def prefetch(self, start: int, count: int) -> None:
+        pass
+
+    def read_into(self, start: int, count: int, host: torch.Tensor) -> int:
+        src = self._frames[start:start + count]
+        if host.dtype == torch.uint16:
+            np.copyto(host.view(torch.int16).numpy(), src.view(np.int16))
+        else:
+            np.copyto(host.numpy(), src)
+        return count
+
+    def close(self) -> None:
+        self._frames = None
+        if self._native is not None:
+            self._native.close()
+            self._native = None
+
+
 def _ser_reader(video) -> SerReader:
     """The SER reader of a VideoReader of a SER scan, or the reader given
     (io/ser.py:SerReader, or a reader with its fields)."""
@@ -410,6 +548,28 @@ def raw_device_chunks(
     pass others.
     """
     source = _chunk_source(video)
+    return (_device_chunks(source, chunk, device, threads, depth),
+            source.rotate, source.upscale)
+
+
+def band_device_chunks(
+    reader, x0: int, x1: int, chunk: int, device: torch.device, *,
+    slab=None, threads: int = COPY_THREADS, depth: int = RING_DEPTH,
+) -> Tuple[Iterator[Tuple[int, torch.Tensor]], bool, bool]:
+    """``raw_device_chunks`` of the spectral band [x0, x1) of a SER scan
+    (a SerReader or a VideoReader of one): (iterator of (start, band chunk
+    (n, x1 - x0, W) if rotate else (n, H, x1 - x0) on ``device``), rotate,
+    upscale), read from the file's mapping or from ``slab``, the fused
+    host sweep's band slab of exactly [x0, x1) (``_BandSource``)."""
+    source = _BandSource(_ser_reader(reader), x0, x1, slab)
+    return (_device_chunks(source, chunk, device, threads, depth),
+            source.rotate, source.upscale)
+
+
+def _device_chunks(source, chunk: int, device: torch.device, threads: int,
+                   depth: int):
+    """The consumer side of the feed over a chunk source (the generator
+    ``raw_device_chunks`` and ``band_device_chunks`` return)."""
     chunk = auto_chunk_frames(source.frame_bytes, chunk)
     dtype = source.dtype
     threads = min(threads, source.max_threads or threads)
@@ -468,7 +628,7 @@ def raw_device_chunks(
             FEED.clear()
             FEED.update(stats)
 
-    return gen(), source.rotate, source.upscale
+    return gen()
 
 
 def raw_device_chunks_plain(

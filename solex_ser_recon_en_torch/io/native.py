@@ -21,12 +21,22 @@ missing symbol, a failed call), this one raises: there is no fallback and
 no switch that turns the library off.  ``CALLS`` counts the calls of each
 entry point, so a run can show that its main path went through them.
 
-Bound here: ``ser_open``, ``ser_prefetch``, ``ser_read``, ``ser_close``
-(``NativeSerReader``), ``box_blur_u16_exact`` (``box_blur_u16``),
-``png_pack_rows`` (``png_pack``), ``png_encode_stored_band``
-(``png_encode_band``) and ``fits_pack_u16`` (``fits_pack_u16``, the FITS
-writer's payload).  The library's other entry points are compiled with the
-copy and bound by the modules that will use them.
+Every entry point of the library is bound:
+
+- the reader (``NativeSerReader``): ``ser_open``, ``ser_prefetch``,
+  ``ser_read``, ``ser_close``, ``ser_data`` (``frames``, a view of the
+  mapping), and the host pass A sweeps ``ser_mean_max``,
+  ``ser_mean_max_band``, ``ser_sample_stats`` and ``ser_band_stats``;
+- the host pass B: ``ser_recon_f64`` (``recon_chunk``);
+- the host warp: ``warp_f32_u16``, ``warp_u16_u16`` (``warp_u16``) and
+  ``warp_u16_u16_batch`` (``warp_u16_batch``);
+- the transversalium row statistics: ``row_medstats_f32``,
+  ``row_medstats_sorted_f32`` and ``mask_interval_f32`` (``row_medstats``);
+- the host product core: ``gain_hist_u16``, ``hist_u16``, ``lut_u16`` and
+  ``clahe_u16``;
+- ``box_blur_u16_exact`` (``box_blur_u16``), ``png_pack_rows``
+  (``png_pack``), ``png_encode_stored_band`` (``png_encode_band``) and
+  ``fits_pack_u16`` (the FITS writer's payload).
 """
 
 from __future__ import annotations
@@ -73,7 +83,49 @@ _SIGNATURES = {
                                     _UP]),
     # src u16, n elements, out u16 (big-endian, offset by 32768)
     "fits_pack_u16": (_I, [_P, _L, _P]),
+    # handle -> the first frame's byte in the mapping
+    "ser_data": (_P, [_P]),
+    # handle, sum out u64 (H, W), max out u16 (H, W)
+    "ser_mean_max": (_I, [_P, _P, _P]),
+    # handle, sum out, max out, r0, r1, c0, c1, band out (F, r1-r0, c1-c0)
+    "ser_mean_max_band": (_I, [_P, _P, _P, _U, _U, _U, _U, _P]),
+    # handle, step, sum out, max out -> frames summed
+    "ser_sample_stats": (_I, [_P, _U, _P, _P]),
+    # handle, r0, r1, c0, c1, sum out, max out (band-local)
+    "ser_band_stats": (_I, [_P, _U, _U, _U, _U, _P, _P]),
+    # src, frame stride (bytes), frames, is_u16, upscale, flat_l (S, ih)
+    # i64, right_off, w_l (ih,) f64, w_r (ih,) f64, S, ih, out at this
+    # chunk's first frame, out stride (frames), do_prefetch
+    "ser_recon_f64": (_I, [_P, _L, _U, _I, _I, _P, _L, _P, _P, _U, _U, _P,
+                           _L, _I]),
+    # src, h, w_in, mat3 (9,) f64, out_h, out_w, cval, out u16
+    "warp_f32_u16": (_I, [_P, _L, _L, _P, _L, _L, ctypes.c_float, _P]),
+    "warp_u16_u16": (_I, [_P, _L, _L, _P, _L, _L, ctypes.c_float, _P]),
+    # srcs (K,) pointers, k, h, w_in, mat3, out_h, out_w, cvals (K,) f32,
+    # outs (K,) pointers
+    "warp_u16_u16_batch": (_I, [_P, _L, _L, _L, _P, _L, _L, _P, _P]),
+    # rat (R, W) f32, R, W, row_ok (R,) u8, x_lo (R,) i32, x_hi (R,) i32,
+    # value out (R, W) f32, nk out (R,) i64
+    "row_medstats_f32": (_I, [_P, _L, _L, _P, _P, _P, _P, _P]),
+    # sorted masked rows, rat, R, W, row_ok, x_lo, x_hi, value out, nk out
+    "row_medstats_sorted_f32": (_I, [_P, _P, _L, _L, _P, _P, _P, _P, _P]),
+    # src (R, W) f32, R, W, row_ok, x_lo, x_hi, out (R, W) f32
+    "mask_interval_f32": (_I, [_P, _L, _L, _P, _P, _P, _P]),
+    # src (h, w) u16, h, w, gain (h,) f32, out u16, hist u32[65536] or NULL
+    "gain_hist_u16": (_I, [_P, _L, _L, _P, _P, _P]),
+    # src u16, n, hist u32[65536]
+    "hist_u16": (_I, [_P, _L, _P]),
+    # src u16, n, lut u16[65536], out u16
+    "lut_u16": (_I, [_P, _L, _P, _P]),
+    # src (h, w) u16, h, w, tiles_x, tiles_y, clip limit, out u16, hist
+    # u32[65536] or NULL
+    "clahe_u16": (_I, [_P, _L, _L, _I, _I, ctypes.c_double, _P, _P]),
 }
+
+#: the sorted hybrid of the row statistics (numpy sorts the masked rows,
+#: ``row_medstats_sorted_f32`` consumes them); False takes the library's
+#: own radix selection (``row_medstats_f32``).  Both are bit-identical.
+ROWSTATS_SORTED = True
 
 #: calls of each entry point; reset by callers that want to count one run
 CALLS = {name: 0 for name in _SIGNATURES}
@@ -246,6 +298,85 @@ class NativeSerReader:
             raise RuntimeError(f"ser_read({start}, {count}) failed with "
                                f"{rc} on {self.path}")
 
+    def frames(self) -> np.ndarray:
+        """The file's frames as a read-only (F, Height, Width) view of the
+        reader's mapping (``ser_data``): no copy; valid until ``close``."""
+        _count("ser_data")
+        addr = self._lib.ser_data(self._handle())
+        if not addr:
+            raise RuntimeError(f"ser_data returned NULL on {self.path}")
+        n = self.frame_count * self.frame_bytes
+        buf = (ctypes.c_uint8 * max(n, 1)).from_address(addr)
+        view = np.frombuffer(buf, np.uint8, n).view(self.dtype).reshape(
+            self.frame_count, self.Height, self.Width)
+        view.flags.writeable = False
+        return view
+
+    def _stats(self, shape):
+        return (np.zeros(shape, np.uint64), np.zeros(shape, np.uint16))
+
+    def mean_max(self):
+        """(sum u64, max u16) over every frame, raw layout, in one native
+        sweep (``ser_mean_max``)."""
+        s, m = self._stats((self.Height, self.Width))
+        _count("ser_mean_max")
+        rc = self._lib.ser_mean_max(self._handle(), s.ctypes.data,
+                                    m.ctypes.data)
+        if rc != 0:
+            raise RuntimeError(f"ser_mean_max failed with {rc} on "
+                               f"{self.path}")
+        return s, m
+
+    def _check_rect(self, r0: int, r1: int, c0: int, c1: int) -> None:
+        if not (0 <= r0 < r1 <= self.Height and 0 <= c0 < c1 <= self.Width):
+            raise ValueError(f"rectangle rows [{r0}, {r1}) x cols [{c0}, "
+                             f"{c1}) outside the {self.Height} x "
+                             f"{self.Width} frames of {self.path}")
+
+    def mean_max_band(self, r0: int, r1: int, c0: int, c1: int):
+        """``mean_max`` and, in the same sweep, every frame's raw rectangle
+        rows [r0, r1) x cols [c0, c1) copied into a (F, r1-r0, c1-c0) slab
+        (``ser_mean_max_band``).  Returns (sum, max, slab)."""
+        self._check_rect(r0, r1, c0, c1)
+        s, m = self._stats((self.Height, self.Width))
+        band = np.empty((self.frame_count, r1 - r0, c1 - c0), self.dtype)
+        _count("ser_mean_max_band")
+        rc = self._lib.ser_mean_max_band(self._handle(), s.ctypes.data,
+                                         m.ctypes.data, r0, r1, c0, c1,
+                                         band.ctypes.data)
+        if rc != 0:
+            raise RuntimeError(f"ser_mean_max_band failed with {rc} on "
+                               f"{self.path}")
+        return s, m, band
+
+    def sample_stats(self, step: int):
+        """(sum u64, max u16, frames summed) over every ``step``-th frame,
+        full frames (``ser_sample_stats``)."""
+        if step < 1:
+            raise ValueError(f"sample_stats: step {step} < 1")
+        s, m = self._stats((self.Height, self.Width))
+        _count("ser_sample_stats")
+        n = self._lib.ser_sample_stats(self._handle(), int(step),
+                                       s.ctypes.data, m.ctypes.data)
+        if n < 0:
+            raise RuntimeError(f"ser_sample_stats failed with {n} on "
+                               f"{self.path}")
+        return s, m, int(n)
+
+    def band_stats(self, r0: int, r1: int, c0: int, c1: int):
+        """(sum u64, max u16) over every frame of the raw rectangle rows
+        [r0, r1) x cols [c0, c1), band-local layout, reading only the
+        rectangle's bytes (``ser_band_stats``)."""
+        self._check_rect(r0, r1, c0, c1)
+        s, m = self._stats((r1 - r0, c1 - c0))
+        _count("ser_band_stats")
+        rc = self._lib.ser_band_stats(self._handle(), r0, r1, c0, c1,
+                                      s.ctypes.data, m.ctypes.data)
+        if rc != 0:
+            raise RuntimeError(f"ser_band_stats failed with {rc} on "
+                               f"{self.path}")
+        return s, m
+
     def close(self) -> None:
         """Unmap and close the file; no read may be in flight."""
         if self._h is not None:
@@ -360,3 +491,242 @@ def fits_pack_u16(data: np.ndarray) -> np.ndarray:
     if rc != 0:
         raise RuntimeError(f"fits_pack_u16 failed with {rc}")
     return out
+
+
+def recon_chunk(src: np.ndarray, flat_l: np.ndarray, right_off: int,
+                w_l: np.ndarray, w_r: np.ndarray, upscale: bool,
+                out: np.ndarray, start: int) -> None:
+    """The float64 two-tap gather-lerp of pass B over one chunk of frames
+    (``ser_recon_f64``), bit-identical to io/hostreduce.py's numpy loop.
+
+    ``src``: (n, ...) u8/u16 frames, each contiguous, frames any stride
+    apart (a memmap slice or a band slab); ``flat_l``: (S, ih) element
+    indices of the left taps in a frame viewed flat, the right tap
+    ``right_off`` further; ``out``: the (S, ih, F_total) uint16 disks,
+    frames [start, start + n) written."""
+    if src.dtype not in (np.uint8, np.uint16) or src.ndim < 2:
+        raise TypeError(f"recon_chunk: u8/u16 frames expected, not "
+                        f"{src.dtype} {src.shape}")
+    if not src[0].flags.c_contiguous or src.strides[0] <= 0:
+        raise ValueError("recon_chunk: each frame must be contiguous")
+    if out.dtype != np.uint16 or out.ndim != 3 or not out.flags.c_contiguous \
+            or not out.flags.writeable:
+        raise ValueError("recon_chunk: out must be a writable contiguous "
+                         "(S, ih, F) uint16 array")
+    n = src.shape[0]
+    S, ih = flat_l.shape
+    if out.shape[:2] != (S, ih) or not 0 <= start <= out.shape[2] - n:
+        raise ValueError(f"recon_chunk: out {out.shape} cannot take frames "
+                         f"[{start}, {start + n}) of ({S}, {ih}) disks")
+    frame_elems = src[0].size
+    flat_l = np.ascontiguousarray(flat_l, dtype=np.int64)
+    if n and (flat_l.min() < 0 or flat_l.max() + right_off >= frame_elems):
+        raise ValueError("recon_chunk: a tap lies outside the frame")
+    w_l = np.ascontiguousarray(w_l, dtype=np.float64)
+    w_r = np.ascontiguousarray(w_r, dtype=np.float64)
+    if w_l.shape != (ih,) or w_r.shape != (ih,):
+        raise ValueError(f"recon_chunk: the weights must be ({ih},)")
+    _count("ser_recon_f64")
+    rc = get_lib().ser_recon_f64(
+        src.ctypes.data, src.strides[0], n, int(src.itemsize == 2),
+        int(upscale), flat_l.ctypes.data, int(right_off), w_l.ctypes.data,
+        w_r.ctypes.data, S, ih, out.ctypes.data + start * out.itemsize,
+        out.shape[2], 0)
+    if rc != 0:
+        raise RuntimeError(f"ser_recon_f64 failed with {rc}")
+
+
+def _out_u16(out, shape):
+    if out is None:
+        return np.empty(shape, np.uint16)
+    if (out.shape != shape or out.dtype != np.uint16
+            or not out.flags.c_contiguous or not out.flags.writeable):
+        raise ValueError(f"out must be a writable contiguous {shape} "
+                         "uint16 array")
+    return out
+
+
+def warp_u16(image: np.ndarray, mat3: np.ndarray, out_h: int, out_w: int,
+             cval: float, out: np.ndarray = None) -> np.ndarray:
+    """Projective bilinear warp of a 2-D uint16 image (taken /65536) or
+    float32 [0, 1) image to uint16 (``warp_u16_u16`` / ``warp_f32_u16``),
+    bit-identical to ops/warp_host.py's numpy twin and the u16 store.
+    ``cval`` is on the [0, 1) scale; ``out`` receives the result in place
+    when given."""
+    if image.ndim != 2:
+        raise TypeError("warp_u16 takes a 2-D image")
+    h, w_in = image.shape
+    shape = (int(out_h), int(out_w))
+    res = _out_u16(out, shape)
+    m = np.ascontiguousarray(mat3, dtype=np.float64)
+    if m.size != 9:
+        raise ValueError("warp_u16: mat3 must be 3 x 3")
+    if image.dtype == np.uint16:
+        name = "warp_u16_u16"
+        src = np.ascontiguousarray(image)
+    elif image.dtype == np.float32:
+        name = "warp_f32_u16"
+        src = np.ascontiguousarray(image)
+    else:
+        raise TypeError(f"warp_u16 takes uint16 or float32, not "
+                        f"{image.dtype}")
+    _count(name)
+    rc = getattr(get_lib(), name)(src.ctypes.data, h, w_in, m.ctypes.data,
+                                  shape[0], shape[1], float(cval),
+                                  res.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed with {rc}")
+    return res
+
+
+def warp_u16_batch(images, mat3: np.ndarray, out_h: int, out_w: int, cvals,
+                   out: np.ndarray) -> np.ndarray:
+    """K uint16 images of one shape warped by ONE matrix into ``out`` (K,
+    out_h, out_w) (``warp_u16_u16_batch``: each output row's coordinates
+    computed once for all K); each plane bit-identical to ``warp_u16``.
+    ``cvals``: one [0, 1)-scale fill a image."""
+    k = len(images)
+    if k < 1:
+        raise ValueError("warp_u16_batch: no images")
+    h, w_in = images[0].shape
+    if any(im.dtype != np.uint16 or im.shape != (h, w_in) for im in images):
+        raise TypeError("warp_u16_batch: K uint16 images of one shape")
+    out = _out_u16(out, (k, int(out_h), int(out_w)))
+    srcs = [np.ascontiguousarray(im) for im in images]
+    m = np.ascontiguousarray(mat3, dtype=np.float64)
+    cv = np.ascontiguousarray(cvals, dtype=np.float32)
+    if m.size != 9 or cv.shape != (k,):
+        raise ValueError("warp_u16_batch: mat3 3 x 3 and one cval a image")
+    ptrs = ctypes.c_void_p * k
+    src_p = ptrs(*(s.ctypes.data for s in srcs))
+    out_p = ptrs(*(out[i].ctypes.data for i in range(k)))
+    _count("warp_u16_u16_batch")
+    rc = get_lib().warp_u16_u16_batch(
+        ctypes.addressof(src_p), k, h, w_in, m.ctypes.data, int(out_h),
+        int(out_w), cv.ctypes.data, ctypes.addressof(out_p))
+    if rc != 0:
+        raise RuntimeError(f"warp_u16_u16_batch failed with {rc}")
+    return out
+
+
+def row_medstats(rat: np.ndarray, row_ok: np.ndarray, x_lo: np.ndarray,
+                 x_hi: np.ndarray):
+    """The masked row median / MAD clip of the transversalium row
+    statistics: (value (R, W) f32, rat where kept and 0 elsewhere; nk (R,)
+    i64, the kept counts), with numpy's selection semantics.  The valid
+    pixels of row r are columns [x_lo[r], x_hi[r]) where row_ok[r].  The
+    sorted hybrid (``mask_interval_f32``, a numpy row sort,
+    ``row_medstats_sorted_f32``) when ``ROWSTATS_SORTED``, else the
+    library's radix selection (``row_medstats_f32``)."""
+    rat = np.ascontiguousarray(rat, dtype=np.float32)
+    R, W = rat.shape
+    row_ok = np.ascontiguousarray(row_ok, dtype=np.uint8)
+    x_lo = np.ascontiguousarray(x_lo, dtype=np.int32)
+    x_hi = np.ascontiguousarray(x_hi, dtype=np.int32)
+    if row_ok.shape != (R,) or x_lo.shape != (R,) or x_hi.shape != (R,):
+        raise ValueError(f"row_medstats: row_ok, x_lo, x_hi must be ({R},)")
+    lib = get_lib()
+    value = np.empty((R, W), np.float32)
+    nk = np.empty(R, np.int64)
+    if ROWSTATS_SORTED:
+        srt = np.empty_like(rat)
+        _count("mask_interval_f32")
+        rc = lib.mask_interval_f32(rat.ctypes.data, R, W, row_ok.ctypes.data,
+                                   x_lo.ctypes.data, x_hi.ctypes.data,
+                                   srt.ctypes.data)
+        if rc != 0:
+            raise RuntimeError(f"mask_interval_f32 failed with {rc}")
+        srt.sort(axis=1)
+        name = "row_medstats_sorted_f32"
+        args = (srt.ctypes.data, rat.ctypes.data)
+    else:
+        name = "row_medstats_f32"
+        args = (rat.ctypes.data,)
+    _count(name)
+    rc = getattr(lib, name)(*args, R, W, row_ok.ctypes.data,
+                            x_lo.ctypes.data, x_hi.ctypes.data,
+                            value.ctypes.data, nk.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed with {rc}")
+    return value, nk
+
+
+def _image_u16(img: np.ndarray, what: str) -> np.ndarray:
+    if img.dtype != np.uint16:
+        raise TypeError(f"{what} takes uint16, not {img.dtype}")
+    return np.ascontiguousarray(img)
+
+
+def gain_hist_u16(src: np.ndarray, gain: np.ndarray, want_hist: bool = True):
+    """(u16(clip(src * gain[row], 0, 65535)), its value histogram (u32,
+    65536 bins) or None) in one pass (``gain_hist_u16``)."""
+    src = _image_u16(src, "gain_hist_u16")
+    if src.ndim != 2:
+        raise TypeError("gain_hist_u16 takes a 2-D image")
+    h, w = src.shape
+    gain = np.ascontiguousarray(gain, dtype=np.float32)
+    if gain.shape != (h,):
+        raise ValueError(f"gain_hist_u16: the gain must be ({h},)")
+    out = np.empty_like(src)
+    hist = np.empty(65536, np.uint32) if want_hist else None
+    _count("gain_hist_u16")
+    rc = get_lib().gain_hist_u16(src.ctypes.data, h, w, gain.ctypes.data,
+                                 out.ctypes.data,
+                                 hist.ctypes.data if want_hist else None)
+    if rc != 0:
+        raise RuntimeError(f"gain_hist_u16 failed with {rc}")
+    return out, hist
+
+
+def hist_u16(img: np.ndarray) -> np.ndarray:
+    """np.bincount(img.ravel(), minlength=65536) of a uint16 array, as u32
+    (``hist_u16``)."""
+    img = _image_u16(img, "hist_u16")
+    hist = np.empty(65536, np.uint32)
+    _count("hist_u16")
+    rc = get_lib().hist_u16(img.ctypes.data, img.size, hist.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"hist_u16 failed with {rc}")
+    return hist
+
+
+def lut_u16(img: np.ndarray, lut: np.ndarray) -> np.ndarray:
+    """lut[img] of a uint16 array and a 65536-entry uint16 LUT
+    (``lut_u16``)."""
+    img = _image_u16(img, "lut_u16")
+    lut = _image_u16(lut, "lut_u16")
+    if lut.shape != (65536,):
+        raise ValueError("lut_u16: the LUT must have 65536 entries")
+    out = np.empty_like(img)
+    _count("lut_u16")
+    rc = get_lib().lut_u16(img.ctypes.data, img.size, lut.ctypes.data,
+                           out.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"lut_u16 failed with {rc}")
+    return out
+
+
+def clahe_u16(img: np.ndarray, clip_limit: float = 0.8, tiles=(2, 2),
+              want_hist: bool = False):
+    """OpenCV's CLAHE of a 2-D uint16 image (``clahe_u16``;
+    ``cv2.createCLAHE(clipLimit, tileGridSize=tiles).apply``, reference
+    solex_util.py:532-533).  With ``want_hist`` the output's value
+    histogram (u32, 65536 bins) comes from the same pass: returns (out,
+    hist), else out."""
+    img = _image_u16(img, "clahe_u16")
+    if img.ndim != 2 or min(img.shape) < 2:
+        raise ValueError(f"clahe_u16 takes a 2-D image of at least 2 x 2, "
+                         f"not {img.shape}")
+    tx, ty = int(tiles[0]), int(tiles[1])
+    if tx < 1 or ty < 1:
+        raise ValueError(f"clahe_u16: tiles {tiles}")
+    h, w = img.shape
+    out = np.empty_like(img)
+    hist = np.empty(65536, np.uint32) if want_hist else None
+    _count("clahe_u16")
+    rc = get_lib().clahe_u16(img.ctypes.data, h, w, tx, ty,
+                             float(clip_limit), out.ctypes.data,
+                             hist.ctypes.data if want_hist else None)
+    if rc != 0:
+        raise RuntimeError(f"clahe_u16 failed with {rc}")
+    return (out, hist) if want_hist else out

@@ -11,7 +11,8 @@ the raw on-disk layout, so the slab is never rotated or upscaled:
   the end, in float64 on the host.
 - pass B: kernel B3 (ops/recon_cuda.py:recon_chunks), launched once over
   all resident chunks (or once per streamed chunk), writing straight into
-  the (S, ih, F) disks.
+  the (S, ih, F) disks.  ``reconstruct_band`` runs it over the ``band``
+  feed's chunks, which hold only the recon's spectral band.
 
 For wide-stored scans (Width > Height, the common Sol'Ex case):
     norm[y, x] = raw[x, W-1-y]   (np.rot90; video_reader.py:119-120)
@@ -109,6 +110,42 @@ class RawScanProcessor:
             recon_chunks([c], ind_l, left_w, self.rotate, self.upscale,
                          disks, start)
         return disks
+
+
+def reconstruct_band(band_chunks, fit_floor, fit_frac, shifts: List[int],
+                     iw_total: int, x0: int, rotate: bool, upscale: bool,
+                     device: torch.device, frame_count: int) -> torch.Tensor:
+    """Pass B over *band* chunks (the ``band`` feed): raw chunks holding
+    only spectral columns [x0, x0 + bw) (io/hostreduce.py:spectral_band),
+    (n, bw, W) when stored wide (``rotate``), else (n, H, bw).  The chunks
+    stay resident and kernel B3 runs once over all of them (once a
+    RECON_MAX_CHUNKS), with band-local taps ``ind_l - x0``: the disks are
+    bit-identical to a pass B over the whole frames.
+
+    Counterpart of solex_ser_recon_en_tpu/ops/fused.py:reconstruct_band
+    (a one-hot contraction there).  The taps are clipped against the FULL
+    spectral width (build_shift_indices, solex_util.py:117-118) before the
+    offset; a tap outside the band raises.
+    """
+    ind_l, left_w = build_shift_indices(fit_floor, fit_frac, shifts,
+                                        iw_total)
+    chunks = list(band_chunks)
+    if not chunks:
+        raise ValueError("no band chunks to reconstruct from")
+    first = chunks[0][1]
+    bw = first.shape[1] if rotate else first.shape[2]
+    ind_b = ind_l - x0
+    if int(ind_b.min()) < 0 or int(ind_b.max()) + 1 > bw - 1:
+        raise ValueError(f"the band [{x0}, {x0 + bw}) does not hold the "
+                         f"taps [{int(ind_l.min())}, {int(ind_l.max()) + 1}]")
+    ih = first.shape[2] if rotate else first.shape[1]
+    disks = torch.empty((len(shifts), ih, frame_count), dtype=torch.uint16,
+                        device=device)
+    ind_t = torch.from_numpy(np.ascontiguousarray(ind_b)).to(device)
+    w_t = torch.from_numpy(left_w).to(device)
+    for start, group in launch_groups(chunks, frame_count):
+        recon_chunks(group, ind_t, w_t, rotate, upscale, disks, start)
+    return disks
 
 
 def in_order(chunks, count: int):

@@ -10,6 +10,9 @@ bilinear, ``cval = image[0, 0]``.
 taken for matrices the separable kernel (ops/warp_fast.py) refuses.  Same
 float32 expressions as the JAX package, so tap positions and weights round
 identically.
+
+``warp_host_u16`` is the ``host`` feed's warp: the native library's, on
+host arrays (the numpy twin ``warp_host_u16_plain`` beside it).
 """
 
 from __future__ import annotations
@@ -74,3 +77,33 @@ def warp_to_u16(warped01: torch.Tensor) -> torch.Tensor:
     """float [0,1) image -> uint16 like the reference's ``2**16 * img`` cast
     (ellipse_to_circle.py:115-118), clipped instead of wrapped."""
     return to_u16(torch.clamp(warped01 * 65536.0, 0, 65535))
+
+
+def warp_host_u16(image: np.ndarray, mat3: np.ndarray, out_h: int,
+                  out_w: int, cval: float, out: np.ndarray = None
+                  ) -> np.ndarray:
+    """The host pipeline's warp straight to uint16 (the ``host`` feed):
+    the native kernel (io/native.py:warp_u16, ``warp_u16_u16`` for a
+    uint16 image taken /65536, ``warp_f32_u16`` for a float32 [0, 1) one),
+    bit-identical to ``warp_host_u16_plain``.  ``cval`` is on the [0, 1)
+    scale; ``out`` receives the result in place when given.
+
+    Counterpart of solex_ser_recon_en_tpu/ops/warp.py:warp_host_u16.
+    """
+    from ..io.native import warp_u16
+
+    if image.dtype != np.uint16:
+        image = image.astype(np.float32, copy=False)
+    return warp_u16(image, mat3, out_h, out_w, cval, out=out)
+
+
+def warp_host_u16_plain(image: np.ndarray, mat3: np.ndarray, out_h: int,
+                        out_w: int, cval: float) -> np.ndarray:
+    """numpy twin of ``warp_host_u16`` (ops/warp_host.py: the float32
+    four-term bilinear and the clipped u16 store)."""
+    from .warp_host import warp_projective_host, warp_to_u16_host
+
+    if image.dtype == np.uint16:
+        image = image.astype(np.float32) / 65536.0
+    return warp_to_u16_host(warp_projective_host(image, mat3, out_h, out_w,
+                                                 cval))

@@ -71,6 +71,18 @@ def save_spectral_line_plot(path, mean_img, linefit) -> None:
     fig.savefig(path, dpi=120, pil_kwargs=_FAST_PNG)
 
 
+def deferred_spectral_line_plot(path, scan_path, linefit) -> None:
+    """_spectral_line_data.png for the banded fast pass A, whose full mean
+    image exists nowhere: the full-frame sweep (io/hostreduce.py:
+    host_mean_max, the call a full sweep makes, so the figure's bytes are
+    the same) runs here, on the figure lane, off the critical path."""
+    from ..io.hostreduce import host_mean_max
+    from ..io.ser import SerReader
+
+    mean_img, _ = host_mean_max(SerReader(scan_path))
+    save_spectral_line_plot(path, mean_img, linefit)
+
+
 def save_ellipse_fit_plot(path, image_u16, geo) -> None:
     image = _host(image_u16)
     fig = matplotlib.figure.Figure()

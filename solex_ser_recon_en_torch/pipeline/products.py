@@ -14,6 +14,16 @@ Every image stays on the frame's device until a file write needs host
 bytes: the crop, the protus disc and the rotation run there.  The writer
 pool (io/writers.py) brings each image down into pinned memory on its own
 thread (PNGs band by band under the encode, FITS data in one copy).
+
+In the host pipeline (the ``host`` feed, utils/placement.py) the product
+core is the JAX package's host core (``_products_body_host``,
+``_products_core_gained_host``): the native library's CLAHE
+(``clahe_u16``, OpenCV's algorithm) with the output histogram from the
+same pass, np.percentile's interpolation read off value histograms
+(``hist_u16``, ``gain_hist_u16``) and the stretches as value LUTs
+(``lut_u16``), on host arrays.  The JAX package's SOLEX_HOST_PRODUCTS
+switch and its cv2 check are not carried over: the host core runs exactly
+when the host pipeline is on, and a missing library raises.
 """
 
 from __future__ import annotations
@@ -25,12 +35,14 @@ import torch
 
 from ..config import Options, output_path
 from ..geometry.correct import NO_CIRCLE, Circle
+from ..io import native
 from ..io.fits import write_fits
 from ..io.png import band_bounds, write_png_bands, write_png_streaming
 from ..io.writers import submit
 from ..ops.clahe import _clahe, percentile_from_hist, value_histogram
 from ..ops.dtypes import as_int16, to_u16, widen
 from ..ops.rowstats import apply_row_gain
+from ..utils.placement import host_pipeline
 
 
 def _stretch(img: torch.Tensor, lo, hi) -> torch.Tensor:
@@ -67,6 +79,104 @@ def _products_core_gained(fj: torch.Tensor, gain: torch.Tensor, want=(True, True
     (detrans, cl1, cc, high_contrast, protus)."""
     detrans = apply_row_gain(fj, gain)
     return (detrans,) + _products_body(detrans, want)
+
+
+def host_products_enabled() -> bool:
+    """Whether the product core runs on the host: exactly in the host
+    pipeline."""
+    return host_pipeline()
+
+
+def _np_percentile_from_counts(counts: np.ndarray, n: int, q: float) -> float:
+    """``float(np.percentile(img, q))`` from a uint16 value histogram.
+
+    numpy's linear-interpolation quantile in float64 — the virtual index
+    ``q/100 * (n-1)`` and the ``_lerp`` branch that switches to
+    ``b - (b-a)*(1-t)`` at t >= 0.5 — on the two order statistics read from
+    the histogram's CDF; bit-identical to np.percentile for integer
+    images.
+    """
+    virtual = np.float64(q) / 100.0 * (n - 1)
+    lo = int(np.floor(virtual))
+    hi = int(np.ceil(virtual))
+    c = np.cumsum(counts)
+    a = np.float64(np.searchsorted(c, lo + 1, side="left"))
+    b = np.float64(np.searchsorted(c, hi + 1, side="left"))
+    t = np.float64(virtual - lo)
+    if t >= 0.5:
+        return float(b - (b - a) * (1.0 - t))
+    return float(a + (b - a) * t)
+
+
+def _stretch_lut(img: np.ndarray, lo: float, hi: float) -> np.ndarray:
+    """The reference's linear stretch (solex_util.py:532-541) of a uint16
+    image as a value LUT (the float32 form computed once a value, then
+    ``lut_u16``): bit-identical to the float32 pass over the image."""
+    vals = np.arange(65536, dtype=np.float32)
+    x = 65535.0 * (vals - lo) / np.float32(hi - lo)
+    lut = np.clip(x, 0, 65535).astype(np.uint16)
+    return native.lut_u16(img, lut)
+
+
+def _hist_u16(img: np.ndarray) -> np.ndarray:
+    """np.bincount(img.ravel(), minlength=65536) of a uint16 image
+    (``hist_u16``), int64."""
+    return native.hist_u16(img).astype(np.int64)
+
+
+def _products_body_host(f: np.ndarray, want=(True, True), hist_f=None):
+    """Host twin of ``_products_body`` on a uint16 host image: (cl1, cc,
+    high_contrast, protus), uint16 numpy, the stretches ``want`` does not
+    ask for None.  CLAHE is the native library's (OpenCV's algorithm, its
+    output histogram from the same pass); the stretch thresholds are
+    np.percentile's, read off value histograms, so they can differ from
+    the device core's histogram-CDF percentiles (JAX docs/PARITY.md,
+    deviation 7)."""
+    f = np.ascontiguousarray(f, dtype=np.uint16)
+    cl1, hist_u32 = native.clahe_u16(f, 0.8, (2, 2), want_hist=True)
+    hist_c = hist_u32.astype(np.int64)
+    dark_clahe = _np_percentile_from_counts(hist_c, cl1.size, 10.0)
+    cl1_max = float(65535 - int(np.argmax(hist_c[::-1] > 0)))
+    bright_clahe = max(cl1_max, dark_clahe + 1.0)
+    cc = _stretch_lut(cl1, dark_clahe, bright_clahe)
+
+    want_hc, want_protus = want
+    frame_hc = frame_protus = None
+    if want_hc or want_protus:
+        hist_f = _hist_u16(f) if hist_f is None else hist_f
+        bright = max(_np_percentile_from_counts(hist_f, f.size, 99.9999), 1.0)
+        if want_hc:
+            frame_hc = _stretch_lut(f, bright * 0.25, bright)
+        if want_protus:
+            frame_protus = _stretch_lut(f, 0.0, max(bright * 0.18, 1.0))
+    return cl1, cc, frame_hc, frame_protus
+
+
+def _products_core_gained_host(f: np.ndarray, gain: np.ndarray,
+                               want=(True, True)):
+    """The row-gain multiply (``gain_hist_u16``, the brightness histogram
+    from the same pass) followed by the host core: (detrans, cl1, cc,
+    high_contrast, protus)."""
+    f = np.ascontiguousarray(f, dtype=np.uint16)
+    want_hist = want[0] or want[1]
+    detrans, hist = native.gain_hist_u16(f, np.asarray(gain, np.float32),
+                                         want_hist=want_hist)
+    hist_f = hist.astype(np.int64) if hist is not None else None
+    return (detrans,) + _products_body_host(detrans, want, hist_f=hist_f)
+
+
+def _host_core(frame: torch.Tensor, gain, want):
+    """The host core of a CPU image: (fj, cl1, cc, high_contrast, protus)
+    as CPU tensors (None where not wanted)."""
+    f = frame.numpy()
+    if not np.issubdtype(f.dtype, np.integer):
+        f = np.clip(f, 0, 65535)
+    f = f.astype(np.uint16)
+    if gain is not None:
+        outs = _products_core_gained_host(f, gain, want)
+    else:
+        outs = (f,) + _products_body_host(f, want)
+    return tuple(None if a is None else torch.from_numpy(a) for a in outs)
 
 
 def needed_products(options: Options, save: bool = True):
@@ -221,21 +331,25 @@ def image_process(
     """
     want = needed_products(options, save)
     _, protus_needed = want
-    fj = frame
-    if fj.dtype.is_floating_point:
-        # float input (de-vignette path): clip to the uint16 range before
-        # the cast; the reference's numpy cast wraps values above 65535
-        # (solex_util.py:528), saturation is the JAX package's choice too
-        fj = torch.clamp(fj, 0, 65535)
-    if fj.dtype != torch.uint16:
-        fj = to_u16(fj)
-    if gain is not None:
-        g = torch.as_tensor(np.asarray(gain), dtype=torch.float32,
-                            device=fj.device)
-        fj, cl1, cc, frame_hc, frame_protus = _products_core_gained(fj, g,
-                                                                    want)
+    if host_products_enabled():
+        fj, cl1, cc, frame_hc, frame_protus = _host_core(frame, gain, want)
     else:
-        cl1, cc, frame_hc, frame_protus = _products_body(fj, want)
+        fj = frame
+        if fj.dtype.is_floating_point:
+            # float input (de-vignette path): clip to the uint16 range
+            # before the cast; the reference's numpy cast wraps values above
+            # 65535 (solex_util.py:528), saturation is the JAX package's
+            # choice too
+            fj = torch.clamp(fj, 0, 65535)
+        if fj.dtype != torch.uint16:
+            fj = to_u16(fj)
+        if gain is not None:
+            g = torch.as_tensor(np.asarray(gain), dtype=torch.float32,
+                                device=fj.device)
+            fj, cl1, cc, frame_hc, frame_protus = _products_core_gained(
+                fj, g, want)
+        else:
+            cl1, cc, frame_hc, frame_protus = _products_body(fj, want)
     frame_raw = fj
 
     # the disc is painted only when something will consume the image

@@ -1,8 +1,9 @@
 """End-to-end single-file pipeline: read -> reconstruct -> correct -> products.
 
-Counterpart of solex_ser_recon_en_tpu/pipeline/run.py (read_scan on the
-device feed, single_image_process, process_scan, process_file).  reference: Solex_recon.py:49-174.  Data flow for
-one scan:
+Counterpart of solex_ser_recon_en_tpu/pipeline/run.py (read_scan with its
+four feed policies, single_image_process, process_scan, process_file).
+reference: Solex_recon.py:49-174.  Data flow for one scan on the
+``device`` feed:
 
   SER or AVI file -> native reader (SER) or memmap planes (Y800 AVI),
   copy threads -> pinned staging ring -> raw chunks resident on the device
@@ -26,6 +27,26 @@ three figures, ``-c``, ``protus_only``, ``-f`` (FITS), ``-s`` / ``-r``
 go through the per-shift products one after the other.
 ``flag_display`` and ``mesh`` raise, and so does a run that wants figures
 where matplotlib is absent.
+
+The feeds (``Options.feed_mode``, ``--feed``):
+
+- ``device``: the flow above.
+- ``band``: pass A on the host (io/hostreduce.py: the native full sweep,
+  or the fused sweep that also extracts a provisional band); only the
+  recon's spectral band is uploaded, through the same pinned ring
+  (io/feeder.py:band_device_chunks), and kernel B3 reconstructs from it
+  (ops/fused.py:reconstruct_band); the small ops of the ellipse fit run
+  on the CPU, the rest of the post-processing on the card.
+- ``host``: pass A on the host (io/hostreduce.py:fast_passa, reading only
+  the band's bytes, else the sweeps above), the float64 recon
+  (``ser_recon_f64``), and the whole post-processing on the host (the
+  host pipeline, utils/placement.py): native warp, row medians, CLAHE
+  and LUT stretches.  No kernel runs.
+- ``auto``: ``auto_feed``.
+
+The JAX package's silent fallbacks for a remote link (``d2h_responsive``,
+``FeedRateMonitor``/``FeedCollapse`` restarts) are not carried over
+(ROADMAP A6); an error raises, and every decision is in the run log.
 """
 
 from __future__ import annotations
@@ -48,15 +69,36 @@ from ..geometry.correct import (
     ellipse_to_circle,
 )
 from ..geometry.linefit import fit_spectral_line
-from ..io.feeder import raw_device_chunks
+from ..io.feeder import (
+    auto_chunk_frames,
+    band_device_chunks,
+    cached_probe_rate,
+    note_small_scan,
+    probe_transfer_rate,
+    raw_device_chunks,
+)
 from ..io.fits import make_header
-from ..io.video import open_video
+from ..io.hostreduce import (
+    band_covers,
+    fast_passa,
+    host_mean_max,
+    host_mean_max_band,
+    host_mean_max_frames,
+    host_reconstruct,
+    host_reconstruct_frames,
+    host_reconstruct_from_band,
+    provisional_spectral_band,
+    spectral_band,
+)
+from ..io.pagecache import pin
+from ..io.video import _SerVideo, open_video
 from ..io.writers import barrier as write_barrier
 from ..io.writers import scan_writes, submit_figure
 from ..ops.dtypes import as_int16
-from ..ops.fused import RawScanProcessor
+from ..ops.fused import RawScanProcessor, reconstruct_band
 from ..utils.device import synchronize
 from ..utils.log import RunLog
+from ..utils.placement import set_host_pipeline, set_small_ops_on_host
 from ..utils.timer import StageTimer
 from .products import (
     crop_width,
@@ -77,7 +119,8 @@ RESIDENT_CAP_BYTES = 4 * 1024**3
 class ScanResult:
     """Everything read_scan produces (reference: Solex_recon.py:49-83)."""
 
-    disk_list: torch.Tensor          # (S, ih, F) uint16 on the device
+    disk_list: torch.Tensor          # (S, ih, F) uint16 on the device (on
+                                     # the CPU for the host feed)
     shifts: List[int]                # augmented shift list
     shift_requested: List[int]
     backup_bounds: Tuple[int, int]
@@ -88,6 +131,12 @@ class ScanResult:
     #: this scan's queued product writes (io/writers.py:scan_writes);
     #: process_scan joins them
     writes: list = field(default_factory=list)
+    #: the feed policy's placement for THIS scan (utils/placement.py);
+    #: process_scan re-asserts them on the thread that runs it
+    small_ops_host: bool = False
+    host_pipeline: bool = False
+    #: the feed read_scan took
+    feed: str = "device"
 
 
 class FiguresNeedMatplotlib(RuntimeError):
@@ -151,6 +200,49 @@ def read_scan(file: str, options: Options, device: torch.device,
     return scan
 
 
+#: the feed policies of read_scan (Options.feed_mode)
+FEEDS = ("auto", "device", "band", "host")
+#: scans above this many (normalised) bytes are rated with a fresh link
+#: probe by the ``auto`` policy on the card; smaller ones consult the last
+#: probe (JAX run.py:208-223)
+AUTO_PROBE_BYTES = 256 * 1024**2
+#: the ``auto`` policy takes the ``host`` feed below this link rate
+AUTO_HOST_BELOW_BPS = 200e6
+#: the fused band sweep of the ``band`` and ``host`` feeds: None decides
+#: by the page-cache pin (taken when the scan could not be pinned and is
+#: larger than 256 MB), True or False forces it (the JAX package's
+#: SOLEX_FUSEDBAND / SOLEX_NO_FUSEDBAND)
+FUSED_BAND = None
+
+
+def auto_feed(vid, total_bytes: int, device: torch.device) -> Tuple[str, str]:
+    """The ``auto`` feed policy: (feed, reason).
+
+    On the card, the JAX package's rule for an accelerator (run.py:
+    208-223): a SER over AUTO_PROBE_BYTES is rated by one probe a process
+    (io/feeder.py:probe_transfer_rate) and goes ``host`` below
+    AUTO_HOST_BELOW_BPS; a smaller SER consults the cached rate (and
+    probes once a folder of small scans has fed more than a probe costs).
+    Everything else is ``device``.  On the CPU ``auto`` is ``device``: the
+    JAX package goes ``host`` there, but this package's CPU runs are its
+    tests, which must drive the path the card runs (ROADMAP C).
+    """
+    if device.type != "cuda":
+        return "device", "auto on the CPU"
+    if not isinstance(vid, _SerVideo):
+        return "device", "auto, not a SER"
+    if total_bytes > AUTO_PROBE_BYTES:
+        rate = probe_transfer_rate(device)
+    else:
+        rate = cached_probe_rate()
+        if rate is None and note_small_scan(total_bytes) > AUTO_PROBE_BYTES:
+            rate = probe_transfer_rate(device)
+    if rate is None:
+        return "device", "auto, no link rate yet for a small scan"
+    feed = "host" if rate < AUTO_HOST_BELOW_BPS else "device"
+    return feed, f"auto, link {rate / 1e9:.3f} GB/s"
+
+
 def _read_scan(file: str, options: Options, device: torch.device,
                timer: Optional[StageTimer]) -> ScanResult:
     check_supported(options)
@@ -170,48 +262,174 @@ def _read_scan(file: str, options: Options, device: torch.device,
     log(f"Width, Height : {vid.Width} {vid.Height}")
     log(f"Number of frames : {vid.frame_count}")
 
-    keep_resident = (vid.frame_count * vid.ih * vid.iw * 2
-                     <= RESIDENT_CAP_BYTES)
+    is_ser = isinstance(vid, _SerVideo)
+    total_bytes = vid.frame_count * vid.ih * vid.iw * 2
+    keep_resident = total_bytes <= RESIDENT_CAP_BYTES
+
+    # Feed policy: how much of the scan crosses to the card.
+    #   device: every raw chunk (the resident two-pass path)
+    #   band:   pass A on the host, only the recon's spectral band uploaded
+    #   host:   pass A and a float64 recon on the host, and the whole
+    #           post-processing there too (the host pipeline)
+    feed, why = options.feed_mode, "requested"
+    if feed not in FEEDS:
+        raise ValueError(f"invalid feed mode {feed!r} (auto|device|band|host)")
+    if feed == "auto":
+        feed, why = auto_feed(vid, total_bytes, device)
+    timer.note("feed", f"{feed} ({why})")
+    log(f"Feed : {feed} ({why})")
+    small_ops_host = feed in ("band", "host")
+    host_pipe = feed == "host"
+    set_small_ops_on_host(small_ops_host)      # this (reading) thread
+    set_host_pipeline(host_pipe)
+
+    pinned = False
+    if small_ops_host and is_ser:
+        # the host feeds sweep the file at least twice: keep its pages
+        # resident (io/pagecache.py; False when mlock is refused)
+        pinned = pin(file)
+        log(f"Page-cache pin : {pinned}")
+    # the fused band sweep: worth it only where the page cache cannot be
+    # trusted to keep the scan between the passes
+    want_fused = (not pinned and total_bytes > 256 * 1024**2
+                  if FUSED_BAND is None else FUSED_BAND)
+    # the two-step pass A; -f wants the true full mean inline
+    want_fast = feed == "host" and is_ser and not options.save_fit
+    fast_lf = None           # verified LineFit of the banded fast pass A
+    fused_band = None        # (band slab, x0, x1) of the fused sweep
+    mem_frames = None        # the host feed's in-memory non-SER frames
+    band_mode = False
+    proc = None
     with timer.stage("mean/max"):
-        raw_iter, rotate, upscale = raw_device_chunks(
-            vid, options.frame_chunk, device)
-        # the raw chunks' frame shape: stored, or (ih, iw) once decoded
-        shape = (vid.Height, vid.Width) if rotate else (vid.ih, vid.iw)
-        proc = RawScanProcessor(*shape, rotate, upscale, device)
-        # closing: an error between chunks must stop the feed's producer
-        with contextlib.closing(raw_iter):
-            for start, chunk in raw_iter:
-                proc.accumulate(start, chunk, keep=keep_resident)
-        mean_img, max_img = proc.mean_max()
+        if feed == "host" and not is_ser:
+            mem_frames = vid.read_all()
+            mean_img, max_img = host_mean_max_frames(mem_frames)
+            passa = "in-memory host pass"
+        elif small_ops_host and is_ser:
+            band_mode = True
+            r = vid._r
+            passa = None
+            if want_fast:
+                miss = []
+                fast = fast_passa(r, shifts, miss=miss)
+                if fast is not None:
+                    fast_lf, mean_img, max_img = fast[0], None, None
+                    passa = (f"fast_passa (band [{fast[3]}, {fast[4]}) of "
+                             f"{r.iw} columns)")
+                else:
+                    log(f"Fast pass A not taken: {miss[0]}")
+            if passa is None and want_fused:
+                x0p, x1p = provisional_spectral_band(r, shifts)
+                band_bytes = ((x1p - x0p) * r.ih * r.frame_count
+                              * r.header.dtype.itemsize)
+                if band_bytes <= min(total_bytes // 3, 768 * 1024**2):
+                    mean_img, max_img, slab = host_mean_max_band(r, x0p, x1p)
+                    fused_band = (slab, x0p, x1p)
+                    passa = f"fused band sweep (band [{x0p}, {x1p}))"
+            if passa is None:
+                mean_img, max_img = host_mean_max(r)
+                passa = "full host sweep"
+        else:
+            raw_iter, rotate, upscale = raw_device_chunks(
+                vid, options.frame_chunk, device)
+            # the raw chunks' frame shape: stored, or (ih, iw) once decoded
+            shape = (vid.Height, vid.Width) if rotate else (vid.ih, vid.iw)
+            proc = RawScanProcessor(*shape, rotate, upscale, device)
+            # closing: an error between chunks must stop the feed's producer
+            with contextlib.closing(raw_iter):
+                for start, chunk in raw_iter:
+                    proc.accumulate(start, chunk, keep=keep_resident)
+            mean_img, max_img = proc.mean_max()
+            passa = "device"
+    timer.note("pass A", passa)
+    log(f"Pass A : {passa}")
 
     if options.save_fit:
         save_fits(output_path(basefich0 + "_mean.fits", options), mean_img,
                   hdr)
 
     with timer.stage("line fit"):
-        lf = fit_spectral_line(mean_img, max_img)
+        lf = fast_lf if fast_lf is not None else fit_spectral_line(
+            mean_img, max_img)
     log(f"Vertical limits y1, y2 : {lf.y1} {lf.y2}")
     log("Spectral line polynomial fit: " + str(lf.poly))
 
     if figures_wanted(options):
-        from .plots import save_spectral_line_plot
+        from . import plots
 
-        submit_figure(
-            save_spectral_line_plot,
-            output_path(basefich0 + "_spectral_line_data.png", options),
-            mean_img, lf,
-        )
+        if mean_img is None:
+            # the banded fast pass A: the full mean exists nowhere; its
+            # sweep runs on the figure lane
+            submit_figure(
+                plots.deferred_spectral_line_plot,
+                output_path(basefich0 + "_spectral_line_data.png", options),
+                file, lf,
+            )
+        else:
+            submit_figure(
+                plots.save_spectral_line_plot,
+                output_path(basefich0 + "_spectral_line_data.png", options),
+                mean_img, lf,
+            )
 
     with timer.stage("recon"):
-        if keep_resident:
+        if mem_frames is not None:
+            disk_list = torch.from_numpy(host_reconstruct_frames(
+                mem_frames, lf.floor, lf.frac, shifts))
+            mem_frames = None
+            passb = "host float64 recon of the frames in memory"
+        elif host_pipe and band_mode:
+            r = vid._r
+            if fused_band is not None and band_covers(
+                    fused_band[1], fused_band[2], lf.floor, lf.frac, shifts,
+                    vid.iw):
+                disks = host_reconstruct_from_band(
+                    r, fused_band[0], fused_band[1], lf.floor, lf.frac,
+                    shifts)
+                passb = "host float64 recon from the band slab"
+            else:
+                if fused_band is not None:
+                    log("Band slab does not cover the final fit's taps")
+                disks = host_reconstruct(r, lf.floor, lf.frac, shifts)
+                passb = "host float64 recon"
+            disk_list = torch.from_numpy(disks)
+        elif band_mode:
+            r = vid._r
+            x0, x1 = spectral_band(lf.floor, shifts, vid.iw)
+            band_frame_bytes = ((x1 - x0) * vid.ih
+                                * r.header.dtype.itemsize)
+            chunk_n = auto_chunk_frames(band_frame_bytes,
+                                        options.frame_chunk * 8)
+            # serve the upload from the fused sweep's slab when it covers
+            # the final band: the scan itself is not read again
+            slab = None
+            if fused_band is not None and (
+                    fused_band[1] <= x0 and x1 <= fused_band[2]):
+                b, bx0, _ = fused_band
+                slab = (b[:, x0 - bx0:x1 - bx0, :] if r.flag_rotate
+                        else b[:, :, x0 - bx0:x1 - bx0])
+            band_iter, rotate, upscale = band_device_chunks(
+                r, x0, x1, chunk_n, device, slab=slab)
+            with contextlib.closing(band_iter):
+                disk_list = reconstruct_band(
+                    band_iter, lf.floor, lf.frac, shifts, vid.iw, x0, rotate,
+                    upscale, device, vid.frame_count)
+            passb = (f"kernel B3 on the band [{x0}, {x1}) "
+                     f"({'slab' if slab is not None else 'file'})")
+        elif keep_resident:
             disk_list = proc.reconstruct(lf.floor, lf.frac, shifts)
+            passb = "kernel B3 on the resident chunks"
         else:
             raw_iter, _, _ = raw_device_chunks(vid, options.frame_chunk,
                                                device)
             with contextlib.closing(raw_iter):
                 disk_list = proc.reconstruct_streaming(raw_iter, lf.floor,
                                                        lf.frac, shifts)
+            passb = "kernel B3 on the streamed chunks"
+        fused_band = None    # release the slab
         synchronize(device)
+    timer.note("pass B", passb)
+    log(f"Pass B : {passb}")
 
     if options.flip_x:
         disk_list = as_int16(disk_list).flip(2).view(torch.uint16)
@@ -235,6 +453,9 @@ def _read_scan(file: str, options: Options, device: torch.device,
         basefich0=basefich0,
         mean_img=mean_img,
         linefit=lf,
+        small_ops_host=small_ops_host,
+        host_pipeline=host_pipe,
+        feed=feed,
     )
 
 
@@ -346,6 +567,10 @@ def process_scan(scan: ScanResult, options: Options,
 
 
 def _process_shifts(scan: ScanResult, options: Options, timer: StageTimer):
+    # may run on a pool thread (cli/main.py overlaps the scans): re-assert
+    # this scan's placement on this thread
+    set_small_ops_on_host(scan.small_ops_host)
+    set_host_pipeline(scan.host_pipeline)
     basefich0 = scan.basefich0
     log = RunLog(basefich0, options)
     if options.transversalium:

@@ -16,6 +16,13 @@ multiply, the stubborn variant's mean filters) runs on the image's device
 float64 with scipy's savgol, as in the JAX package.  On the fused branch of
 pipeline/run.py the gain multiply itself runs inside the product step
 (pipeline/products.py).
+
+In the host pipeline (the ``host`` feed, utils/placement.py) the JAX
+package's host branches run on host arrays: the row statistics on the
+correction band's rows only, as chord intervals (``_strip_bounds_host``),
+with the masked medians of the native library (io/native.py:row_medstats,
+bit-identical to the numpy twins ``_masked_row_median_host`` and
+``_row_stats_host``), and the row multiply in numpy.
 """
 
 from __future__ import annotations
@@ -27,9 +34,11 @@ import numpy as np
 import torch
 from scipy.signal import savgol_filter
 
+from ..io.native import row_medstats
 from ..ops.filters import mean_filter_hole, mean_filter_line
 from ..ops.dtypes import widen
 from ..ops.rowstats import apply_row_gain, row_log_ratio_stats, strip_mask
+from ..utils.placement import host_ops_device, host_pipeline
 
 
 def tukey_taper(n: int, a: float = 0.05) -> np.ndarray:
@@ -70,6 +79,112 @@ def _gain_from_mean_r(
     return c, correction
 
 
+def _strip_bounds_host(h: int, w: int, circle, borders,
+                       row0: int = 0, row1: int = None):
+    """Interval form of the strip mask: (row_ok (R,), x_lo (R,), x_hi (R,))
+    int32 chord bounds per row, the float32 geometry of
+    ops/rowstats.strip_mask (the mask rows are chords, so the interval
+    carries the mask exactly)."""
+    if row1 is None:
+        row1 = h
+    cx, cy, r = (np.float32(circle[0]), np.float32(circle[1]),
+                 np.float32(circle[2]))
+    bx0, by1, bx2, by3 = (np.float32(b) for b in borders)
+    ys = np.arange(row0, row1, dtype=np.float32)
+    y1 = np.ceil(max(cy - r, by1))
+    y2 = np.floor(min(cy + r, by3))
+    d2 = r * r - (ys - cy) ** 2
+    dx = np.floor(np.sqrt(np.maximum(d2, np.float32(0.0))))
+    x_lo = np.ceil(np.maximum(cx - dx, bx0))
+    x_hi = np.floor(np.minimum(cx + dx, bx2))
+    row_ok = (ys > y1) & (ys < y2) & (d2 >= 0.0)
+    lo = np.clip(x_lo, 0, w).astype(np.int32)
+    hi = np.clip(x_hi, 0, w).astype(np.int32)
+    return row_ok, lo, hi
+
+
+def _strip_mask_host(h: int, w: int, circle, borders,
+                     row0: int = 0, row1: int = None) -> np.ndarray:
+    """numpy twin of ops/rowstats.strip_mask (same float32 geometry),
+    rows [row0, row1) of it."""
+    row_ok, lo, hi = _strip_bounds_host(h, w, circle, borders, row0, row1)
+    xs = np.arange(w, dtype=np.int32)
+    return (row_ok[:, None]
+            & (xs[None, :] >= lo[:, None])
+            & (xs[None, :] < hi[:, None]))
+
+
+def _masked_row_median_host(x: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """numpy twin of ops/rowstats._masked_row_median: invalid entries
+    pushed to +inf, NaNs (0/0 pixels) sort last and stay counted."""
+    big = np.where(valid, x, np.float32(np.inf))
+    s = np.sort(big, axis=1)
+    n = valid.sum(axis=1)
+    lo_i = np.maximum((n - 1) // 2, 0)
+    hi_i = np.maximum(n // 2, 0)
+    rows = np.arange(x.shape[0])
+    med = 0.5 * (s[rows, lo_i] + s[rows, hi_i])
+    return np.where(n > 0, med, np.float32(0.0)).astype(np.float32)
+
+
+def _row_stats_host(img: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """numpy twin of ops/rowstats.row_log_ratio_stats (mean_r only), step
+    for step in float32."""
+    f = img.astype(np.float32)
+    prev = np.concatenate([f[:1], f[:-1]], axis=0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        rat = np.log(f / prev).astype(np.float32)
+    rat = np.where(valid, rat, np.float32(0.0))
+
+    with np.errstate(invalid="ignore"):  # inf-inf on all-masked rows
+        med = _masked_row_median_host(rat, valid)
+        d = np.abs(rat - med[:, None])
+        mdev = _masked_row_median_host(d, valid)
+        s = np.where(mdev[:, None] > 0,
+                     d / np.maximum(mdev[:, None], np.float32(1e-30)),
+                     np.float32(0.0))
+        keep = valid & (s < 2.0)
+    nk = keep.sum(axis=1)
+    total = np.where(keep, rat, np.float32(0.0)).sum(axis=1,
+                                                     dtype=np.float32)
+    return np.where(nk > 0, total / np.maximum(nk, 1), 0.0)
+
+
+def _row_stats_host_fast(img: np.ndarray, row_ok: np.ndarray,
+                         x_lo: np.ndarray, x_hi: np.ndarray) -> np.ndarray:
+    """_row_stats_host with the median/MAD selections of the native
+    library (io/native.py:row_medstats), bit-identical: the log ratio and
+    the final pairwise kept-sum stay in numpy."""
+    f = img.astype(np.float32, copy=False)
+    # rat[i] = f[i] / f[i-1] through views, row 0 against itself:
+    # elementwise the twin's np.log(f / concat([f[:1], f[:-1]]))
+    rat = np.empty_like(f)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        np.divide(f[1:], f[:-1], out=rat[1:])
+        np.divide(f[0], f[0], out=rat[0])
+        np.log(rat, out=rat)
+    value, nk = row_medstats(rat, row_ok, x_lo, x_hi)
+    total = value.sum(axis=1, dtype=np.float32)
+    return np.where(nk > 0, total / np.maximum(nk, 1), 0.0)
+
+
+def _mean_r_host(img: np.ndarray, circle, borders) -> np.ndarray:
+    """mean_r (H,) float64 of the host row statistics, computed on the
+    correction band's rows alone (the gain reads mean_r[y1+1:y2] only and
+    each row's statistics need only it and the row above); the columns
+    stay full width, so each row's pairwise sum keeps its order."""
+    h, w = img.shape
+    y1b, y2b = _row_band(circle, borders)
+    a, b = max(y1b, 0), min(y2b, h)
+    mean_r = np.zeros(h, dtype=np.float64)
+    if b - a >= 2:
+        row_ok, lo, hi = _strip_bounds_host(h, w, circle, borders,
+                                            row0=a, row1=b)
+        sub = _row_stats_host_fast(img[a:b], row_ok, lo, hi)
+        mean_r[a + 1:b] = sub[1:]
+    return mean_r
+
+
 def _valid_mask(shape, circle, borders, device) -> torch.Tensor:
     h, w = shape
     valid, _, _ = strip_mask(h, w, np.asarray(circle, dtype=np.float32),
@@ -92,9 +207,12 @@ def transversalium_gain(
     un-tapered correction over the band (used by the stubborn variant).
     """
     h = img.shape[0]
-    _, mean_r = row_log_ratio_stats(
-        img, _valid_mask(img.shape, circle, borders, img.device))
-    mean_r = mean_r.cpu().numpy().astype(np.float64)
+    if host_pipeline():
+        mean_r = _mean_r_host(img.numpy(), circle, borders)
+    else:
+        _, mean_r = row_log_ratio_stats(
+            img, _valid_mask(img.shape, circle, borders, img.device))
+        mean_r = mean_r.cpu().numpy().astype(np.float64)
     y1, y2 = _clipped_band(circle, borders, h)
     c, correction = _gain_from_mean_r(mean_r, y1, y2, h, trans_strength)
     return c, y1, y2, correction
@@ -160,7 +278,7 @@ def stubborn_filter(
     float64 on the host, as in the JAX package; the two big mean filters
     run in float32 on the image's device (ops/filters.py).
     """
-    device = img.device
+    device = host_ops_device(img.device)
     img = (img if img.dtype.is_floating_point else widen(img)).cpu().numpy()
     logimg = np.log(np.maximum(img.astype(np.float64), 1e-12))
 
@@ -220,5 +338,10 @@ def correct_transversalium(
         flag = flag | np.roll(flag, -1) | np.roll(flag, 1)
         out = stubborn_filter(img, flag, y1, y2, circle)
         return torch.from_numpy(out).to(img.device), c
+    if host_pipeline():
+        # the same float32 multiply, clip and cast as apply_row_gain
+        out = (img.numpy().astype(np.float32)
+               * np.asarray(c, dtype=np.float32)[:, None])
+        return torch.from_numpy(np.clip(out, 0, 65535).astype(np.uint16)), c
     gain = torch.as_tensor(c, dtype=torch.float32, device=img.device)
     return apply_row_gain(img, gain), c

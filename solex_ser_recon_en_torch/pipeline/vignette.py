@@ -9,8 +9,9 @@ The two image-sized percentile profiles run on the frame's device, as a
 float32 sort along each axis and a linear interpolation between the two
 order statistics written out (``torch.quantile`` refuses inputs above 16 M
 elements); the (H,)-vector trend math runs on the host in float64 with
-scipy, as in the reference.  The result is float64 on the frame's device
-and stays float until the product stage casts it.
+scipy, as in the reference.  In the host pipeline (the ``host`` feed,
+utils/placement.py) the profiles run on the CPU.  The result is float64 on
+the frame's device and stays float until the product stage casts it.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from scipy.ndimage import gaussian_filter1d
 from scipy.signal import savgol_filter
 
 from ..ops.dtypes import as_f32, widen
+from ..utils.placement import host_ops_device
 
 
 def _percentile_along(f: torch.Tensor, q_pct: float, dim: int) -> torch.Tensor:
@@ -53,8 +55,10 @@ def remove_vignette(frame: torch.Tensor, circle) -> torch.Tensor:
     ``circle`` is the fitted (cx, cy, r) from the ellipse step; without a
     valid circle the caller must skip (Solex_recon.py:125-128).
     """
+    # host_ops_device: in the host pipeline the profiles run on the CPU
     y_arr, y_arr2 = (a.cpu().numpy().astype(np.float64)
-                     for a in _axis_percentiles(frame))
+                     for a in _axis_percentiles(
+                         frame.to(host_ops_device(frame.device))))
     shrink = 65
     start1 = max(0, int(circle[0] - circle[2] + shrink))
     end1 = min(y_arr.shape[0], int(circle[0] + circle[2] + 1 - shrink))

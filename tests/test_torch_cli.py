@@ -1,13 +1,13 @@
 """The PyTorch port's command line and the JAX CLI's long options (CPU).
 
-``--input-dir``, ``--num-processes``, ``--process-id`` and ``--profile``
-run as in the JAX CLI: each case here, in both the ``--name value`` and
-the ``--name=value`` form, exits 0 and writes its products.  The options
-that are not ported yet, ``--mesh`` and ``--feed``, and any unknown
-``--name``, exit 2 with nothing written.  Before the port refused them, such
-a token fell into the packed single-letter flag parser: ``--mesh 8``
-reached the ``h`` of "mesh" and exited 0 with nothing done, ``--feed host``
-set ``-f``/``-d``.
+``--input-dir``, ``--num-processes``, ``--process-id``, ``--feed`` and
+``--profile`` run as in the JAX CLI: each case here, in both the ``--name
+value`` and the ``--name=value`` form, exits 0 and writes its products;
+every feed mode runs, and a bad one exits 2 with the JAX CLI's message.
+The option that is not ported yet, ``--mesh``, and any unknown ``--name``,
+exit 2 with nothing written.  Before the port refused them, such a token
+fell into the packed single-letter flag parser: ``--mesh 8`` reached the
+``h`` of "mesh" and exited 0 with nothing done.
 """
 
 import os
@@ -22,8 +22,8 @@ from solex_ser_recon_en_torch.parallel.distributed import assign_files
 
 VALUES = {"--mesh": "frame=8", "--feed": "host", "--input-dir": "scans",
           "--num-processes": "2", "--process-id": "1"}
-UNPORTED = ("--mesh", "--feed")
-PORTED = ("--input-dir", "--num-processes", "--process-id")
+UNPORTED = ("--mesh",)
+PORTED = ("--input-dir", "--num-processes", "--process-id", "--feed")
 
 
 def _cases(names):
@@ -102,3 +102,28 @@ def test_ported_long_option_runs(basic_scan, tmp_path, monkeypatch, capsys,
         traces = list(trace_dir.iterdir())
         assert len(traces) == 1 and traces[0].name.endswith(".trace.json")
         assert "profiler trace written to" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("mode", ["auto", "device", "band", "host"])
+def test_every_feed_mode_runs(basic_scan, tmp_path, mode):
+    """``--feed MODE`` on one file: rc 0, the product, and the feed in the
+    run log (``auto`` is ``device`` on the CPU)."""
+    out = tmp_path / "out"
+    rc = cli_main(["-cw0", basic_scan["path"], "--device", "cpu",
+                   "--feed", mode, "--output-dir", str(out)])
+    assert rc == 0
+    assert (out / "basic_shift=0_clahe.png").exists()
+    taken = "device" if mode == "auto" else mode
+    assert f"Feed : {taken} (" in (out / "basic_log.txt").read_text()
+
+
+@pytest.mark.parametrize("tokens", [["--feed", "bogus"], ["--feed=bogus"]],
+                         ids=["--feed bogus", "--feed=bogus"])
+def test_bad_feed_mode_exits_2(basic_scan, tmp_path, capsys, tokens):
+    out = tmp_path / "out"
+    rc = cli_main([*tokens, "-cw0", basic_scan["path"], "--device", "cpu",
+                   "--output-dir", str(out)])
+    assert rc == 2
+    said = capsys.readouterr().out
+    assert "invalid feed mode 'bogus' (auto|device|band|host)" in said
+    assert not out.exists() or not any(out.iterdir())

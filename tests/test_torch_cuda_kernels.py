@@ -800,3 +800,89 @@ def test_session_on_the_card_equals_per_file_runs(cuda_device, tmp_path):
         ref = read_scan(f, opts.copy(), cuda_device)
         assert torch.equal(got[f].disk_list.view(torch.int16),
                            ref.disk_list.view(torch.int16))
+
+
+# ---- the band feed: kernel B3 on band chunks; the host feed launches none --
+
+
+def _band_scan(tmp_path, wide=True, depth=16):
+    from solex_ser_recon_en_torch.io.synthetic import SyntheticScan
+
+    path = str(tmp_path / "band.ser")
+    SyntheticScan(ih=320, iw=224, frames=150, depth=depth,
+                  line_poly=(112.0, 0.02, -1e-4, 0.0), noise=0.002,
+                  seed=5).write(path, transpose_to_wide=wide)
+    return path
+
+
+@pytest.mark.parametrize("wide,depth", [(True, 16), (False, 16), (True, 8)])
+@pytest.mark.parametrize("slab", [False, True])
+def test_recon_on_band_chunks_matches_plain(cuda_device, tmp_path, wide,
+                                            depth, slab):
+    """Kernel B3 over the band feed's chunks on the card (band-local taps,
+    uploaded through the pinned ring) = its plain version on the same
+    chunks on the CPU = B3 over the whole frames."""
+    from solex_ser_recon_en_torch.geometry.linefit import fit_spectral_line
+    from solex_ser_recon_en_torch.io import hostreduce as hr
+    from solex_ser_recon_en_torch.io.feeder import (
+        band_device_chunks,
+        raw_device_chunks,
+    )
+    from solex_ser_recon_en_torch.io.ser import SerReader
+    from solex_ser_recon_en_torch.ops.fused import reconstruct_band
+
+    path = _band_scan(tmp_path, wide, depth)
+    r = SerReader(path)
+    mean, mx = hr.host_mean_max(r)
+    lf = fit_spectral_line(mean, mx)
+    shifts = [10, 0, -4]
+    x0, x1 = hr.spectral_band(lf.floor, shifts, r.iw)
+    band = hr.extract_band(r, x0, x1, 0, r.frame_count) if slab else None
+    disks = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        it, rotate, upscale = band_device_chunks(r, x0, x1, 32, dev,
+                                                 slab=band)
+        disks[dev.type] = reconstruct_band(
+            it, lf.floor, lf.frac, shifts, r.iw, x0, rotate, upscale, dev,
+            r.frame_count).cpu()
+    torch.cuda.synchronize()
+    it, rotate, upscale = raw_device_chunks(r, 32, cuda_device)
+    p = RawScanProcessor(r.Height, r.Width, rotate, upscale, cuda_device)
+    for start, c in it:
+        p.accumulate(start, c)
+    full = p.reconstruct(lf.floor, lf.frac, shifts).cpu()
+    for d in (disks["cpu"], full):
+        assert torch.equal(disks["cuda"].view(torch.int16),
+                           d.view(torch.int16))
+
+
+def test_band_and_host_feeds_on_the_card(cuda_device, tmp_path):
+    """``--feed band``: B3 launched, no pass-A launch, disks and
+    _clahe.png equal the device feed's; ``--feed host``: no launch of pass
+    A, B3, B4 or B5, and the disks are host tensors."""
+    from solex_ser_recon_en_torch.config import Options
+    from solex_ser_recon_en_torch.pipeline import run
+
+    path = _band_scan(tmp_path)
+    scans = {}
+    for feed in ("device", "band", "host"):
+        for k in cuda_build.LAUNCHES:
+            cuda_build.LAUNCHES[k] = 0
+        out = tmp_path / feed
+        out.mkdir()
+        opts = Options(shift=[0], clahe_only=True, feed_mode=feed,
+                       output_dir=str(out))
+        scans[feed] = run.read_scan(path, opts, cuda_device)
+        run.process_scan(scans[feed], opts)
+        torch.cuda.synchronize()
+        launches = dict(cuda_build.LAUNCHES)
+        if feed == "band":
+            assert launches["recon"] >= 1 and launches["sum_max"] == 0
+        if feed == "host":
+            assert all(launches[k] == 0 for k in
+                       ("sum_max", "recon", "hresample", "tile_hist"))
+    assert scans["host"].disk_list.device.type == "cpu"
+    assert torch.equal(scans["band"].disk_list.view(torch.int16).cpu(),
+                       scans["device"].disk_list.view(torch.int16).cpu())
+    assert (tmp_path / "band" / "band_shift=0_clahe.png").read_bytes() == \
+        (tmp_path / "device" / "band_shift=0_clahe.png").read_bytes()

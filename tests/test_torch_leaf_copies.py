@@ -2,7 +2,9 @@
 SER I/O, synthetic scan, PNG encoder, FITS writer, run log, write pool and
 figure lane, the three diagnostic plots, ``fix_edge_effect``) against the
 originals: the same inputs give the same fields, bytes and arrays.  The
-native host library's source is a copy too, held byte for byte."""
+native host library's source is a copy too, held byte for byte, and so are
+the page-cache pin, the host Canny and the host warp twins (io/pagecache.py,
+ops/canny_host.py, ops/warp_host.py)."""
 
 import dataclasses
 import os
@@ -34,6 +36,43 @@ def test_native_source_is_a_byte_for_byte_copy():
                            "ser_io.cpp"), "rb") as f:
         assert f.read() == original
     assert len(original) > 50_000
+
+
+@pytest.mark.parametrize("rel", [os.path.join("io", "pagecache.py"),
+                                 os.path.join("ops", "canny_host.py"),
+                                 os.path.join("ops", "warp_host.py")])
+def test_whole_module_copies_are_byte_for_byte(rel):
+    """numpy-only modules of the JAX package copied whole, at the same
+    relative path."""
+    with open(os.path.join(ROOT, "solex_ser_recon_en_tpu", rel), "rb") as f:
+        original = f.read()
+    with open(os.path.join(ROOT, "solex_ser_recon_en_torch", rel), "rb") as f:
+        assert f.read() == original
+
+
+def test_pagecache_pin_copy_behaves_as_the_original(tmp_path, monkeypatch):
+    """Small files are not pinned; a file over the floor is pinned (or
+    refused by mlock) the same way by both copies."""
+    from solex_ser_recon_en_tpu.io import pagecache as jax_pagecache
+    from solex_ser_recon_en_torch.io import pagecache
+
+    small = tmp_path / "small.bin"
+    small.write_bytes(b"\0" * 4096)
+    assert pagecache.pin(str(small)) is False
+    assert jax_pagecache.pin(str(small)) is False
+    big = tmp_path / "big.bin"
+    big.write_bytes(b"\1" * (1 << 20))
+    for mod in (pagecache, jax_pagecache):
+        monkeypatch.setattr(mod, "_MIN_FILE", 1 << 16)
+    try:
+        got = pagecache.pin(str(big))
+        assert got == jax_pagecache.pin(str(big))
+        assert pagecache.pinned_bytes() == (1 << 20 if got else 0)
+    finally:
+        pagecache.clear()
+        jax_pagecache.clear()
+    monkeypatch.setenv("SOLEX_NO_PIN", "1")
+    assert pagecache.pin(str(big)) is False
 
 
 def test_native_library_is_not_the_jax_packages():
@@ -302,7 +341,14 @@ def test_plots_write_the_same_png_bytes(tmp_path):
          lambda p: plots.save_ellipse_fit_plot(p, torch.from_numpy(image),
                                                geo_t),
          lambda p: jax_plots.save_ellipse_fit_plot(p, image, geo_j))
-    assert not hasattr(plots, "deferred_spectral_line_plot")
+    # the banded fast pass A's figure: the full mean swept at render time
+    from solex_ser_recon_en_torch.io.synthetic import SyntheticScan
+
+    scan = str(tmp_path / "fig.ser")
+    SyntheticScan(ih=96, iw=48, frames=30, seed=2).write(
+        scan, transpose_to_wide=True)
+    same("d.png", lambda p: plots.deferred_spectral_line_plot(p, scan, lf),
+         lambda p: jax_plots.deferred_spectral_line_plot(p, scan, lf))
 
 
 def test_figure_lane_defers_spills_and_reraises(monkeypatch):

@@ -5,8 +5,8 @@ generator, runs the ``-c`` slice through the CLI on the CPU, a folder of
 it as an 8-bit SER and a Y800 AVI (``chip_smoke.write_y800_avi``) with
 ``--input-dir`` and ``--profile``, then every
 product mode that writes no figure (``-f``, the crops, a sweep,
-``protus_only``, stubborn, de-vignette: none of cv2, PIL or matplotlib may
-be loaded by then) and the default mode (which loads matplotlib, in
+``protus_only``, stubborn, de-vignette) and the ``band`` and ``host``
+feeds (none of cv2, PIL or matplotlib may be loaded by then) and the default mode (which loads matplotlib, in
 pipeline/plots.py alone), the fused step
 (``models.shg_forward``, and ``shg_fused(..., mxu=True)``), the
 resident-path benchmark (``bench_device``), the feed measurements
@@ -61,6 +61,10 @@ for kw in (dict(protus_only=True, save_fit=True),
            dict(clahe_only=True, de_vignette=True, save_fit=True)):
     process_file("tiny.ser", Options(shift=[0], output_dir="modes", **kw),
                  torch.device("cpu"))
+for feed in ("band", "host"):
+    rc = cli.main(["-cw0", "tiny.ser", "--device", "cpu", "--feed", feed,
+                   "--output-dir", "feed_" + feed])
+    assert rc == 0, (feed, rc)
 heavy = sorted(m for m in sys.modules
                if m.split(".")[0] in ("cv2", "PIL", "matplotlib"))
 assert not heavy, heavy
@@ -125,6 +129,8 @@ def test_port_runs_without_importing_jax(tmp_path):
         (session / "b_shift=0_clahe.png").read_bytes()
     assert len(list((tmp_path / "prof").iterdir())) == 1
     assert (tmp_path / "dec" / "decomp_shift=0_clahe.png").exists()
+    for feed in ("band", "host"):
+        assert (tmp_path / f"feed_{feed}" / "tiny_shift=0_clahe.png").exists()
     modes = sorted(p.name for p in (tmp_path / "modes").iterdir())
     for name in ("tiny_shift=-2_clahe.fits", "tiny_shift=2_raw.fits",
                  "tiny_mean.fits", "tiny_shift=0_protus.png",
