@@ -158,6 +158,24 @@ Phases; any failure exits non-zero before the final result line:
    version (bit-identical; the ``recon_band`` entry of the ``kernels``
    line), and the newly driven host entry points against their numpy
    twins on the host run's inputs (entries of ``host_entry_points``).
+11. other entry points: ``cli.analyse.main`` (``shg-torch-analyse``) on
+   the phase-3 scan with ``--dispersion 0.05 --goto --save``: one slab
+   upload, pass A's kernel once, B3 twice (the ellipse fit's shift and
+   the saved one), B4 once, B5 twice.  Then ``SpectralAnalyser`` directly:
+   its load's stages, one upload, pass A once and B3 once; its mean, max
+   and shift-0 disk equal phase 4's bit for bit; ``save(0)`` (B3 1, B4 1,
+   B5 2) timed, its ``_clahe.png`` against phase 4's (within 15 LSB,
+   ROADMAP C4).  Auto-dispersion on two atlas-rendered scans (iw 300,
+   0.043 and 0.085 A/px) within 1%.  ``cli.clahe_tool.main``
+   (``shg-torch-clahe``) in a working directory of its own on phase 4's
+   ``_clahe.png`` and its 8-bit copy, tiles 1-4 with and without
+   ``--stretch``: B5 once an image, the output within 1 LSB on < 0.1% of
+   pixels of ``--device cpu``'s (the stretched one within its slope x 1
+   LSB + 1).  B3 on the analyser's normalised slab and B5 on the 8-bit
+   image at the tool's four grids against their plain versions (the
+   ``recon_normalised`` and ``tile_hist_u8`` entries).  ``python -m
+   solex_ser_recon_en_torch -cw0`` as a subprocess on phase 9's g0.ser:
+   its ``_clahe.png`` equals the in-process run's.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the
@@ -165,9 +183,11 @@ per-kernel JSON record (the host library's entry points have a JSON line
 of their own before it, ``host_entry_points``): each entry's launches are those of the path whose
 inputs its times were taken on, and pass A has three entries, ``sum_max``
 (the -cw0 path's raw chunks), ``sum_max_resident`` (the slab) and
-``sum_max_u8`` (the session's u8 chunks); B3 has ``recon``, ``recon_u8``
-and ``recon_band`` (the band feed's chunks).  The script imports nothing
-of JAX, and prints the seconds phases 1-10 took.
+``sum_max_u8`` (the session's u8 chunks); B3 has ``recon``, ``recon_u8``,
+``recon_band`` (the band feed's chunks) and ``recon_normalised`` (the
+analyser's slab), B5 ``tile_hist``, ``tile_hist_r1001`` and
+``tile_hist_u8`` (the CLAHE tool's 8-bit image).  The script imports
+nothing of JAX, and prints the seconds phases 1-11 took.
 """
 
 from __future__ import annotations
@@ -1865,6 +1885,288 @@ def feeds_phase(path, tmp, png4, card, dev, res, wall2):
     return records, hrec
 
 
+def analyser_phase(path, tmp, png4, card, dev, res) -> list:
+    """Phase 11: the other entry points on the card, the spectral analyser,
+    the CLAHE tool and ``python -m`` (module docstring); returns the
+    records of B3 on the analyser's normalised slab and of B5 on the
+    tool's 8-bit images."""
+    import contextlib
+    import io
+
+    import torch
+
+    from solex_ser_recon_en_torch import analyser
+    from solex_ser_recon_en_torch.analyser.atlas import load_atlas
+    from solex_ser_recon_en_torch.cli import analyse, clahe_tool
+    from solex_ser_recon_en_torch.cli import main as cli_main
+    from solex_ser_recon_en_torch.io.png import read_png, write_png_streaming
+    from solex_ser_recon_en_torch.io.synthetic import SyntheticScan
+    from solex_ser_recon_en_torch.ops import cuda_build
+    from solex_ser_recon_en_torch.ops.clahe import (
+        image_tile_histograms,
+        image_tile_histograms_plain,
+        tile_keys,
+    )
+    from solex_ser_recon_en_torch.ops.dtypes import as_int16, widen
+    from solex_ser_recon_en_torch.ops.recon import (
+        build_shift_indices,
+        recon_chunks_plain,
+    )
+    from solex_ser_recon_en_torch.ops.recon_cuda import recon_chunks
+
+    t_phase = time.perf_counter()
+    reps = 20
+    sr = res["scan"]
+    disk4 = sr.disk_list[sr.shifts.index(0)]
+
+    def zero_counts():
+        for k in cuda_build.LAUNCHES:
+            cuda_build.LAUNCHES[k] = 0
+
+    def expect(launches, want, what):
+        got = {k: launches[k] for k in want}
+        if got != want:
+            fail(f"{what}: launches {launches}, not {want}")
+
+    def max_abs_err(x, y):
+        return (widen(x) - widen(y)).abs().max().item()
+
+    # (a) shg-torch-analyse on the bench scan, then the analyser directly
+    made = []
+
+    class Counted(analyser.SpectralAnalyser):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    base = os.path.join(tmp, "analyse")
+    goto = 6562.808 - 0.25
+    analyse.SpectralAnalyser = Counted
+    try:
+        zero_counts()
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = analyse.main([path, "--dispersion", "0.05", "--goto",
+                               str(goto), "--save", base])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        analyse.SpectralAnalyser = analyser.SpectralAnalyser
+    launches = dict(cuda_build.LAUNCHES)
+    said = text.getvalue()
+    if rc != 0 or len(made) != 1:
+        print(said[-2000:], flush=True)
+        fail(f"shg-torch-analyse returned {rc}")
+    an = made.pop()
+    print(f"analyser CLI: {wall:.3f} s, --goto {goto} -> "
+          f"{[ln for ln in said.splitlines() if 'GOTO' in ln]}; uploads "
+          f"{an.transfer_count}; launches {launches} [{card}]", flush=True)
+    if an.transfer_count != 1:
+        fail(f"the analyser CLI uploaded the slab {an.transfer_count} times")
+    expect(launches, {"sum_max": 1, "recon": 2, "hresample": 1,
+                      "tile_hist": 2}, "the analyser CLI")
+    if not all(os.path.exists(base + s) for s in ("_clahe.png",
+                                                  "_protus.png")):
+        fail("the analyser CLI wrote no products")
+    del an
+
+    zero_counts()
+    t0 = time.perf_counter()
+    an = analyser.SpectralAnalyser(path, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    launches = dict(cuda_build.LAUNCHES)
+    print(f"analyser load: {load_s:.3f} s, mode {an._recon_mode}, uploads "
+          f"{an.transfer_count}; stages (ms) "
+          + json.dumps({k: round(1e3 * v, 1) for k, v in
+                        an.timer.times.items()}) + f"; launches {launches} "
+          f"[{card}]", flush=True)
+    if an.transfer_count != 1 or an._recon_mode != "device":
+        fail(f"the analyser's load: mode {an._recon_mode}, "
+             f"{an.transfer_count} uploads")
+    expect(launches, {"sum_max": 1, "recon": 1, "hresample": 0,
+                      "tile_hist": 0}, "the analyser's load")
+    if not (np.array_equal(an.mean_img, sr.mean_img)
+            and np.array_equal(an.max_img, res["max_img"])):
+        fail("the analyser's mean or max differs from phase 4's")
+    disk = an._recon_at(0)
+    if not torch.equal(as_int16(disk), as_int16(disk4)):
+        fail("the analyser's shift-0 disk differs from phase 4's B3 disk")
+    zero_counts()
+    t0 = time.perf_counter()
+    an.save(0, base + "0")
+    torch.cuda.synchronize()
+    save_s = time.perf_counter() - t0
+    expect(dict(cuda_build.LAUNCHES), {"recon": 1, "hresample": 1,
+                                       "tile_hist": 2}, "the analyser's save")
+    mine, theirs = read_png(base + "0_clahe.png"), read_png(png4)
+    if mine.shape != theirs.shape:
+        fail(f"save(0): _clahe.png {mine.shape}, phase 4's {theirs.shape}")
+    d = np.abs(mine.astype(np.int64) - theirs.astype(np.int64))
+    print(f"analyser: mean, max and the shift-0 disk equal phase 4's bit for "
+          f"bit; save(0) {save_s:.3f} s, its _clahe.png against phase 4's: "
+          f"max {d.max()} LSB on {100 * (d > 0).mean():.4f}% of pixels "
+          f"(bound 15 LSB, ROADMAP C4) [{card}]", flush=True)
+    if d.max() > 15:
+        fail(f"save(0)'s _clahe.png is {d.max()} LSB from phase 4's")
+
+    # (d) B3 on the normalised slab, as the analyser launched it
+    lf = an.linefit
+    ind_l, left_w = build_shift_indices(lf.floor, lf.frac, [0], an.iw)
+    a = ([an._device_frames()], torch.from_numpy(ind_l).to(dev),
+         torch.from_numpy(left_w).to(dev), False, False)
+    err = max_abs_err(recon_chunks(*a), recon_chunks_plain(*a))
+    ms = cuda_ms(lambda: recon_chunks(*a), reps)
+    dms = device_ms(lambda: recon_chunks(*a), reps)
+    pms = cuda_ms(lambda: recon_chunks_plain(*a), reps)
+    F = a[0][0].shape[0]
+    b3 = bound(tap_columns(a[1], an.iw) * F * 2 + an.ih * F * 2
+               + a[1].nbytes + a[2].nbytes, {"f32": 3 * an.ih * F})
+    records = [dict(
+        name="recon_normalised", kernel="recon", launches=2, err=err, ms=ms,
+        plain_ms=pms, library_ms=None, bound=b3,
+        note=f"1 launch over the normalised slab {tuple(a[0][0].shape)} as "
+             f"one chunk, rotate=False, S=1; device {dms:.4f} ms, "
+             f"{100 * b3[0] / dms:.1f}% of bound; launches: the analyser "
+             f"CLI's (its fit and one saved shift)")]
+    del a, an, disk
+    torch.cuda.empty_cache()
+
+    # (b) auto-dispersion on atlas-rendered scans
+    atlas = load_atlas()
+    w, inten = atlas.wavelengths, atlas.intensity
+    for true_disp in (0.043, 0.085):
+        p = os.path.join(tmp, f"atlas_{int(true_disp * 1000)}.ser")
+        SyntheticScan(ih=360, iw=IW, frames=220, depth=16,
+                      line_poly=(150.0, 0.0, 0.0, 0.0), disk_radius=100.0,
+                      noise=0.002, seed=4,
+                      spectrum_fn=lambda dpx, d=true_disp: np.interp(
+                          dpx * d + 6562.808, w, inten)).write(p)
+        t0 = time.perf_counter()
+        an = analyser.SpectralAnalyser(p, atlas=atlas, device=dev)
+        got = an.find_dispersion(6562.808)
+        rel = abs(got - true_disp) / true_disp
+        print(f"auto-dispersion: true {true_disp} A/px, found {got} "
+              f"({100 * rel:.3f}%), iw {IW}, {time.perf_counter() - t0:.3f} s "
+              f"with the load [{card}]", flush=True)
+        if rel >= 0.01:
+            fail(f"auto-dispersion found {got} for {true_disp} A/px")
+        del an
+
+    # (c) shg-torch-clahe on phase 4's _clahe.png and its 8-bit copy
+    work = os.path.join(tmp, "clahe_tool")
+    os.makedirs(work)
+    u16 = os.path.join(work, "u16.png")
+    u8 = os.path.join(work, "u8.png")
+    img16 = read_png(png4)
+    write_png_streaming(u16, img16)
+    write_png_streaming(u8, (img16 >> 8).astype(np.uint8))
+    here = os.getcwd()
+    os.chdir(work)
+    walls, worst = [], {}
+    try:
+        for tile in (1, 2, 3, 4):
+            for stretch in (False, True):
+                argv = [u16, u8, "--tile", str(tile)] + (
+                    ["--stretch", "--lo", "5", "--hi", "99"] if stretch
+                    else [])
+                # the tool keeps --stretch in its config: start afresh
+                if os.path.exists(clahe_tool.CONFIG_NAME):
+                    os.remove(clahe_tool.CONFIG_NAME)
+                zero_counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rc = clahe_tool.main(argv)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                n = cuda_build.LAUNCHES["tile_hist"]
+                if rc != 0 or n != 2:
+                    fail(f"shg-torch-clahe {argv[2:]}: rc {rc}, B5 {n}")
+                opts = clahe_tool.read_ini()
+                for src in (u16, u8):
+                    card_out = read_png(src[:-4] + "_clahe.png")
+                    cpu_out = clahe_tool.apply_clahe(src, opts, False, "cpu")
+                    d = np.abs(card_out.astype(np.int64)
+                               - cpu_out.astype(np.int64))
+                    key = (os.path.basename(src), stretch)
+                    m, frac = int(d.max()), float((d > 0).mean())
+                    if stretch:
+                        x = read_png(src)
+                        top = 65535 if x.dtype == np.uint16 else 255
+                        slope = top * 0.8 / (np.percentile(x, 99)
+                                             - np.percentile(x, 5))
+                        ok = m <= slope + 1
+                    else:
+                        ok = m <= 1 and frac < 0.001
+                    worst[key] = max(worst.get(key, (0, 0.0)), (m, frac))
+                    if not ok:
+                        fail(f"shg-torch-clahe {key} tile {tile}: card vs "
+                             f"cpu {m} LSB on {100 * frac:.4f}%")
+    finally:
+        os.chdir(here)
+    print(f"CLAHE tool: 8 runs of 2 images ({img16.shape[0]} x "
+          f"{img16.shape[1]} u16 and its u8 copy), "
+          f"tiles 1-4, with and without --stretch: B5 2 launches a run; wall "
+          f"a run {min(walls):.3f}-{max(walls):.3f} s; card vs --device cpu "
+          f"(max LSB, share): " + "; ".join(
+              f"{k[0]}{' stretch' if k[1] else ''} {v[0]} on "
+              f"{100 * v[1]:.4f}%" for k, v in sorted(worst.items()))
+          + f" [{card}]", flush=True)
+
+    # (d) B5 on the tool's 8-bit image, the four grids the tool ran
+    img8 = torch.from_numpy((img16 >> 8).astype(np.uint8)).to(dev)
+    grids = [(img8, g, g, 256) for g in (1, 2, 3, 4)]
+    err = max(max_abs_err(image_tile_histograms(*g),
+                          image_tile_histograms_plain(*g)) for g in grids)
+    ms = cuda_ms(lambda: [image_tile_histograms(*g) for g in grids], reps)
+    dms = device_ms(lambda: [image_tile_histograms(*g) for g in grids], reps)
+    pms = cuda_ms(lambda: [image_tile_histograms_plain(*g) for g in grids],
+                  reps)
+    keys = [tile_keys(*g) for g in grids]
+    lms = cuda_ms(lambda: [torch.bincount(k, minlength=g[1] * g[2] * 256)
+                           for k, g in zip(keys, grids)], reps)
+    b5 = bound(sum(img8.nbytes + g[1] * g[2] * 256 * 4 for g in grids),
+               {"int32": sum(k.numel() for k in keys)})
+    records.append(dict(
+        name="tile_hist_u8", kernel="tile_hist", launches=8, err=err, ms=ms,
+        plain_ms=pms, library_ms=lms, bound=b5,
+        note=f"4 calls on the {tuple(img8.shape)} u8 image, 256 bins, tiles "
+             f"1x1 to 4x4; device {dms:.4f} ms, {100 * b5[0] / dms:.1f}% of "
+             f"bound; launches: the tool's runs on the u8 image"))
+    del img8, grids, keys
+
+    # (e) python -m solex_ser_recon_en_torch on phase 9's small scan
+    small = os.path.join(tmp, "small", "g0.ser")
+    out_in, out_sub = os.path.join(tmp, "m_in"), os.path.join(tmp, "m_sub")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli_main.main(["-cw0", small, "--output-dir", out_in])
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    sub = subprocess.run([sys.executable, "-m", "solex_ser_recon_en_torch",
+                          "-cw0", small, "--output-dir", out_sub], cwd=tmp,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    sub_s = time.perf_counter() - t0
+    if rc != 0 or sub.returncode != 0:
+        print(sub.stdout[-2000:] + sub.stderr[-2000:], flush=True)
+        fail(f"-cw0 on g0.ser: cli.main rc {rc}, python -m rc "
+             f"{sub.returncode}")
+    name = "g0_shift=0_clahe.png"
+    with open(os.path.join(out_in, name), "rb") as f, \
+            open(os.path.join(out_sub, name), "rb") as g:
+        if f.read() != g.read():
+            fail("python -m solex_ser_recon_en_torch's _clahe.png differs "
+                 "from cli.main's")
+    print(f"python -m solex_ser_recon_en_torch -cw0 (g0.ser): rc 0 in "
+          f"{sub_s:.1f} s; _clahe.png equal to the in-process run's",
+          flush=True)
+    print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return records
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "solex_ser_recon_en_torch")):
@@ -2442,7 +2744,13 @@ def main() -> int:
                                   torch.device("cuda"), res, wall2)
         records += recs
         host_records += hrecs
-        print(f"chip_smoke: phases 1-10 took "
+
+        # 11. the other entry points: shg-torch-analyse, shg-torch-clahe,
+        # python -m
+        torch.cuda.empty_cache()
+        records += analyser_phase(path, tmp, png4, card,
+                                  torch.device("cuda"), res)
+        print(f"chip_smoke: phases 1-11 took "
               f"{time.perf_counter() - t_start:.1f} s [{card}]", flush=True)
 
         for r in records:

@@ -14,7 +14,9 @@ which stays the reference).  Layout and module names mirror it:
 - ``geometry/``  spectral-line fit, limb edges, ellipse fit, warp geometry.
 - ``models/``    the fused device step (``shg_forward``).
 - ``pipeline/``  read_scan -> process_scan -> products (``shg -c`` path).
-- ``cli/``       ``python -m solex_ser_recon_en_torch.cli -c file.ser``.
+- ``analyser/``  the spectral analyser: auto-dispersion, GOTO, save.
+- ``cli/``       ``python -m solex_ser_recon_en_torch -c file.ser`` (also
+                 ``.cli``), the CLAHE tool and the analyser's command line.
 - ``bench_device.py``, ``bench_kernels.py``  the device-resident legs and
                  the kernel shoot-out.
 - ``interop.py`` turns the JAX package's stage results into this

@@ -1,4 +1,4 @@
-"""Grayscale PNG encode and decode.
+"""PNG encode and decode.
 
 Counterpart of the streaming encoder of solex_ser_recon_en_tpu/io/png.py
 at compression 0 (without its OpenCV, PIL and zlib-compressed branches):
@@ -15,12 +15,15 @@ IDAT chunk.
 - ``write_png_streaming_plain`` is the plain version: the same bytes from
   numpy, ``struct`` and ``zlib`` alone.
 
-The bytes of all three equal the JAX package's.  ``read_png`` decodes such
-files, so the checks of the products need neither OpenCV nor PIL.
+The bytes of all three equal the JAX package's.  ``read_png`` decodes
+these files and any other 8/16-bit grey or RGB(A) PNG (every scanline
+filter), so neither the product checks nor ``read_image`` (the CLAHE
+tool's reader) need OpenCV or PIL for a PNG.
 """
 
 from __future__ import annotations
 
+import importlib
 import struct
 import zlib
 
@@ -142,28 +145,133 @@ def write_png_streaming_plain(path: str, img: np.ndarray) -> None:
         _png_chunk(f, b"IEND", [b""])
 
 
+#: PNG colour type -> samples a pixel: grey, RGB, grey + alpha, RGBA
+_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
+def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the PNG scanline filters (types 0-4) of ``raw`` (h, 1 + stride)
+    -> (h, stride) uint8.
+
+    Filter types Average (3) and Paeth (4) make each pixel depend on the
+    reconstructed pixel to its left and the two above it, so the pixels
+    are reconstructed along anti-diagonals, each row applying its own
+    filter: the image is sheared so that diagonal d is row d of ``rec``
+    (pixel (r, x) at rec[r + x + 2, r + 1]; column 0 and the unset cells
+    are the zeros the filters see beyond the image's edges), and one numpy
+    step of contiguous slices does a diagonal, h + w steps in all."""
+    types = raw[:, 0]
+    if types.max(initial=0) > 4:
+        raise ValueError(f"PNG filter type {int(types.max())} is not 0-4")
+    filt = raw[:, 1:]
+    if not types.any():
+        return filt.copy()
+    w = stride // bpp
+    rows = np.arange(h)[:, None]
+    diag = rows + np.arange(w)[None, :]
+    sheared = np.zeros((h + w, h, bpp), np.int16)
+    sheared[diag, rows] = filt.reshape(h, w, bpp)
+    rec = np.zeros((h + w + 2, h + 1, bpp), np.int16)
+    kind = [(types == k)[:, None].astype(np.int16) for k in range(5)]
+    paeth_rows = np.concatenate([[0], np.cumsum(types == 4)])
+    for d in range(h + w - 1):
+        lo, hi = max(0, d - w + 1), min(h, d + 1)    # rows on diagonal d
+        a = rec[d + 1, lo + 1:hi + 1]                # left
+        b = rec[d + 1, lo:hi]                        # above
+        pred = kind[1][lo:hi] * a + kind[2][lo:hi] * b
+        pred += kind[3][lo:hi] * ((a + b) >> 1)
+        if paeth_rows[hi] > paeth_rows[lo]:
+            c = rec[d, lo:hi]                        # above left
+            p = a + b - c
+            pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+            best = np.where((pa <= pb) & (pa <= pc), a,
+                            np.where(pb <= pc, b, c))
+            pred += kind[4][lo:hi] * best
+        rec[d + 2, lo + 1:hi + 1] = (sheared[d, lo:hi] + pred) & 0xFF
+    out = rec[diag + 2, rows + 1]
+    return out.astype(np.uint8).reshape(h, stride)
+
+
+def to_grey(pix: np.ndarray) -> np.ndarray:
+    """(h, w, 3) R, G, B samples (uint8 or uint16) -> grey of the same
+    dtype, as OpenCV's ``COLOR_BGR2GRAY`` of the image it reads: fixed
+    point with 15-bit coefficients, rounded half up."""
+    r, g, b = (pix[..., k].astype(np.int64) for k in range(3))
+    return ((r * 9798 + g * 19235 + b * 3735 + 16384) >> 15).astype(pix.dtype)
+
+
 def read_png(path: str) -> np.ndarray:
-    """Decode a grayscale PNG whose scanlines all use filter type 0."""
+    """Decode a PNG to a grey uint8/uint16 image, as ``cv2.imread(path,
+    IMREAD_ANYDEPTH | IMREAD_ANYCOLOR)`` then ``COLOR_BGR2GRAY`` gives it:
+    8 or 16 bits, colour types grey, grey + alpha, RGB and RGBA (the
+    alpha dropped), every scanline filter, no interlace."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(_SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
     pos, idat, hdr = len(_SIGNATURE), [], None
-    while pos < len(data):
+    while pos + 12 <= len(data):
         (n,) = struct.unpack(">I", data[pos:pos + 4])
         tag = data[pos + 4:pos + 8]
         body = data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if tag in (b"IHDR", b"IDAT") and zlib.crc32(tag + body) != crc:
+            raise ValueError(f"{path}: {tag.decode()} chunk CRC mismatch")
         pos += 12 + n
         if tag == b"IHDR":
             hdr = struct.unpack(">IIBBBBB", body)
         elif tag == b"IDAT":
             idat.append(body)
-    w, h, depth, color = hdr[0], hdr[1], hdr[2], hdr[3]
-    if color != 0 or depth not in (8, 16):
-        raise ValueError(f"{path}: only 8/16-bit grayscale PNGs are read")
-    dt = np.dtype(">u2") if depth == 16 else np.dtype("u1")
+        elif tag == b"IEND":
+            break
+    if hdr is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    w, h, depth, color, _, _, interlace = hdr
+    if color not in _CHANNELS or depth not in (8, 16) or interlace:
+        raise ValueError(f"{path}: colour type {color}, {depth} bits, "
+                         f"interlace {interlace}; only 8/16-bit grey, grey + "
+                         "alpha, RGB and RGBA without interlace are read")
+    ch = _CHANNELS[color]
+    bpp = ch * depth // 8
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    raw = raw.reshape(h, 1 + w * dt.itemsize)
-    if raw[:, 0].any():
-        raise ValueError(f"{path}: filtered scanlines are not supported")
-    return raw[:, 1:].copy().view(dt).reshape(h, w).astype(dt.newbyteorder("="))
+    if raw.size != h * (1 + w * bpp):
+        raise ValueError(f"{path}: {raw.size} bytes of scanlines, not "
+                         f"{h * (1 + w * bpp)}")
+    rows = _unfilter(raw.reshape(h, 1 + w * bpp), h, w * bpp, bpp)
+    dt = np.dtype(">u2") if depth == 16 else np.dtype("u1")
+    pix = rows.view(dt).reshape(h, w, ch).astype(dt.newbyteorder("="))
+    if ch >= 3:
+        return to_grey(pix[..., :3])
+    return np.ascontiguousarray(pix[..., 0])
+
+
+def read_image(path: str) -> np.ndarray:
+    """Read a PNG or TIF image preserving its bit depth, converted to grey.
+
+    Counterpart of solex_ser_recon_en_tpu/io/png.py:read_image (reference:
+    clahe_apply.py:244-246, ``imread`` ANYDEPTH + BGR2GRAY).  A PNG always
+    goes through ``read_png``, so every machine reads the same values.
+    Anything else needs OpenCV or PIL, loaded by name where one imports;
+    without either it raises an ImportError naming the file.  PIL's colour
+    images go through ``to_grey`` (OpenCV's conversion)."""
+    with open(path, "rb") as f:
+        if f.read(len(_SIGNATURE)) == _SIGNATURE:
+            return read_png(path)
+    try:
+        cv2 = importlib.import_module("cv2")
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        img = cv2.imread(path, cv2.IMREAD_ANYDEPTH | cv2.IMREAD_ANYCOLOR)
+        if img is None:
+            raise IOError(f"cannot read image {path}")
+        if img.ndim == 3:
+            img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+        return img
+    try:
+        image = importlib.import_module("PIL.Image")
+    except ImportError:
+        raise ImportError(f"{path}: only PNG is read without OpenCV or PIL, "
+                          "and neither cv2 nor PIL imports here") from None
+    img = np.asarray(image.open(path))
+    return to_grey(img[..., :3]) if img.ndim == 3 else img

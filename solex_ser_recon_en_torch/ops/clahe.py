@@ -163,19 +163,11 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
-def percentile_from_hist(hist: torch.Tensor, n: int, q_pct: float
-                         ) -> torch.Tensor:
-    """jnp.percentile(values.astype(f32), q_pct) from an exact value
-    histogram: the k-th order statistic is the smallest bin whose
-    cumulative count reaches k+1.
-
-    The q -> index arithmetic is the JAX package's (jnp's weakly-typed
-    float32 steps, which XLA folds to float32 constants); here it runs in
-    numpy float32 on the host, and only the two order statistics and the
-    final lerp touch the device.  Returns a 0-d float32 tensor.
-    """
-    if n >= (1 << 31):
-        raise ValueError(f"percentile_from_hist: n={n} exceeds int32 counts")
+def percentile_taps(q_pct: float, n: int):
+    """jnp.percentile's linear interpolation between order statistics:
+    (low, high, low_w, high_w) for q_pct of n values, in the JAX package's
+    arithmetic (jnp's weakly-typed float32 steps, which XLA folds to
+    float32 constants), here in numpy float32 on the host."""
     q = np.float32(q_pct) / np.float32(100)
     nf = np.float32(n)
     qn = q * (nf - np.float32(1))
@@ -183,11 +175,25 @@ def percentile_from_hist(hist: torch.Tensor, n: int, q_pct: float
     high = np.clip(np.ceil(qn), np.float32(0), nf - np.float32(1))
     high_w = qn - np.floor(qn)
     low_w = np.float32(1) - high_w
+    return int(low), int(high), _f32(low_w), _f32(high_w)
+
+
+def percentile_from_hist(hist: torch.Tensor, n: int, q_pct: float
+                         ) -> torch.Tensor:
+    """jnp.percentile(values.astype(f32), q_pct) from an exact value
+    histogram: the k-th order statistic is the smallest bin whose
+    cumulative count reaches k+1 (``percentile_taps``); only the two order
+    statistics and the final lerp touch the device.  Returns a 0-d
+    float32 tensor.
+    """
+    if n >= (1 << 31):
+        raise ValueError(f"percentile_from_hist: n={n} exceeds int32 counts")
+    low, high, low_w, high_w = percentile_taps(q_pct, n)
     cum = torch.cumsum(hist.to(torch.int32), dim=0, dtype=torch.int32)
-    k = torch.tensor([int(low) + 1, int(high) + 1], dtype=torch.int32,
+    k = torch.tensor([low + 1, high + 1], dtype=torch.int32,
                      device=hist.device)
     s = torch.searchsorted(cum, k, side="left").to(torch.float32)
-    return s[0] * _f32(low_w) + s[1] * _f32(high_w)
+    return s[0] * low_w + s[1] * high_w
 
 
 def value_histogram(img: torch.Tensor, hist_size: int) -> torch.Tensor:

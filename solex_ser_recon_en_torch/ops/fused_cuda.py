@@ -15,7 +15,9 @@ launches the kernel; a CPU tensor takes the plain version
 ``sum_max`` and ``mean_max`` are pass A: the int32 frame sum and the frame
 max of u8 or u16 frames in any layout, from one read of them (the ring and
 the sum/max consumer that B1 and B6 use, with no shifts).  The JAX package
-leaves these reductions to XLA (solex_ser_recon_en_tpu/ops/fused.py:33-34).
+leaves these reductions to XLA (solex_ser_recon_en_tpu/ops/fused.py:33-34);
+``mean_max`` also stands for its frames-in-memory reduction
+(solex_ser_recon_en_tpu/ops/reduce.py), which the spectral analyser runs.
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ from .recon import recon_plain
 
 #: int32 sum bound: 65535 * 32767 < 2**31 (ops/fused_pallas.py:21)
 MAX_FRAMES = 32767
+#: longer stacks spill the int32 sum into an int64 fold every 2**15 frames
+#: (65535 * 2**15 < 2**31; solex_ser_recon_en_tpu/ops/reduce.py)
+SPILL_FRAMES = 1 << 15
 #: B6 holds whole rows of 8 frames in shared memory: rows up to 3072
 #: columns (csrc/fused_mxu.cu)
 MXU_MAX_IW = 3072
@@ -121,15 +126,32 @@ def sum_max(frames: torch.Tensor, total: torch.Tensor,
 
 
 def mean_max(frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """frames (F, ih, iw) u16 -> (mean u16, max u16), as ``mean_max_plain``:
-    the sum/max kernel on CUDA tensors, the plain version on CPU tensors."""
-    _sum_max_check(frames, "mean_max")
-    if frames.device.type == "cpu":
-        return mean_max_plain(frames)
+    """frames (F, ih, iw) u8 or u16, any F -> (mean u16, max u16) on the
+    frames' device: the reference's truncating mean of the exact frame
+    sum (solex_util.py:174-188, a uint64 accumulation), and the max.
+
+    Up to MAX_FRAMES frames this is ``mean_max_plain`` (one launch of the
+    sum/max kernel on CUDA tensors).  Longer stacks spill the int32 sum
+    into an int64 fold every SPILL_FRAMES frames, as
+    solex_ser_recon_en_tpu/ops/reduce.py:MeanMaxAccumulator does, so any
+    length is exact."""
+    if frames.ndim == 3 and frames.shape[0] <= MAX_FRAMES:
+        _sum_max_check(frames, "mean_max")
+        if frames.device.type == "cpu":
+            return mean_max_plain(frames)
     total = torch.zeros(frames.shape[1:], dtype=torch.int32,
                         device=frames.device)
     mx = torch.zeros_like(total)
-    sum_max(frames, total, mx)
+    fold = None
+    for start in range(0, frames.shape[0], SPILL_FRAMES):
+        if start:
+            fold = total.long() if fold is None else fold + total
+            total.zero_()
+        window = frames[start:start + SPILL_FRAMES]
+        for a in range(0, window.shape[0], MAX_FRAMES):
+            sum_max(window[a:a + MAX_FRAMES], total, mx)
+    if fold is not None:
+        total = fold + total
     return to_u16(total // frames.shape[0]), to_u16(mx)
 
 

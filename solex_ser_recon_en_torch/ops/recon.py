@@ -11,6 +11,11 @@ solex_ser_recon_en_tpu/ops/recon.py:_recon_gather on the RAW SER layout,
 with the rot90 and the 8-bit x256 upscale taken into the indexing exactly
 as solex_ser_recon_en_tpu/ops/fused.py:_recon_raw_lerp does.
 
+``reconstruct`` is the counterpart of
+solex_ser_recon_en_tpu/ops/recon.py:reconstruct, the recon of normalised
+frames held in memory (the spectral analyser's): kernel B3 with
+``rotate=False`` on a CUDA tensor.
+
 ``recon_onehot`` is the counterpart of
 solex_ser_recon_en_tpu/ops/recon.py:_recon_onehot: the recon as one
 float32 matrix product batched over rows, which the JAX package leaves to
@@ -135,3 +140,30 @@ def recon_onehot(frames: torch.Tensor, ind_l: torch.Tensor,
         torch.backends.cuda.matmul.allow_tf32 = tf32
         torch.set_float32_matmul_precision(precision)
     return to_u16(out.clamp(0, 65535)).permute(1, 0, 2).contiguous()
+
+
+def reconstruct(frames, fit_floor: np.ndarray, fit_frac: np.ndarray,
+                shifts) -> torch.Tensor:
+    """Disks (S, ih, F) u16 of normalised frames held in memory, for every
+    shift: the frames-in-memory recon of the spectral analyser.
+
+    Counterpart of solex_ser_recon_en_tpu/ops/recon.py:reconstruct.
+    frames: (F, ih, iw) u16 tensor (a numpy array is taken as a CPU
+    tensor); fit_floor/fit_frac: (ih,) line fit.  A CUDA tensor launches
+    kernel B3 (ops/recon_cuda.py:recon_chunks, the counterpart of the
+    Pallas recon) over the frames as one chunk, ``rotate=False``; a CPU
+    tensor takes its plain version.
+
+    The JAX function's ``kernel`` choice (its XLA "gather" and "onehot"
+    recons stand beside the Pallas one) and ``out_u16=False`` (float
+    disks, for its mesh) are not ported: no caller of the port needs them.
+    """
+    from .recon_cuda import recon_chunks
+
+    if isinstance(frames, np.ndarray):
+        frames = torch.from_numpy(frames)
+    ind_l, left_w = build_shift_indices(fit_floor, fit_frac, shifts,
+                                        frames.shape[2])
+    ind_l = torch.from_numpy(ind_l).to(frames.device)
+    left_w = torch.from_numpy(left_w).to(frames.device)
+    return recon_chunks([frames], ind_l, left_w, False, False)

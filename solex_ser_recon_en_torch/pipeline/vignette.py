@@ -21,25 +21,19 @@ import torch
 from scipy.ndimage import gaussian_filter1d
 from scipy.signal import savgol_filter
 
+from ..ops.clahe import percentile_taps
 from ..ops.dtypes import as_f32, widen
 from ..utils.placement import host_ops_device
 
 
 def _percentile_along(f: torch.Tensor, q_pct: float, dim: int) -> torch.Tensor:
     """jnp.percentile(f, q_pct, axis=dim) of a float32 tensor, linear
-    interpolation: the index arithmetic in float32 on the host, each step
-    rounded (value_low * low_weight + value_high * high_weight)."""
-    n = f.shape[dim]
-    q = np.float32(q_pct) / np.float32(100)
-    nf = np.float32(n)
-    qn = q * (nf - np.float32(1))
-    low = np.clip(np.floor(qn), np.float32(0), nf - np.float32(1))
-    high = np.clip(np.ceil(qn), np.float32(0), nf - np.float32(1))
-    high_w = qn - np.floor(qn)
-    low_w = np.float32(1) - high_w
+    interpolation between the order statistics and weights of
+    ``percentile_taps`` (value_low * low_weight + value_high * high_weight,
+    each step rounded)."""
+    low, high, low_w, high_w = percentile_taps(q_pct, f.shape[dim])
     s = torch.sort(f, dim=dim).values
-    return (s.select(dim, int(low)) * float(low_w)
-            + s.select(dim, int(high)) * float(high_w))
+    return s.select(dim, low) * low_w + s.select(dim, high) * high_w
 
 
 def _axis_percentiles(img: torch.Tensor):

@@ -127,3 +127,37 @@ def test_bad_feed_mode_exits_2(basic_scan, tmp_path, capsys, tokens):
     said = capsys.readouterr().out
     assert "invalid feed mode 'bogus' (auto|device|band|host)" in said
     assert not out.exists() or not any(out.iterdir())
+
+
+def test_python_m_package_runs_the_cli(basic_scan, tmp_path):
+    """``python -m solex_ser_recon_en_torch`` is ``shg-torch``: its
+    ``-cw0 --device cpu`` product equals the in-process run's, byte for
+    byte, and without ``--device cpu`` on a machine with no CUDA it exits
+    2."""
+    import subprocess
+    import sys
+
+    import torch
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    sub, here = tmp_path / "sub", tmp_path / "here"
+    res = subprocess.run(
+        [sys.executable, "-m", "solex_ser_recon_en_torch", "--device", "cpu",
+         "-cw0", basic_scan["path"], "--output-dir", str(sub)],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert cli_main(["-cw0", basic_scan["path"], "--device", "cpu",
+                     "--output-dir", str(here)]) == 0
+    name = "basic_shift=0_clahe.png"
+    assert (sub / name).read_bytes() == (here / name).read_bytes()
+    if not torch.cuda.is_available():
+        res = subprocess.run(
+            [sys.executable, "-m", "solex_ser_recon_en_torch", "-cw0",
+             basic_scan["path"], "--output-dir", str(tmp_path / "none")],
+            cwd=tmp_path, env=env, capture_output=True, text=True,
+            timeout=300)
+        assert res.returncode == 2 and "CUDA is not available" in res.stdout
+        none = tmp_path / "none"
+        assert not none.exists() or not any(none.iterdir())

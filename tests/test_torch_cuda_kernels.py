@@ -561,6 +561,23 @@ def test_sum_max_kernel_matches_plain(rng, cuda_device, F, ih, iw, S, dtype,
             np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
 
 
+def test_mean_max_spill_matches_exact_sum(rng, cuda_device, monkeypatch):
+    """``mean_max`` past MAX_FRAMES: the int32 sum spilled into the int64
+    fold at each window's edge (both shrunk here), bit-identical to the
+    exact uint64 mean and to the CPU's spill."""
+    from solex_ser_recon_en_torch.ops import fused_cuda
+
+    monkeypatch.setattr(fused_cuda, "SPILL_FRAMES", 4)
+    monkeypatch.setattr(fused_cuda, "MAX_FRAMES", 3)
+    arr = rng.integers(60000, 65536, (23, 6, 5)).astype(np.uint16)
+    mean, mx = mean_max(t(arr, cuda_device))
+    exact = (arr.astype(np.uint64).sum(axis=0) / 23).astype(np.uint16)
+    np.testing.assert_array_equal(mean.cpu().numpy(), exact)
+    np.testing.assert_array_equal(mx.cpu().numpy(), arr.max(axis=0))
+    for a, b in zip((mean, mx), mean_max(torch.from_numpy(arr))):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+
+
 @pytest.mark.parametrize("dtype", [np.uint16, np.uint8])
 def test_sum_max_kernel_raw_chunks(rng, cuda_device, dtype):
     """A raw (81, 300, 2048) chunk as the feeder makes them, and the
@@ -886,3 +903,76 @@ def test_band_and_host_feeds_on_the_card(cuda_device, tmp_path):
                        scans["device"].disk_list.view(torch.int16).cpu())
     assert (tmp_path / "band" / "band_shift=0_clahe.png").read_bytes() == \
         (tmp_path / "device" / "band_shift=0_clahe.png").read_bytes()
+
+
+@pytest.mark.parametrize("F", [37, 2000])
+def test_recon_on_a_normalised_slab_matches_plain(rng, cuda_device, F):
+    """Kernel B3 as the analyser launches it: the whole normalised (F, ih,
+    iw) slab as one chunk, ``rotate=False``, S = 1 (ops/recon.py:
+    reconstruct)."""
+    from solex_ser_recon_en_torch.ops.recon import reconstruct
+
+    frames = rng.integers(0, 65536, (F, 96, 40)).astype(np.uint16)
+    curve = 17.3 + 0.04 * np.arange(96)
+    floor = np.floor(curve)
+    slab = t(frames, cuda_device)
+    for shift in (10, 0, -20):
+        for k in cuda_build.LAUNCHES:
+            cuda_build.LAUNCHES[k] = 0
+        out = reconstruct(slab, floor, curve - floor, [shift])
+        torch.cuda.synchronize()
+        assert cuda_build.LAUNCHES["recon"] == 1
+        want = reconstruct(slab.cpu(), floor, curve - floor, [shift])
+        assert torch.equal(out.cpu().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("tiles", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape", [(300, 260), (301, 257)])
+def test_hist_kernel_u8_256_bins_by_tile_grid(rng, cuda_device, tiles, shape):
+    """Kernel B5 as the CLAHE tool launches it on an 8-bit image: 256 bins,
+    a square grid of 1-4 tiles, reflect padding where it does not divide
+    the image; the tool's CLAHE on the card against the CPU's."""
+    from solex_ser_recon_en_torch.ops.clahe import clahe
+
+    img = rng.integers(0, 256, shape).astype(np.uint8)
+    img[:100, :80] = 3
+    _check_image_hist(t(img, cuda_device), tiles, tiles, 256)
+    got = clahe(t(img, cuda_device), 0.8, (tiles, tiles)).cpu().numpy()
+    want = clahe(t(img), 0.8, (tiles, tiles)).numpy()
+    d = np.abs(got.astype(int) - want.astype(int))
+    assert d.max() <= 1 and (d > 0).mean() < 0.01
+
+
+def test_analyser_on_the_card_equals_the_cpu(cuda_device, tmp_path):
+    """One upload, pass A once, B3 once for the fit and once a saved
+    shift, B4 once and B5 twice a save; mean, max and disks equal the CPU
+    analyser's."""
+    from solex_ser_recon_en_torch.analyser import SpectralAnalyser
+    from solex_ser_recon_en_torch.io.synthetic import SyntheticScan
+
+    p = str(tmp_path / "an.ser")
+    SyntheticScan(ih=360, iw=300, frames=220, depth=16,
+                  line_poly=(150.0, 0.02, -1e-4, 0.0), disk_radius=100.0,
+                  squash_y=1.08, noise=0.002, seed=4).write(
+                      p, transpose_to_wide=True)
+    for k in cuda_build.LAUNCHES:
+        cuda_build.LAUNCHES[k] = 0
+    a = SpectralAnalyser(p, device=cuda_device)
+    torch.cuda.synchronize()
+    assert a.transfer_count == 1
+    assert cuda_build.LAUNCHES["sum_max"] == 1
+    assert cuda_build.LAUNCHES["recon"] == 1
+    c = SpectralAnalyser(p, device="cpu")
+    np.testing.assert_array_equal(a.mean_img, c.mean_img)
+    assert a.state.anchor_x == c.state.anchor_x
+    for k in cuda_build.LAUNCHES:
+        cuda_build.LAUNCHES[k] = 0
+    cc, _ = a.save(0, str(tmp_path / "out"))
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["recon"] == 1
+    assert cuda_build.LAUNCHES["hresample"] == 1
+    assert cuda_build.LAUNCHES["tile_hist"] == 2
+    assert cc.is_cuda and a.transfer_count == 1
+    for shift in (0, 10):
+        assert torch.equal(a._recon_at(shift).cpu().view(torch.int16),
+                           c._recon_at(shift).view(torch.int16))

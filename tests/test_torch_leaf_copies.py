@@ -4,7 +4,8 @@ figure lane, the three diagnostic plots, ``fix_edge_effect``) against the
 originals: the same inputs give the same fields, bytes and arrays.  The
 native host library's source is a copy too, held byte for byte, and so are
 the page-cache pin, the host Canny and the host warp twins (io/pagecache.py,
-ops/canny_host.py, ops/warp_host.py)."""
+ops/canny_host.py, ops/warp_host.py), the analyser's atlas module and its
+four data files."""
 
 import dataclasses
 import os
@@ -40,10 +41,15 @@ def test_native_source_is_a_byte_for_byte_copy():
 
 @pytest.mark.parametrize("rel", [os.path.join("io", "pagecache.py"),
                                  os.path.join("ops", "canny_host.py"),
-                                 os.path.join("ops", "warp_host.py")])
+                                 os.path.join("ops", "warp_host.py"),
+                                 os.path.join("analyser", "atlas.py"),
+                                 os.path.join("data", "atlas.npz"),
+                                 os.path.join("data", "anchor_candidates.txt"),
+                                 os.path.join("data", "anchor_lines.txt"),
+                                 os.path.join("data", "line_targets.txt")])
 def test_whole_module_copies_are_byte_for_byte(rel):
-    """numpy-only modules of the JAX package copied whole, at the same
-    relative path."""
+    """numpy-only modules of the JAX package copied whole, and the
+    analyser's data files, at the same relative path."""
     with open(os.path.join(ROOT, "solex_ser_recon_en_tpu", rel), "rb") as f:
         original = f.read()
     with open(os.path.join(ROOT, "solex_ser_recon_en_torch", rel), "rb") as f:

@@ -6,7 +6,9 @@ it as an 8-bit SER and a Y800 AVI (``chip_smoke.write_y800_avi``) with
 ``--input-dir`` and ``--profile``, then every
 product mode that writes no figure (``-f``, the crops, a sweep,
 ``protus_only``, stubborn, de-vignette) and the ``band`` and ``host``
-feeds (none of cv2, PIL or matplotlib may be loaded by then) and the default mode (which loads matplotlib, in
+feeds, ``python -m solex_ser_recon_en_torch``, the CLAHE tool on a
+product PNG and the spectral analyser (none of cv2, PIL or matplotlib
+may be loaded by then) and the default mode (which loads matplotlib, in
 pipeline/plots.py alone), the fused step
 (``models.shg_forward``, and ``shg_fused(..., mxu=True)``), the
 resident-path benchmark (``bench_device``), the feed measurements
@@ -65,6 +67,19 @@ for feed in ("band", "host"):
     rc = cli.main(["-cw0", "tiny.ser", "--device", "cpu", "--feed", feed,
                    "--output-dir", "feed_" + feed])
     assert rc == 0, (feed, rc)
+import runpy
+import solex_ser_recon_en_torch.cli.analyse as analyse
+import solex_ser_recon_en_torch.cli.clahe_tool as clahe_tool
+sys.argv = ["solex_ser_recon_en_torch", "-cw0", "tiny.ser", "--device", "cpu",
+            "--output-dir", "main_m"]
+try:
+    runpy.run_module("solex_ser_recon_en_torch", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+rc = clahe_tool.main(["tiny_shift=0_clahe.png", "--stretch", "--device", "cpu"])
+assert rc == 0, rc
+rc = analyse.main(["tiny.ser", "--device", "cpu", "--save", "an"])
+assert rc == 0, rc
 heavy = sorted(m for m in sys.modules
                if m.split(".")[0] in ("cv2", "PIL", "matplotlib"))
 assert not heavy, heavy
@@ -124,6 +139,12 @@ def test_port_runs_without_importing_jax(tmp_path):
     assert res.returncode == 0, res.stdout + res.stderr
     assert "NO_JAX_OK" in res.stdout
     assert (tmp_path / "tiny_shift=0_clahe.png").exists()
+    assert (tmp_path / "main_m" / "tiny_shift=0_clahe.png").read_bytes() == \
+        (tmp_path / "tiny_shift=0_clahe.png").read_bytes()
+    assert (tmp_path / "tiny_shift=0_clahe_clahe.png").exists()
+    assert (tmp_path / "clahe_config.txt").exists()
+    for name in ("an_clahe.png", "an_protus.png"):
+        assert (tmp_path / name).exists(), name
     session = tmp_path / "session"
     assert (session / "a_shift=0_clahe.png").read_bytes() == \
         (session / "b_shift=0_clahe.png").read_bytes()
@@ -175,10 +196,12 @@ def test_port_sources_import_no_cv2_no_pil_and_matplotlib_in_plots_only():
             assert root not in ("cv2", "PIL"), (path, line)
             if root == "matplotlib":
                 assert path.endswith((plots, run)), (path, line)
-        # OpenCV decodes compressed AVIs alone, loaded by name on demand
+        # OpenCV decodes compressed AVIs, and OpenCV or PIL non-PNG images
+        # for the CLAHE tool, loaded by name on demand
         with open(path) as f:
             if 'import_module("cv2")' in f.read():
-                assert path.endswith(os.path.join("io", "video.py")), path
+                assert path.endswith((os.path.join("io", "video.py"),
+                                      os.path.join("io", "png.py"))), path
     assert any(root == "matplotlib" for root, _ in _imported_roots(
         os.path.join(ROOT, "solex_ser_recon_en_torch", plots)))
 

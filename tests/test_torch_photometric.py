@@ -17,8 +17,9 @@ on long rows; the port's sum in float64 (ops/filters.py says why), so the
 difference between the two is the JAX filters' own rounding.
 """
 
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -211,6 +212,22 @@ def test_axis_percentiles_match_jax():
         for a, b in zip(ours, ref):
             assert a.dtype == torch.float32
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1.2e-7)
+
+
+@pytest.mark.parametrize("q", [0.0, 10.0, 50.0, 99.9999, 100.0])
+def test_percentile_along_matches_jnp_percentile(rng, q):
+    """``percentile_taps``'s order statistics and weights, along each axis,
+    against jnp.percentile under jit, as the JAX package runs it (its
+    weakly-typed steps folded to float32 constants; eager jnp rounds them
+    otherwise): within 2 float32 ulps, as XLA:CPU may fuse one
+    of the lerp's two products into its sum (ROADMAP C2) and each of the
+    three roundings moves the result by up to half an ulp."""
+    f = rng.integers(0, 65536, (70, 33)).astype(np.float32)
+    for dim in (0, 1):
+        got = vig._percentile_along(t(f), q, dim).numpy()
+        want = np.asarray(jax.jit(
+            lambda x: jnp.percentile(x, q, axis=dim))(jnp.asarray(f)))
+        assert np.all(np.abs(got - want) <= 2 * np.spacing(want)), (q, dim)
 
 
 @pytest.mark.parametrize("as_u16", [False, True])
