@@ -176,6 +176,27 @@ Phases; any failure exits non-zero before the final result line:
    ``recon_normalised`` and ``tile_hist_u8`` entries).  ``python -m
    solex_ser_recon_en_torch -cw0`` as a subprocess on phase 9's g0.ser:
    its ``_clahe.png`` equals the in-process run's.
+12. the device mesh (parallel/mesh.py), after phase 4's resident chunks
+   are freed: ``-cw0`` through ``process_file`` under
+   ``make_mesh({"frame": 4}, [card] * 4)`` (each chunk's frames in four
+   pieces): pass A once a piece, B3 exactly 4 (once a shard), B4 at least
+   once, B5 exactly twice; mean, max and disks bit-identical to phase
+   4's, ``_clahe.png`` byte-identical; its wall beside phase 4's run-2
+   wall (information: the shards run one after another on one card).  The
+   band feed under the same mesh: B3 4, no pass A launch, disks equal
+   phase 10's.  ``shg-torch -cw0 --mesh frame=2`` exits 2 with nothing
+   written on a one-card machine (on two cards or more: ``-cw0`` on a mesh
+   of cuda:0 and cuda:1 gives phase 4's ``_clahe.png``, and every kernel
+   on cuda:1 launched while cuda:0 is current equals its plain version).
+   The group read under a (batch=2, frame=2) mesh of the card over phase
+   9's four small scans: B3 once a piece (8), disks equal the unsharded
+   group read's.  ``shard_scan_recon`` (both recons) and
+   ``device_pipeline_step`` (u16 and float outputs) on the card against
+   the CPU, within the CPU tests' tolerances.  ``initialize`` with world
+   size 1 on ``nccl``, one ``all_reduce`` on the card,
+   ``destroy_process_group``.  Pass A's kernel and B3 on the mesh run's
+   pieces against their plain versions (the ``sum_max_shard`` and
+   ``recon_shard`` entries).  The phase must take under 30 s.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the
@@ -186,8 +207,9 @@ inputs its times were taken on, and pass A has three entries, ``sum_max``
 ``sum_max_u8`` (the session's u8 chunks); B3 has ``recon``, ``recon_u8``,
 ``recon_band`` (the band feed's chunks) and ``recon_normalised`` (the
 analyser's slab), B5 ``tile_hist``, ``tile_hist_r1001`` and
-``tile_hist_u8`` (the CLAHE tool's 8-bit image).  The script imports
-nothing of JAX, and prints the seconds phases 1-11 took.
+``tile_hist_u8`` (the CLAHE tool's 8-bit image); pass A and B3 also have
+``sum_max_shard`` and ``recon_shard`` (phase 12's pieces).  The script
+imports nothing of JAX, and prints the seconds phases 1-12 took.
 """
 
 from __future__ import annotations
@@ -494,7 +516,8 @@ def host_phase(path, tmp, png, res, blur_args, args, calls, card,
     plain, _, _ = feeder.raw_device_chunks_plain(reader, Options().frame_chunk,
                                                  dev)
     n = 0
-    for (s_new, c_new), (s_plain, c_plain) in zip(new, plain, strict=True):
+    for (s_new, c_new, _), (s_plain, c_plain, _) in zip(new, plain,
+                                                         strict=True):
         if s_new != s_plain or c_new.dtype != c_plain.dtype or not \
                 torch.equal(as_int16(c_new), as_int16(c_plain)):
             fail(f"the feed's chunk at frame {s_new} differs from the plain "
@@ -2167,6 +2190,434 @@ def analyser_phase(path, tmp, png4, card, dev, res) -> list:
     return records
 
 
+def mesh_phase(path, tmp, png4, card, dev, res, wall2) -> list:
+    """Phase 12: the device mesh (parallel/mesh.py) on the phase-3 scan
+    (module docstring); returns the records of pass A's kernel and B3 on
+    the mesh run's pieces (``sum_max_shard``, ``recon_shard``)."""
+    import contextlib
+    import io
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from solex_ser_recon_en_torch.cli import main as cli_main
+    from solex_ser_recon_en_torch.cli.flags import parse_cli
+    from solex_ser_recon_en_torch.config import Options
+    from solex_ser_recon_en_torch.ops import cuda_build, fused, fused_cuda
+    from solex_ser_recon_en_torch.ops.dtypes import as_int16, widen
+    from solex_ser_recon_en_torch.ops.recon import (
+        build_shift_indices,
+        recon_chunks_plain,
+    )
+    from solex_ser_recon_en_torch.parallel.distributed import initialize
+    from solex_ser_recon_en_torch.parallel.mesh import (
+        device_pipeline_step,
+        make_mesh,
+        shard_scan_recon,
+    )
+    from solex_ser_recon_en_torch.pipeline import run as run_mod
+    from solex_ser_recon_en_torch.pipeline.batch import read_scans_batched
+
+    t_phase = time.perf_counter()
+    reps = 10
+    torch.cuda.synchronize()
+    print(f"mesh: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated "
+          f"before the phase loads its scan [{card}]", flush=True)
+
+    def zero_counts():
+        for k in cuda_build.LAUNCHES:
+            cuda_build.LAUNCHES[k] = 0
+
+    def same(a, b):
+        return a.shape == b.shape and torch.equal(as_int16(a).cpu(),
+                                                  as_int16(b).cpu())
+
+    def cw0_options(out):
+        opts = Options()
+        parse_cli(opts, ["-cw0", path, "--output-dir", out])
+        return opts
+
+    # (1) -cw0 through process_file under a 4-shard frame mesh on the card
+    mesh4 = make_mesh({"frame": 4}, devices=[dev] * 4)
+    got = {}
+    orig = {"read_scan": run_mod.read_scan,
+            "mean_max": fused.RawScanProcessor.mean_max,
+            "recon_chunks": fused.recon_chunks, "sum_max": fused.sum_max}
+    pieces, groups = [], []
+
+    def read_scan(file, opts, d, timer=None, mesh=None):
+        got["scan"] = orig["read_scan"](file, opts, d, timer, mesh)
+        return got["scan"]
+
+    def mean_max(self):
+        got["mean_max"] = orig["mean_max"](self)
+        return got["mean_max"]
+
+    def sum_max(frames, total, mx):
+        pieces.append((frames, total))
+        return orig["sum_max"](frames, total, mx)
+
+    def recon_chunks(chunks, ind_l, left_w, rotate, upscale, out=None,
+                     frame_offset=0):
+        groups.append((list(chunks), ind_l, left_w, rotate, upscale))
+        return orig["recon_chunks"](chunks, ind_l, left_w, rotate, upscale,
+                                    out, frame_offset)
+
+    out12 = os.path.join(tmp, "mesh_out")
+    opts = cw0_options(out12)
+    run_mod.read_scan, fused.RawScanProcessor.mean_max = read_scan, mean_max
+    fused.recon_chunks, fused.sum_max = recon_chunks, sum_max
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        run_mod.process_file(path, opts, dev, mesh=mesh4)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_build.LAUNCHES)
+    finally:
+        run_mod.read_scan = orig["read_scan"]
+        fused.RawScanProcessor.mean_max = orig["mean_max"]
+        fused.recon_chunks, fused.sum_max = (orig["recon_chunks"],
+                                             orig["sum_max"])
+    sr4, sr = res["scan"], got["scan"]
+    print(f"mesh: -cw0 through process_file on a 4-shard frame mesh of the "
+          f"one card: wall {wall:.3f} s (phase 4's run 2 {wall2:.3f} s; "
+          f"information only: the shards run one after another); launches "
+          f"{launches} [{card}]", flush=True)
+    if len(pieces) != launches["sum_max"] or launches["recon"] != 4 or \
+            launches["hresample"] < 1 or launches["tile_hist"] != 2:
+        fail(f"mesh: launches {launches} for {len(pieces)} pieces: pass A "
+             "must run once a piece, B3 4 times, B4 at least once, B5 twice")
+    if len({p.data_ptr() for _, p in pieces}) != 4:
+        fail("mesh: pass A did not keep one accumulator pair a shard")
+    if not np.array_equal(got["mean_max"][0], sr4.mean_img) or \
+            not np.array_equal(got["mean_max"][1], res["max_img"]):
+        fail("mesh: mean or max differs from phase 4's")
+    zi = sr.shifts.index(0)
+    if sr.shifts != sr4.shifts or not same(sr.disk_list[zi],
+                                           sr4.disk_list[zi]):
+        fail("mesh: the shift-0 disk differs from phase 4's")
+    with open(os.path.join(out12, "scan_shift=0_clahe.png"), "rb") as f:
+        mine = f.read()
+    with open(png4, "rb") as f:
+        if mine != f.read():
+            fail("mesh: _clahe.png differs from phase 4's")
+    n_pieces = len(pieces)
+    print(f"mesh: {n_pieces} pieces ({sorted({p.shape[0] for p, _ in pieces})}"
+          f" frames), B3 once a shard over {[len(g[0]) for g in groups]} "
+          "pieces; mean, max and every disk equal phase 4's bit for bit, "
+          "_clahe.png byte-identical", flush=True)
+
+    # the kernel entries on the pieces' shapes
+    def max_abs_err(x, y):
+        return (widen(x) - widen(y)).abs().max().item()
+
+    err = max(max_abs_err(orig["recon_chunks"](*g), recon_chunks_plain(*g))
+              for g in groups)
+    ms = cuda_ms(lambda: [orig["recon_chunks"](*g) for g in groups], reps)
+    dms = device_ms(lambda: [orig["recon_chunks"](*g) for g in groups],
+                    reps)
+    pms = cuda_ms(lambda: [recon_chunks_plain(*g) for g in groups], reps)
+    nbytes, flops = 0, 0
+    for chunks, ind_l, left_w, rotate, _ in groups:
+        n = sum(c.shape[0] for c in chunks)
+        S, ih = ind_l.shape
+        iw = chunks[0].shape[1] if rotate else chunks[0].shape[2]
+        nbytes += (tap_columns(ind_l, iw) * n * chunks[0].element_size()
+                   + S * ih * n * 2 + ind_l.nbytes + left_w.nbytes)
+        flops += 3 * S * ih * n
+    b3 = bound(nbytes, {"f32": flops})
+    records = [dict(
+        name="recon_shard", kernel="recon", launches=launches["recon"],
+        err=err, ms=ms, plain_ms=pms, library_ms=None, bound=b3,
+        note=f"4 launches, one a shard, over {[len(g[0]) for g in groups]} "
+             f"pieces of {sorted({tuple(c.shape) for g in groups for c in g[0]})}"
+             f"; device {dms:.4f} ms, {100 * b3[0] / dms:.1f}% of bound")]
+
+    hw = pieces[0][0].shape[1:]
+    accs = list(dict.fromkeys(t.data_ptr() for _, t in pieces))
+    owner = [accs.index(t.data_ptr()) for _, t in pieces]
+    chunks_a = [p for p, _ in pieces]
+
+    def pass_a(step):
+        acc = [(torch.zeros(hw, dtype=torch.int32, device=dev),
+                torch.zeros(hw, dtype=torch.int32, device=dev))
+               for _ in accs]
+        for c, k in zip(chunks_a, owner):
+            step(c, *acc[k])
+        return [x for pair in acc for x in pair]
+
+    err = max(max_abs_err(x, y) for x, y in zip(
+        pass_a(orig["sum_max"]), pass_a(fused_cuda.sum_max_plain)))
+    ms = cuda_ms(lambda: pass_a(orig["sum_max"]), reps)
+    pms = cuda_ms(lambda: pass_a(fused_cuda.sum_max_plain), reps)
+    acc_s = torch.zeros(hw, dtype=torch.int32, device=dev)
+    acc_m = torch.zeros_like(acc_s)
+    dms = device_ms(lambda: [orig["sum_max"](c, acc_s, acc_m)
+                             for c in chunks_a], reps)
+    raw_bytes = sum(c.nbytes for c in chunks_a)
+    bA = bound(raw_bytes + len(chunks_a) * 4 * acc_s.nbytes,
+               {"int32": 2 * raw_bytes // chunks_a[0].element_size()})
+    records.append(dict(
+        name="sum_max_shard", kernel="sum_max", launches=launches["sum_max"],
+        err=err, ms=ms, plain_ms=pms, library_ms=None, bound=bA,
+        note=f"{len(chunks_a)} launches, one a piece of "
+             f"{sorted({tuple(c.shape) for c in chunks_a})} into its "
+             f"shard's accumulators; device {dms:.4f} ms, "
+             f"{raw_bytes / dms / 1e9:.3f} TB/s, {100 * bA[0] / dms:.1f}% "
+             "of bound"))
+    del pieces, groups, chunks_a, acc_s, acc_m, got, sr
+    torch.cuda.empty_cache()
+
+    # (2) the band feed under the same mesh: its disks equal phase 10's
+    # band disks, which phase 10 holds equal to phase 4's bit for bit
+    opts = cw0_options(os.path.join(tmp, "mesh_band"))
+    opts.feed_mode = "band"
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        band = run_mod.read_scan(path, opts, dev, mesh=mesh4)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    if cuda_build.LAUNCHES["recon"] != 4 or cuda_build.LAUNCHES["sum_max"]:
+        fail(f"mesh: band feed launches {dict(cuda_build.LAUNCHES)}: B3 must "
+             "run once a shard, pass A's kernel never")
+    if band.shifts != sr4.shifts or not same(band.disk_list, sr4.disk_list):
+        fail("mesh: the band feed's disks under the mesh differ from phase "
+             "10's band disks (= phase 4's)")
+    print(f"mesh: --feed band under the mesh: B3 4, disks equal phase 10's "
+          f"band disks; read_scan {wall_b:.3f} s [{card}]", flush=True)
+    del band
+    torch.cuda.empty_cache()
+
+    # (3) the CLI and a mesh the machine cannot hold; on a machine with two
+    # cards, the mesh on distinct cards and each kernel on cuda:1
+    n_cards = torch.cuda.device_count()
+    out_cli = os.path.join(tmp, "mesh_cli")
+    if n_cards < 2:
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = cli_main.main(["-cw0", path, "--mesh", "frame=2",
+                                "--output-dir", out_cli])
+        said = text.getvalue()
+        if rc != 2 or "needs 2 devices" not in said or (
+                os.path.isdir(out_cli) and os.listdir(out_cli)):
+            fail(f"mesh: shg-torch --mesh frame=2 on {n_cards} card: rc {rc}"
+                 f", said {said[-500:]!r}")
+        print(f"mesh: shg-torch -cw0 --mesh frame=2 on {n_cards} card exits 2"
+              f" with nothing written: {said.strip().splitlines()[-1]}",
+              flush=True)
+    else:
+        two_card_checks(path, tmp, png4, card)
+
+    # (4) the group read under a (batch=2, frame=2) mesh of the one card,
+    # over phase 9's four small scans
+    small = os.path.join(tmp, "small")
+    members = [os.path.join(small, f"g{i}.ser") for i in range(4)]
+
+    def group(name, mesh=None):
+        d = os.path.join(tmp, name)
+        os.makedirs(d, exist_ok=True)
+        tasks = [(f, Options(shift=[0], clahe_only=True, output_dir=d))
+                 for f in members]
+        with contextlib.redirect_stdout(io.StringIO()):
+            return read_scans_batched(tasks, {}, dev, mesh=mesh)
+
+    plain = group("mesh_group_plain")
+    zero_counts()
+    t0 = time.perf_counter()
+    sharded = group("mesh_group", make_mesh({"batch": 2, "frame": 2},
+                                            devices=[dev] * 4))
+    torch.cuda.synchronize()
+    wall_g = time.perf_counter() - t0
+    if sorted(sharded) != members or cuda_build.LAUNCHES["recon"] != 8:
+        fail(f"mesh: the group read took {sorted(sharded)}, B3 launches "
+             f"{cuda_build.LAUNCHES['recon']} (4 members x 2 frame shards)")
+    for f in members:
+        if not same(plain[f].disk_list, sharded[f].disk_list):
+            fail(f"mesh: the group read's disks of {f} differ under the mesh")
+    print(f"mesh: the group read under a (batch=2, frame=2) mesh: B3 once a "
+          f"piece (8), disks equal the unsharded group read's; {wall_g:.3f} s"
+          f" [{card}]", flush=True)
+    del plain, sharded
+
+    # (5) the library functions on the card against their CPU results
+    rng = np.random.default_rng(42)
+    F, ih, iw = 64, 32, 24
+    frames = rng.integers(0, 65536, size=(F, ih, iw), dtype=np.uint16)
+    curve = 10.0 + 0.03 * np.arange(ih)
+    floor = np.floor(curve).astype(np.int64)
+    ind_l, left_w = build_shift_indices(floor, curve - floor, [0, 2, -1], iw)
+    cpu = torch.device("cpu")
+
+    def lsb(a, b):
+        d = (widen(a.cpu()) - widen(b.cpu())).abs()
+        return d.max().item(), (d > 0).float().mean().item()
+
+    for kernel in ("onehot", "gather"):
+        a = shard_scan_recon(frames, ind_l, left_w,
+                             make_mesh({"frame": 8}, [dev] * 8), kernel)
+        b = shard_scan_recon(frames, ind_l, left_w,
+                             make_mesh({"frame": 8}, [cpu] * 8), kernel)
+        mx, frac = lsb(a, b)
+        if a.device.type != dev.type or mx > 1 or frac >= 0.005:
+            fail(f"mesh: shard_scan_recon ({kernel}) on the card against the "
+                 f"CPU: {mx} LSB on {frac:.4%}")
+        print(f"mesh: shard_scan_recon ({kernel}, 8 shards) on the card "
+              f"against the CPU: max {mx} LSB on {frac:.4%}", flush=True)
+    B, F, ih, iw = 2, 16, 32, 16
+    frames = rng.integers(0, 65536, size=(B, F, ih, iw), dtype=np.uint16)
+    curve = iw / 2 + 0.01 * np.arange(ih)
+    floor = np.floor(curve).astype(np.int64)
+    ind_l, left_w = build_shift_indices(floor, curve - floor, [0, 1], iw)
+    ind_b = np.ascontiguousarray(np.broadcast_to(ind_l, (B,) + ind_l.shape))
+    w_b = np.ascontiguousarray(np.broadcast_to(left_w, (B,) + left_w.shape))
+    mats = np.stack([np.array([[1.0, 0.0, 0.0], [0.02, 1.05, -0.4],
+                               [0.0, 0.0, 1.0]], np.float32)] * B)
+    gains = np.stack([np.ones(ih, np.float32),
+                      np.linspace(0.9, 1.1, ih, dtype=np.float32)])
+    for out_u16 in (True, False):
+        a = device_pipeline_step(frames, ind_b, w_b, mats, gains,
+                                 mesh=make_mesh({"batch": 2, "frame": 4},
+                                                [dev] * 8), out_u16=out_u16)
+        b = device_pipeline_step(frames, ind_b, w_b, mats, gains,
+                                 mesh=make_mesh({"batch": 2, "frame": 4},
+                                                [cpu] * 8), out_u16=out_u16)
+        for k in ("mean", "max"):
+            if not same(a[k], b[k]):
+                fail(f"mesh: device_pipeline_step {k} differs on the card")
+        if out_u16:
+            stats = {k: lsb(a[k], b[k]) for k in ("raw", "circular")}
+            if any(m > 1 or f >= 0.005 for m, f in stats.values()):
+                fail(f"mesh: device_pipeline_step on the card: {stats}")
+        else:
+            d = (a["circular"].cpu() - b["circular"]).abs().max().item()
+            stats = {"circular_float_max_abs": d}
+            if d > 65536 * (2e-7 + 3e-5):
+                fail(f"mesh: device_pipeline_step's float circular output "
+                     f"on the card is {d} from the CPU's")
+        print(f"mesh: device_pipeline_step ((2, 4) mesh, out_u16={out_u16}) "
+              f"on the card against the CPU: mean, max equal; {stats}",
+              flush=True)
+
+    # (6) initialize: a one-process nccl group on the card, one all_reduce
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    initialize(f"127.0.0.1:{port}", 1, 0, device=dev)
+    try:
+        x = torch.ones(4, device=dev)
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    if backend != "nccl" or x.tolist() != [1.0] * 4:
+        fail(f"mesh: initialize gave backend {backend}, all_reduce "
+             f"{x.tolist()}")
+    print(f"mesh: initialize (world size 1, {backend}) and one all_reduce on "
+          f"the card in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    took = time.perf_counter() - t_phase
+    print(f"phase 12 took {took:.1f} s [{card}]", flush=True)
+    if took >= 30:
+        fail(f"phase 12 took {took:.1f} s, not under 30 s")
+    return records
+
+
+def two_card_checks(path, tmp, png4, card) -> None:
+    """Phase 12 on a machine with two cards or more: ``-cw0`` under a mesh
+    of cuda:0 and cuda:1 gives phase 4's ``_clahe.png``, and each kernel,
+    for tensors on cuda:1 launched while cuda:0 is current, equals its
+    plain version."""
+    import torch
+
+    from solex_ser_recon_en_torch.cli.flags import parse_cli
+    from solex_ser_recon_en_torch.config import Options
+    from solex_ser_recon_en_torch.geometry.ellipse import (
+        get_correction_matrix,
+    )
+    from solex_ser_recon_en_torch.ops import clahe, cuda_build, fused_cuda
+    from solex_ser_recon_en_torch.ops import warp_fast
+    from solex_ser_recon_en_torch.ops.dtypes import as_int16
+    from solex_ser_recon_en_torch.ops.recon import recon_chunks_plain
+    from solex_ser_recon_en_torch.ops.recon_cuda import recon_chunks
+    from solex_ser_recon_en_torch.parallel.mesh import mesh_from_options
+    from solex_ser_recon_en_torch.pipeline import run as run_mod
+
+    card0, card1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    out = os.path.join(tmp, "mesh_two_cards")
+    opts = Options()
+    parse_cli(opts, ["-cw0", path, "--output-dir", out])
+    mesh = mesh_from_options({"frame": 2}, card0)
+    run_mod.process_file(path, opts, card0, mesh=mesh)
+    with open(os.path.join(out, "scan_shift=0_clahe.png"), "rb") as f, \
+            open(png4, "rb") as g:
+        if f.read() != g.read():
+            fail("mesh on cuda:0 and cuda:1: _clahe.png differs from phase 4's")
+    rng = np.random.default_rng(3)
+    torch.cuda.set_device(card0)
+
+    def u16(shape):
+        a = rng.integers(0, 65536, shape).astype(np.uint16).view(np.int16)
+        return torch.from_numpy(a).to(card1).view(torch.uint16)
+
+    raw = u16((70, 24, 64))
+    ind_l = torch.from_numpy(rng.integers(0, 22, (2, 64)).astype(
+        np.int32)).to(card1)
+    left_w = torch.from_numpy(rng.random(64).astype(np.float32)).to(card1)
+    frames = u16((40, 48, 300))
+    ind_b = torch.from_numpy(rng.integers(0, 298, (2, 48)).astype(
+        np.int32)).to(card1)
+    w_b = torch.from_numpy(rng.random(48).astype(np.float32)).to(card1)
+    img = u16((301, 257))
+    mat, _ = get_correction_matrix(0.15, 0.93)
+    m3 = np.eye(3)
+    m3[:2, :2] = mat
+    f01 = (as_int16(u16((2, 300, 257))).to(torch.int32) & 0xFFFF).to(
+        torch.float32) / 65536.0
+    w_args = warp_fast.warp_inputs(f01, m3, 310, 270, f01[:, 0, 0])
+
+    def pass_a(fn):
+        total = torch.zeros((24, 64), dtype=torch.int32, device=card1)
+        mx = torch.zeros_like(total)
+        fn(raw, total, mx)
+        return total, mx
+
+    cases = [
+        ("recon", lambda: recon_chunks([raw], ind_l, left_w, True, False),
+         lambda: recon_chunks_plain([raw], ind_l, left_w, True, False)),
+        ("hresample", lambda: warp_fast.hresample(*w_args),
+         lambda: warp_fast.hresample_plain(*w_args)),
+        ("tile_hist", lambda: clahe._launch_hist(img, 2, 2, 65536),
+         lambda: clahe.image_tile_histograms_plain(img, 2, 2, 65536)),
+        ("shg_fused", lambda: fused_cuda.shg_fused(frames, ind_b, w_b),
+         lambda: fused_cuda.shg_fused_plain(frames, ind_b, w_b)),
+        ("shg_fused_mxu", lambda: fused_cuda.shg_fused_mxu(frames, ind_b, w_b),
+         lambda: fused_cuda.shg_fused_mxu_plain(frames, ind_b, w_b)),
+        ("sum_max", lambda: pass_a(fused_cuda.sum_max),
+         lambda: pass_a(fused_cuda.sum_max_plain)),
+    ]
+    for name, kernel, plain in cases:
+        before = cuda_build.LAUNCHES[name]
+        got, want = kernel(), plain()
+        torch.cuda.synchronize(card1)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if cuda_build.LAUNCHES[name] != before + 1 or \
+                torch.cuda.current_device() != 0:
+            fail(f"{name} on cuda:1 did not launch once from cuda:0")
+        for a, b in zip(got, want):
+            if a.device != card1 or not torch.equal(as_int16(a), as_int16(b)):
+                fail(f"{name} on cuda:1, launched from cuda:0, differs from "
+                     "its plain version")
+    print(f"mesh: -cw0 on a mesh of cuda:0 and cuda:1 gives phase 4's "
+          f"_clahe.png; every kernel on cuda:1 launched from cuda:0 equals "
+          f"its plain version [{card}]", flush=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "solex_ser_recon_en_torch")):
@@ -2750,7 +3201,23 @@ def main() -> int:
         torch.cuda.empty_cache()
         records += analyser_phase(path, tmp, png4, card,
                                   torch.device("cuda"), res)
-        print(f"chip_smoke: phases 1-11 took "
+
+        # 12. the device mesh; phase 4's resident chunks go first (phase 5
+        # held them in caps, rc_args and its loop's ``chunks``)
+        import gc
+        import weakref
+
+        held = [weakref.ref(c) for c in rc_args[0][0]]
+        caps["recon"].clear()
+        del rc_args, chunks
+        gc.collect()
+        torch.cuda.empty_cache()
+        if any(r() is not None for r in held):
+            fail("phase 4's resident chunks are still referenced before "
+                 "phase 12")
+        records += mesh_phase(path, tmp, png4, card, torch.device("cuda"),
+                              res, wall2)
+        print(f"chip_smoke: phases 1-12 took "
               f"{time.perf_counter() - t_start:.1f} s [{card}]", flush=True)
 
         for r in records:

@@ -101,7 +101,7 @@ def upload(reader: SerReader, n: int,
     t0 = time.perf_counter()
     chunks, _, _ = raw_device_chunks(reader, Options().frame_chunk, device)
     with contextlib.closing(chunks):    # stops the feed's producer early
-        for start, chunk in chunks:
+        for start, chunk, _ in chunks:
             if start >= n:
                 break
             m = min(chunk.shape[0], n - start)

@@ -3,10 +3,10 @@
 A copy of solex_ser_recon_en_tpu/cli/flags.py (that package imports jax on
 import) with the port's long options: ``--device``, ``--output-dir``,
 ``--input-dir``, ``--num-processes`` and ``--process-id`` (with the
-``SOLEX_NUM_PROCESSES`` / ``SOLEX_PROCESS_ID`` fallback) and ``--feed``;
-``--profile`` is taken by cli/main.py, as there.  ``--mesh``, a bad
-``--feed`` mode and any unknown ``--name`` are refused
-(``UnsupportedOption``).
+``SOLEX_NUM_PROCESSES`` / ``SOLEX_PROCESS_ID`` fallback), ``--feed`` and
+``--mesh`` (parallel/mesh.py:parse_mesh_spec); ``--profile`` is taken by
+cli/main.py, as there.  A bad ``--feed`` mode, a bad ``--mesh`` spec and
+any unknown ``--name`` are refused (``UnsupportedOption``).
 
 reference: CLI_handler.py:10-114 — flags may be packed (``-tw 0,5``); ``w``
 consumes a shift spec (``a,b,c`` / ``x:y`` / ``x:y:w``); ``r`` consumes an
@@ -50,9 +50,10 @@ def usage() -> str:
         "'--feed MODE' : auto (default) | device | band | host: how much\n"
         "    of the scan crosses to the card (band: only the recon's\n"
         "    spectral band; host: nothing, everything on the host).\n"
-        "'--mesh' : an option of the JAX CLI, refused here (exit code 2)\n"
-        "    until it is ported.\n"
-        "'d' is refused too.  Without 'c' the diagnostic figures are\n"
+        "'--mesh SPEC' : device mesh: frame=N (a scan's frames over N\n"
+        "    cards), batch=B,frame=F, or a bare N (= frame=N); more\n"
+        "    devices than the machine has is an error (exit code 2).\n"
+        "'d' is refused.  Without 'c' the diagnostic figures are\n"
         "written as well, which needs matplotlib."
     )
 
@@ -162,8 +163,8 @@ def _apply_flag_group(options: Options, argument: str) -> None:
 
 #: long options of the JAX package's CLI (solex_ser_recon_en_tpu/cli/
 #: flags.py:193-202) that this port does not run yet; each is refused,
-#: never read as packed letters
-UNPORTED_LONG_OPTS = ("--mesh",)
+#: never read as packed letters (none is left)
+UNPORTED_LONG_OPTS = ()
 
 
 class UnsupportedOption(ValueError):
@@ -202,6 +203,14 @@ def parse_cli(options: Options, argv: List[str]) -> Tuple[List[str], str]:
             raise UnsupportedOption(f"--feed {mode!r}: not a feed mode")
         options.feed_mode = mode
 
+    def set_mesh(spec: str) -> None:
+        from ..parallel.mesh import parse_mesh_spec
+
+        try:
+            options.mesh = parse_mesh_spec(spec)
+        except ValueError as e:
+            raise UnsupportedOption(f"--mesh: {e}") from e
+
     # --num-processes/--process-id select this host's deterministic share
     # of a folder batch (parallel/distributed.assign_files) — the
     # host-scale analogue of the reference's Pool(4), Solex_recon.py:30.
@@ -214,6 +223,7 @@ def parse_cli(options: Options, argv: List[str]) -> Tuple[List[str], str]:
                          "an integer"),
         "--input-dir": (set_input_dir, "a folder path"),
         "--feed": (set_feed, "a mode (auto|device|band|host)"),
+        "--mesh": (set_mesh, "a spec (e.g. --mesh frame=8)"),
     }
 
     files: List[str] = []

@@ -18,6 +18,9 @@ own (io/writers.py:scan_writes): a failed write is the failure of the
 file that queued it.  The diagnostic figures of the default mode render
 after the last file.  ``-d`` is refused, and so is a mode that writes
 figures where matplotlib is absent (exit code 2, nothing written).
+``--mesh SPEC`` shards each scan's frames over the machine's cards
+(pipeline/run.py); a mesh larger than the visible cards exits 2, nothing
+written.
 
 A batch of more than ``PROBE_BATCH_BYTES`` rates the link to the card
 once up front (io/feeder.py:probe_transfer_rate), so every file of it,
@@ -50,6 +53,7 @@ from ..io.feeder import probe_transfer_rate
 from ..io.video import open_video
 from ..io.writers import figure_barrier
 from ..parallel.distributed import shard_folder_batch
+from ..parallel.mesh import mesh_from_options
 from ..pipeline.run import check_supported, process_scan, read_scan
 from ..utils.device import resolve_device
 from ..utils.timer import StageTimer
@@ -265,6 +269,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         device = resolve_device(device_name)
         options.validate()
         check_supported(options)
+        # a mesh this machine cannot hold fails here, before any file or
+        # log is written; each file's read builds it again
+        mesh_from_options(options.mesh, device)
     except (RuntimeError, ValueError, NotImplementedError) as e:
         print(f"ERROR: {e}")
         return 2

@@ -61,6 +61,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kPassBins = 65536;   // bins a pass: 32768 words, 128 KB
+constexpr int kMaxDevices = 64;     // cards a process caches set-up for
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnits = 4;          // units a lane loads per item
@@ -199,10 +200,17 @@ int launch(const void* img, Geometry g, int tiles, int32_t* out,
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  // set-up once per process and instantiation: the shared-memory limit and
-  // the card's active-cluster count
-  static int max_clusters = -1;
-  if (max_clusters < 0) {
+  // set-up once per card, process and instantiation: the shared-memory
+  // limit (a function attribute of the current device only) and the card's
+  // active-cluster count.  The wrapper makes the image's card current.
+  static int cached_clusters[kMaxDevices] = {};  // 0: not set up yet
+  int dev = 0;
+  {
+    const cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  }
+  if (cached_clusters[dev] < 1) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return (int)err;
@@ -212,8 +220,9 @@ int launch(const void* img, Geometry g, int tiles, int32_t* out,
     err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
     if (err != cudaSuccess) return (int)err;
     if (n < 1) return (int)cudaErrorLaunchOutOfResources;  // cannot place
-    max_clusters = n;
+    cached_clusters[dev] = n;
   }
+  const int max_clusters = cached_clusters[dev];
   const int span = g.hist_size < kPassBins ? g.hist_size : kPassBins;
   g.words = round_up((span + 1) / 2, 4 * CS);
   const int passes = (g.hist_size + kPassBins - 1) / kPassBins;

@@ -41,13 +41,20 @@ the native reader's mapping in one strided copy, or out of the band slab
 that the host's fused sweep already extracted.  It takes the place of the
 JAX module's ``prefetch_iter`` thread feeding ``jax.device_put``.
 
+Under a device mesh (``shards``, pipeline/run.py) each staged chunk is
+cut into contiguous pieces, one a frame shard (the JAX module's frame
+``sharding`` of ``device_put``): each piece goes up on its own card's
+upload stream and is waited on by that card's consumer stream, and the
+buffer goes back to the ring once every piece's upload has read it.
+
 ``probe_transfer_rate``, ``cached_probe_rate`` and ``note_small_scan``
 rate the host-to-device link for the ``auto`` feed policy, memoised a
 process.
 
-Not ported from the JAX module: ``pad_to_bucket`` (it keeps XLA at one
-compiled program a shape; PyTorch compiles none, and ops/fused.py takes a
-short last chunk), ``d2h_responsive``, ``FeedRateMonitor``,
+Not ported from the JAX module: ``pad_to_bucket`` and
+``_fit_chunk_to_shards`` (they keep XLA at one compiled program a shape
+and a chunk divisible over the shards; PyTorch compiles none, ops/fused.py
+takes a short last chunk, and a piece carries its start frame), ``d2h_responsive``, ``FeedRateMonitor``,
 ``FeedCollapse`` and ``note_collapse`` (silent fallbacks for a remote
 link; ROADMAP A6 says why).
 """
@@ -534,10 +541,11 @@ def _staged_chunks(source, chunk: int, pin: bool, threads: int, depth: int,
 
 def raw_device_chunks(
     video, chunk: int, device: torch.device, *,
-    threads: int = COPY_THREADS, depth: int = RING_DEPTH,
-) -> Tuple[Iterator[Tuple[int, torch.Tensor]], bool, bool]:
-    """(iterator of (start, raw chunk on ``device``), rotate, upscale) of a
-    SerReader or a VideoReader (io/video.py:open_video).
+    threads: int = COPY_THREADS, depth: int = RING_DEPTH, shards=None,
+) -> Tuple[Iterator[Tuple[int, torch.Tensor, int]], bool, bool]:
+    """(iterator of (start, raw chunk on ``device``, shard), rotate,
+    upscale) of a SerReader or a VideoReader (io/video.py:open_video);
+    ``shard`` is 0 without a mesh.
 
     Every yielded tensor is a fresh (n, H, W) allocation, ready to use on
     the current stream and safe to keep resident; (H, W) is the source's
@@ -546,43 +554,58 @@ def raw_device_chunks(
     stop the producer thread and close the source.  ``threads`` and
     ``depth`` default to the module's constants; tests and measurements
     pass others.
+
+    ``shards`` (a mesh row's frame devices, parallel/mesh.py; default
+    ``[device]``) splits every staged chunk into contiguous pieces, one a
+    shard (parallel/mesh.py:frame_split), each uploaded to its own device
+    and yielded as (start, piece, shard index), in frame order.  A chunk
+    that does not divide over the shards splits unevenly: pieces carry
+    their start frame, so none is padded.
     """
     source = _chunk_source(video)
-    return (_device_chunks(source, chunk, device, threads, depth),
+    return (_device_chunks(source, chunk, device, threads, depth, shards),
             source.rotate, source.upscale)
 
 
 def band_device_chunks(
     reader, x0: int, x1: int, chunk: int, device: torch.device, *,
     slab=None, threads: int = COPY_THREADS, depth: int = RING_DEPTH,
-) -> Tuple[Iterator[Tuple[int, torch.Tensor]], bool, bool]:
+    shards=None,
+) -> Tuple[Iterator[Tuple[int, torch.Tensor, int]], bool, bool]:
     """``raw_device_chunks`` of the spectral band [x0, x1) of a SER scan
     (a SerReader or a VideoReader of one): (iterator of (start, band chunk
-    (n, x1 - x0, W) if rotate else (n, H, x1 - x0) on ``device``), rotate,
+    (n, x1 - x0, W) if rotate else (n, H, x1 - x0) on ``device``, shard),
+    rotate,
     upscale), read from the file's mapping or from ``slab``, the fused
-    host sweep's band slab of exactly [x0, x1) (``_BandSource``)."""
+    host sweep's band slab of exactly [x0, x1) (``_BandSource``); split
+    over ``shards`` as ``raw_device_chunks`` does."""
     source = _BandSource(_ser_reader(reader), x0, x1, slab)
-    return (_device_chunks(source, chunk, device, threads, depth),
+    return (_device_chunks(source, chunk, device, threads, depth, shards),
             source.rotate, source.upscale)
 
 
 def _device_chunks(source, chunk: int, device: torch.device, threads: int,
-                   depth: int):
+                   depth: int, shards=None):
     """The consumer side of the feed over a chunk source (the generator
     ``raw_device_chunks`` and ``band_device_chunks`` return)."""
+    from ..parallel.mesh import frame_split
+
     chunk = auto_chunk_frames(source.frame_bytes, chunk)
     dtype = source.dtype
     threads = min(threads, source.max_threads or threads)
-    cuda = device.type == "cuda"
+    devices = [torch.device(d) for d in shards] if shards else [device]
+    if len({d.type for d in devices}) != 1:
+        raise ValueError(f"the feed's devices are of one type: {devices}")
+    cuda = devices[0].type == "cuda"
 
     def gen():
         t_begin = time.perf_counter()
         stats = dict(threads=threads, depth=depth, chunks=0, bytes=0,
-                     wall_s=0.0, copy_thread_s=0.0, fill_s=0.0, producer_wait_s=0.0,
-                     consumer_wait_s=0.0, upload_wait_s=0.0, close_s=0.0,
-                     h2d_ms=None)
+                     wall_s=0.0, copy_thread_s=0.0, fill_s=0.0,
+                     producer_wait_s=0.0, consumer_wait_s=0.0,
+                     upload_wait_s=0.0, close_s=0.0, h2d_ms=None)
         staged = _staged_chunks(source, chunk, cuda, threads, depth, stats)
-        copy_stream = _copy_stream(device) if cuda else None
+        copy_streams = [_copy_stream(d) for d in devices] if cuda else None
         uploads = []            # (begin, end) timing events of each upload
         try:
             while True:
@@ -594,30 +617,42 @@ def _device_chunks(source, chunk: int, device: torch.device, threads: int,
                 start, host, release = item
                 stats["chunks"] += 1
                 stats["bytes"] += host.numel() * host.element_size()
+                pieces = [(k, a, b) for k, (a, b) in enumerate(
+                    frame_split(host.shape[0], len(devices))) if a < b]
                 if not cuda:
-                    dev = host.clone()
+                    out = [(start + a, host[a:b].clone(), k)
+                           for k, a, b in pieces]
                     release()
-                    yield start, dev
+                    yield from out
                     continue
-                consumer = torch.cuda.current_stream(device)
-                with torch.cuda.stream(copy_stream):
-                    # allocated from the copy stream's pool; record_stream
-                    # makes the allocator wait for the consumer's work
-                    # before reuse
-                    dev = torch.empty(host.shape, dtype=dtype, device=device)
-                    begin = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    begin.record(copy_stream)
-                    dev.copy_(host, non_blocking=True)
-                    end.record(copy_stream)
-                dev.record_stream(consumer)
-                consumer.wait_event(end)
-                uploads.append((begin, end))
-                yield start, dev
-                # the buffer goes back once its upload has read it; the
-                # producer fills the other buffers meanwhile
+                out, ends = [], []
+                for k, a, b in pieces:
+                    # each piece on its own card's upload stream, waited on
+                    # by that card's consumer stream
+                    dev_k, copy_stream = devices[k], copy_streams[k]
+                    consumer = torch.cuda.current_stream(dev_k)
+                    with torch.cuda.stream(copy_stream):
+                        # allocated from the copy stream's pool;
+                        # record_stream makes the allocator wait for the
+                        # consumer's work before reuse
+                        dev = torch.empty((b - a, *host.shape[1:]),
+                                          dtype=dtype, device=dev_k)
+                        begin = torch.cuda.Event(enable_timing=True)
+                        end = torch.cuda.Event(enable_timing=True)
+                        begin.record(copy_stream)
+                        dev.copy_(host[a:b], non_blocking=True)
+                        end.record(copy_stream)
+                    dev.record_stream(consumer)
+                    consumer.wait_event(end)
+                    uploads.append((begin, end))
+                    ends.append(end)
+                    out.append((start + a, dev, k))
+                yield from out
+                # the buffer goes back once every upload of it has read
+                # it; the producer fills the other buffers meanwhile
                 t0 = time.perf_counter()
-                end.synchronize()
+                for end in ends:
+                    end.synchronize()
                 stats["upload_wait_s"] += time.perf_counter() - t0
                 release()
             if cuda:
@@ -632,12 +667,15 @@ def _device_chunks(source, chunk: int, device: torch.device, threads: int,
 
 
 def raw_device_chunks_plain(
-    reader, chunk: int, device: torch.device
-) -> Tuple[Iterator[Tuple[int, torch.Tensor]], bool, bool]:
+    reader, chunk: int, device: torch.device, shards=None,
+) -> Tuple[Iterator[Tuple[int, torch.Tensor, int]], bool, bool]:
     """The plain version of ``raw_device_chunks`` for SER scans: the same
     chunks, read from the Python reader's memmap by the consumer's thread
     alone (on CUDA through two pinned staging buffers, each refilled only
-    after the upload that last read it has finished)."""
+    after the upload that last read it has finished), as (start, chunk, 0)
+    triples.  It takes no mesh: ``shards`` raises."""
+    if shards:
+        raise ValueError("the plain feed does not split chunks over shards")
     reader = _ser_reader(reader)
     chunk = auto_chunk_frames(reader.header.frame_bytes, chunk)
     dtype = torch.uint8 if reader.header.pixel_depth == 8 else torch.uint16
@@ -646,7 +684,8 @@ def raw_device_chunks_plain(
     def gen_cpu():
         for start in range(0, reader.frame_count, chunk):
             n = min(chunk, reader.frame_count - start)
-            yield start, torch.from_numpy(np.array(reader.raw_frames(start, n)))
+            yield start, torch.from_numpy(np.array(
+                reader.raw_frames(start, n))), 0
 
     def gen_cuda():
         copy_stream = _copy_stream(device)
@@ -672,7 +711,7 @@ def raw_device_chunks_plain(
             dev.record_stream(consumer)
             done[b] = ev
             consumer.wait_event(ev)
-            yield start, dev
+            yield start, dev, 0
         for ev in done:
             if ev is not None:
                 ev.synchronize()

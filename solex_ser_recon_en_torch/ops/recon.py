@@ -109,9 +109,12 @@ def onehot_weights(ind_l: torch.Tensor, left_w: torch.Tensor,
 
 
 def recon_onehot(frames: torch.Tensor, ind_l: torch.Tensor,
-                 left_w: torch.Tensor) -> torch.Tensor:
+                 left_w: torch.Tensor, out_u16: bool = True,
+                 split_invariant: bool = False) -> torch.Tensor:
     """frames (F, ih, iw) u16 normalised, ind_l (S, ih) i32, left_w (ih,)
-    f32 -> disks (S, ih, F) u16, as one row-batched float32 matmul:
+    f32 -> disks (S, ih, F) u16 (``out_u16``) or the unclipped float32
+    sums (S, ih, F) (the mesh's batched step warps those), as one
+    row-batched float32 matmul:
 
         W[y, s, x] = w[y]·1[x = l(s, y)] + (1 - w[y])·1[x = l(s, y) + 1]
         out[y, s, f] = sum_x W[y, s, x] · frames[f, y, x]
@@ -121,9 +124,18 @@ def recon_onehot(frames: torch.Tensor, ind_l: torch.Tensor,
     TF32 keeps 10 mantissa bits, which would break the 1-LSB disk
     contract.  The caller's float32 matmul precision and TF32 flag are
     restored afterwards.
+
+    ``split_invariant`` (the mesh's recons, parallel/mesh.py): the float32
+    matmul's result depends on its shape (the library picks another kernel
+    for a few frames, 1 ulp apart), so a frame-sharded recon would not
+    equal the whole one.  This contracts in float64 instead, where each
+    product of a float32 weight and a u16 value is exact, so the sum of
+    a row's two non-zero products does not depend on the order or the
+    blocking of the matmul; it is then rounded to float32.
     """
-    W = onehot_weights(ind_l, left_w, frames.shape[2])
-    x = widen(frames).to(torch.float32).permute(1, 2, 0)    # (ih, iw, F)
+    dtype = torch.float64 if split_invariant else torch.float32
+    W = onehot_weights(ind_l, left_w, frames.shape[2]).to(dtype)
+    x = widen(frames).to(dtype).permute(1, 2, 0)            # (ih, iw, F)
     precision = torch.get_float32_matmul_precision()
     tf32 = torch.backends.cuda.matmul.allow_tf32
     try:
@@ -133,13 +145,16 @@ def recon_onehot(frames: torch.Tensor, ind_l: torch.Tensor,
                 or torch.backends.cuda.matmul.allow_tf32):
             raise RuntimeError(
                 "recon_onehot: float32 matmuls would run in TF32")
-        out = torch.bmm(W, x)                               # (ih, S, F)
+        out = torch.bmm(W, x).to(torch.float32)             # (ih, S, F)
     finally:
         # the flag first: setting it moves the precision, which the second
         # call then puts back
         torch.backends.cuda.matmul.allow_tf32 = tf32
         torch.set_float32_matmul_precision(precision)
-    return to_u16(out.clamp(0, 65535)).permute(1, 0, 2).contiguous()
+    out = out.permute(1, 0, 2)                              # (S, ih, F)
+    if not out_u16:
+        return out.contiguous()
+    return to_u16(out.clamp(0, 65535)).contiguous()
 
 
 def reconstruct(frames, fit_floor: np.ndarray, fit_frac: np.ndarray,
@@ -155,8 +170,9 @@ def reconstruct(frames, fit_floor: np.ndarray, fit_frac: np.ndarray,
     tensor takes its plain version.
 
     The JAX function's ``kernel`` choice (its XLA "gather" and "onehot"
-    recons stand beside the Pallas one) and ``out_u16=False`` (float
-    disks, for its mesh) are not ported: no caller of the port needs them.
+    recons stand beside the Pallas one) and ``out_u16=False`` are not
+    ported here: no caller of the port needs them (the mesh's float disks
+    come from ``recon_onehot``).
     """
     from .recon_cuda import recon_chunks
 

@@ -26,8 +26,17 @@ per-file path is ROADMAP A5's open item.
 A group is >= MIN_FILES scans that share (frames, ih, iw), each of at most
 MAX_MB (the JAX package's defaults; its environment switches are not
 read); anything else, and every scan of options that ask for
-``_mean.fits`` (save_fit), is left to read_scan.  The JAX package's mesh
-branch is not ported: check_supported refuses a mesh.
+``_mean.fits`` (save_fit), is left to read_scan.
+
+Under a mesh (the members' ``Options.mesh``, or a prebuilt
+parallel/mesh.py:Mesh) a group's members go over the mesh's batch rows in
+contiguous runs and each member's frames over its row's frame shards
+(parallel/mesh.py:frame_split), each piece uploaded to its own device:
+kernel B3 runs once a piece there, and the pieces' columns are gathered,
+in frame order, into the member's disks on the first device (the JAX
+package's ('batch', 'frame') sharding of its vmapped program).  The disks
+are bit-identical to the unsharded group read's: B3's arithmetic is per
+column.
 """
 
 from __future__ import annotations
@@ -71,6 +80,7 @@ def read_scans_batched(
     tasks: List[Tuple[str, Options]],
     timers: Dict[str, StageTimer],
     device: torch.device,
+    mesh=None,
 ) -> Dict[str, "object"]:
     """Batched read+recon for the same-shape groups within ``tasks``.
 
@@ -78,10 +88,19 @@ def read_scans_batched(
     remaining files through the per-file read_scan.  A file that cannot be
     read or fitted is left to read_scan (and a group it leaves too small
     with it); the device work is not guarded: a kernel that fails raises,
-    as everywhere in the port.
+    as everywhere in the port.  ``mesh``: a prebuilt mesh (default: built
+    from the first task's ``Options.mesh`` on ``device``; its first device
+    must be ``device``); a mesh larger than the visible cards raises.
     """
+    from ..parallel.mesh import mesh_from_options, same_device
+
     if not tasks or tasks[0][1].save_fit:
         return {}  # _mean.fits wants read_scan's exact mean product path
+    if mesh is None:
+        mesh = mesh_from_options(tasks[0][1].mesh, device)
+    elif not same_device(mesh.first, device):
+        raise ValueError(f"the mesh's first device {mesh.first} is not the "
+                         f"run's device {device}")
     max_bytes = int(MAX_MB * 1024**2)
 
     groups: Dict[tuple, List[Tuple[str, Options]]] = {}
@@ -101,7 +120,7 @@ def read_scans_batched(
     for key, members in groups.items():
         if len(members) < MIN_FILES:
             continue
-        _process_group(key, members, timers, out, device)
+        _process_group(key, members, timers, out, device, mesh)
     return out
 
 
@@ -112,7 +131,7 @@ def _to_device(frames: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.view(torch.uint16)
 
 
-def _process_group(key, members, timers, out, device) -> None:
+def _process_group(key, members, timers, out, device, mesh=None) -> None:
     from ..geometry.linefit import fit_spectral_line
     from ..io.fits import make_header
     from ..io.hostreduce import host_mean_max_frames
@@ -121,6 +140,7 @@ def _process_group(key, members, timers, out, device) -> None:
     from ..ops.dtypes import as_int16
     from ..ops.recon import build_shift_indices
     from ..ops.recon_cuda import recon_chunks
+    from ..parallel.mesh import frame_split, sharded_recon
     from ..utils.device import synchronize
     from .run import ScanResult, check_supported, figures_wanted
 
@@ -177,6 +197,17 @@ def _process_group(key, members, timers, out, device) -> None:
     with stamp.stage("recon"):
         for c0 in range(0, len(aligned), chunk_b):
             sel = aligned[c0:c0 + chunk_b]
+            if mesh is not None:
+                # members over the batch rows, frames over the frame shards
+                rows = frame_split(len(sel), mesh.shape["batch"])
+                for r, (a, b) in enumerate(rows):
+                    for i in sel[a:b]:
+                        ind_l, left_w = build_shift_indices(
+                            fits[i].floor, fits[i].frac, metas[i][2], iw)
+                        disks_of[i] = sharded_recon(
+                            frames_list[i], ind_l, left_w, mesh.row(r),
+                            mesh.first, kernel="gather")
+                continue
             slab = _to_device(np.stack([frames_list[i] for i in sel]),
                               device)
             for j, i in enumerate(sel):

@@ -25,8 +25,19 @@ three figures, ``-c``, ``protus_only``, ``-f`` (FITS), ``-s`` / ``-r``
 (crops), ``stubborn_transversalium``, ``de_vignette``, and Doppler sweeps
 (``-w a:b:c``), whose shifts are circularised by one batched warp and then
 go through the per-shift products one after the other.
-``flag_display`` and ``mesh`` raise, and so does a run that wants figures
-where matplotlib is absent.
+``flag_display`` raises, and so does a run that wants figures where
+matplotlib is absent.
+
+Under a mesh (``Options.mesh``, or a prebuilt ``parallel/mesh.py:Mesh``
+passed to ``read_scan``/``process_file``) the ``device`` and ``band``
+feeds split every chunk's frames over the mesh's first row of frame
+shards: pass A once a piece on its shard's device, the shards' sums and
+maxima folded on the first device, kernel B3 once a shard, and the disks'
+columns gathered on the first device, which is the run's ``device``;
+``process_scan`` then runs there unchanged.  ``auto`` takes ``device``
+under a mesh, as in the JAX package; the ``host`` feed does its work on
+the host whatever the mesh.  The mesh's batch axis is the group read's
+(pipeline/batch.py): one scan uses the first row.
 
 The feeds (``Options.feed_mode``, ``--feed``):
 
@@ -96,6 +107,7 @@ from ..io.writers import barrier as write_barrier
 from ..io.writers import scan_writes, submit_figure
 from ..ops.dtypes import as_int16
 from ..ops.fused import RawScanProcessor, reconstruct_band
+from ..parallel.mesh import Mesh, mesh_from_options, same_device
 from ..utils.device import synchronize
 from ..utils.log import RunLog
 from ..utils.placement import set_host_pipeline, set_small_ops_on_host
@@ -156,7 +168,6 @@ def check_supported(options: Options) -> None:
     log is written, never a silent skip of the figures."""
     unsupported = {
         "flag_display (-d)": options.flag_display,
-        "mesh": options.mesh is not None,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -176,7 +187,8 @@ def check_supported(options: Options) -> None:
 
 
 def read_scan(file: str, options: Options, device: torch.device,
-              timer: Optional[StageTimer] = None) -> ScanResult:
+              timer: Optional[StageTimer] = None,
+              mesh: Optional[Mesh] = None) -> ScanResult:
     """Read a SER or AVI scan and reconstruct the per-shift disks on
     ``device``.
 
@@ -188,11 +200,16 @@ def read_scan(file: str, options: Options, device: torch.device,
     AVI where cv2 is absent) leaves no file behind.  The writes it queues
     are the scan's (``ScanResult.writes``); if it fails, they are joined
     before its error propagates.
+
+    ``mesh`` (default: built from ``Options.mesh`` on ``device``; its first
+    device must be ``device``) shards the feed's frames; the disks come
+    back gathered on ``device``.  A mesh larger than the visible cards
+    raises before anything is written.
     """
     writes = []
     try:
         with scan_writes(writes):
-            scan = _read_scan(file, options, device, timer)
+            scan = _read_scan(file, options, device, timer, mesh)
     except BaseException:
         write_barrier(writes)
         raise
@@ -215,7 +232,8 @@ AUTO_HOST_BELOW_BPS = 200e6
 FUSED_BAND = None
 
 
-def auto_feed(vid, total_bytes: int, device: torch.device) -> Tuple[str, str]:
+def auto_feed(vid, total_bytes: int, device: torch.device,
+              mesh: Optional[Mesh] = None) -> Tuple[str, str]:
     """The ``auto`` feed policy: (feed, reason).
 
     On the card, the JAX package's rule for an accelerator (run.py:
@@ -225,8 +243,12 @@ def auto_feed(vid, total_bytes: int, device: torch.device) -> Tuple[str, str]:
     probes once a folder of small scans has fed more than a probe costs).
     Everything else is ``device``.  On the CPU ``auto`` is ``device``: the
     JAX package goes ``host`` there, but this package's CPU runs are its
-    tests, which must drive the path the card runs (ROADMAP C).
+    tests, which must drive the path the card runs (ROADMAP C).  Under a
+    mesh it is ``device``, as in the JAX package (run.py:180-199): the
+    mesh is there to shard the device feed.
     """
+    if mesh is not None:
+        return "device", "auto under a mesh"
     if device.type != "cuda":
         return "device", "auto on the CPU"
     if not isinstance(vid, _SerVideo):
@@ -244,8 +266,16 @@ def auto_feed(vid, total_bytes: int, device: torch.device) -> Tuple[str, str]:
 
 
 def _read_scan(file: str, options: Options, device: torch.device,
-               timer: Optional[StageTimer]) -> ScanResult:
+               timer: Optional[StageTimer],
+               mesh: Optional[Mesh]) -> ScanResult:
     check_supported(options)
+    if mesh is None:
+        mesh = mesh_from_options(options.mesh, device)
+    elif not same_device(mesh.first, device):
+        raise ValueError(f"the mesh's first device {mesh.first} is not the "
+                         f"run's device {device}")
+    # the first row's frame shards split the device and band feeds
+    shards = list(mesh.row(0)) if mesh is not None else None
     timer = timer or StageTimer()
     with timer.stage("open"):
         vid = open_video(file)
@@ -275,9 +305,13 @@ def _read_scan(file: str, options: Options, device: torch.device,
     if feed not in FEEDS:
         raise ValueError(f"invalid feed mode {feed!r} (auto|device|band|host)")
     if feed == "auto":
-        feed, why = auto_feed(vid, total_bytes, device)
+        feed, why = auto_feed(vid, total_bytes, device, mesh)
     timer.note("feed", f"{feed} ({why})")
     log(f"Feed : {feed} ({why})")
+    if mesh is not None:
+        log(f"Mesh : {mesh.shape}, frame shards "
+            f"{[str(d) for d in mesh.row(0)]}"
+            + (" (not used by the host feed)" if feed == "host" else ""))
     small_ops_host = feed in ("band", "host")
     host_pipe = feed == "host"
     set_small_ops_on_host(small_ops_host)      # this (reading) thread
@@ -331,16 +365,17 @@ def _read_scan(file: str, options: Options, device: torch.device,
                 passa = "full host sweep"
         else:
             raw_iter, rotate, upscale = raw_device_chunks(
-                vid, options.frame_chunk, device)
+                vid, options.frame_chunk, device, shards=shards)
             # the raw chunks' frame shape: stored, or (ih, iw) once decoded
             shape = (vid.Height, vid.Width) if rotate else (vid.ih, vid.iw)
-            proc = RawScanProcessor(*shape, rotate, upscale, device)
+            proc = RawScanProcessor(*shape, rotate, upscale, device, shards)
             # closing: an error between chunks must stop the feed's producer
             with contextlib.closing(raw_iter):
-                for start, chunk in raw_iter:
-                    proc.accumulate(start, chunk, keep=keep_resident)
+                for start, chunk, shard in raw_iter:
+                    proc.accumulate(start, chunk, keep_resident, shard)
             mean_img, max_img = proc.mean_max()
-            passa = "device"
+            passa = "device" + (f", {len(shards)} frame shards"
+                                if shards else "")
     timer.note("pass A", passa)
     log(f"Pass A : {passa}")
 
@@ -409,19 +444,22 @@ def _read_scan(file: str, options: Options, device: torch.device,
                 slab = (b[:, x0 - bx0:x1 - bx0, :] if r.flag_rotate
                         else b[:, :, x0 - bx0:x1 - bx0])
             band_iter, rotate, upscale = band_device_chunks(
-                r, x0, x1, chunk_n, device, slab=slab)
+                r, x0, x1, chunk_n, device, slab=slab, shards=shards)
             with contextlib.closing(band_iter):
                 disk_list = reconstruct_band(
                     band_iter, lf.floor, lf.frac, shifts, vid.iw, x0, rotate,
-                    upscale, device, vid.frame_count)
+                    upscale, device, vid.frame_count, shards)
             passb = (f"kernel B3 on the band [{x0}, {x1}) "
-                     f"({'slab' if slab is not None else 'file'})")
+                     f"({'slab' if slab is not None else 'file'})"
+                     + (f", once a frame shard of {len(shards)}"
+                        if shards else ""))
         elif keep_resident:
             disk_list = proc.reconstruct(lf.floor, lf.frac, shifts)
-            passb = "kernel B3 on the resident chunks"
+            passb = "kernel B3 on the resident chunks" + (
+                f", once a frame shard of {len(shards)}" if shards else "")
         else:
             raw_iter, _, _ = raw_device_chunks(vid, options.frame_chunk,
-                                               device)
+                                               device, shards=shards)
             with contextlib.closing(raw_iter):
                 disk_list = proc.reconstruct_streaming(raw_iter, lf.floor,
                                                        lf.frac, shifts)
@@ -687,12 +725,14 @@ def _process_shifts(scan: ScanResult, options: Options, timer: StageTimer):
 
 
 def process_file(file: str, options: Options, device: torch.device,
-                 timer: Optional[StageTimer] = None):
+                 timer: Optional[StageTimer] = None,
+                 mesh: Optional[Mesh] = None):
     """Full single-file pipeline (read + process).  Like the reference it
-    mutates ``options`` (shift bookkeeping, fitted ratio/slant)."""
+    mutates ``options`` (shift bookkeeping, fitted ratio/slant).  ``mesh``:
+    as ``read_scan``'s."""
     timer = timer or StageTimer()
     try:
-        scan = read_scan(file, options, device, timer)
+        scan = read_scan(file, options, device, timer, mesh)
         return process_scan(scan, options, timer)
     finally:
         # process_scan already joined on success; this covers error paths,

@@ -1,13 +1,13 @@
 """The PyTorch port's command line and the JAX CLI's long options (CPU).
 
-``--input-dir``, ``--num-processes``, ``--process-id``, ``--feed`` and
-``--profile`` run as in the JAX CLI: each case here, in both the ``--name
-value`` and the ``--name=value`` form, exits 0 and writes its products;
-every feed mode runs, and a bad one exits 2 with the JAX CLI's message.
-The option that is not ported yet, ``--mesh``, and any unknown ``--name``,
-exit 2 with nothing written.  Before the port refused them, such a token
-fell into the packed single-letter flag parser: ``--mesh 8`` reached the
-``h`` of "mesh" and exited 0 with nothing done.
+``--input-dir``, ``--num-processes``, ``--process-id``, ``--feed``,
+``--mesh`` and ``--profile`` run as in the JAX CLI: each case here, in
+both the ``--name value`` and the ``--name=value`` form, exits 0 and
+writes its products; every feed mode runs, and a bad one exits 2 with the
+JAX CLI's message.  A bad ``--mesh`` spec and any unknown ``--name`` exit
+2 with nothing written.  Before the port refused them, such a token fell
+into the packed single-letter flag parser: ``--mesh 8`` reached the ``h``
+of "mesh" and exited 0 with nothing done.
 """
 
 import os
@@ -22,8 +22,9 @@ from solex_ser_recon_en_torch.parallel.distributed import assign_files
 
 VALUES = {"--mesh": "frame=8", "--feed": "host", "--input-dir": "scans",
           "--num-processes": "2", "--process-id": "1"}
-UNPORTED = ("--mesh",)
-PORTED = ("--input-dir", "--num-processes", "--process-id", "--feed")
+UNPORTED = ()
+PORTED = ("--input-dir", "--num-processes", "--process-id", "--feed",
+          "--mesh")
 
 
 def _cases(names):
@@ -32,7 +33,9 @@ def _cases(names):
 
 
 CASES = _cases(UNPORTED) + [("--frobnicate", ["--frobnicate"]),
-                            ("--frobnicate", ["--frobnicate=3"])]
+                            ("--frobnicate", ["--frobnicate=3"]),
+                            ("--mesh", ["--mesh", "rows=3"]),
+                            ("--mesh", ["--mesh=frame="])]
 RUN_CASES = _cases(PORTED) + [("--profile", ["--profile"]),
                               ("--profile", ["--profile=prof"])]
 #: the folder of the folder cases: ``--num-processes 2`` gives c.ser to
@@ -60,6 +63,8 @@ def test_unported_long_option_exits_2(basic_scan, tmp_path, capsys, name,
     assert "ERROR: " in said and name in said
     if name in UNPORTED_LONG_OPTS:
         assert "not ported" in said
+    elif name == "--mesh":
+        assert "invalid mesh spec" in said
     else:
         assert "unknown option" in said
     assert not out.exists() or not any(out.iterdir())

@@ -214,7 +214,7 @@ def test_resident_pass_b_is_one_launch(rng, cuda_device):
     resident = p.reconstruct(floor, curve - floor, [0, 4])
     assert cuda_build.LAUNCHES["recon"] == before + 1
     streamed = p.reconstruct_streaming(
-        [(s, raw[s:s + 30].clone()) for s in range(0, 100, 30)], floor,
+        [(s, raw[s:s + 30].clone(), 0) for s in range(0, 100, 30)], floor,
         curve - floor, [0, 4])
     assert cuda_build.LAUNCHES["recon"] == before + 5
     np.testing.assert_array_equal(resident.cpu().numpy(),
@@ -292,7 +292,7 @@ def test_feeder_pinned_upload_matches_file(tmp_path, rng, cuda_device):
     path = str(tmp_path / "raw.ser")
     write_ser(path, raw)
     it, _, _ = raw_device_chunks(SerReader(path), 4, cuda_device)
-    chunks = [c for _, c in it]
+    chunks = [c for _, c, _ in it]
     assert all(c.device.type == "cuda" for c in chunks)
     got = np.concatenate([c.cpu().numpy() for c in chunks])
     np.testing.assert_array_equal(got, raw)
@@ -628,17 +628,18 @@ def test_feed_on_the_card_equals_plain_feed_and_file(rng, cuda_device,
                                          threads=threads, depth=ring)
     plain, _, _ = feeder.raw_device_chunks_plain(reader, 7, cuda_device)
     got, want = list(new), list(plain)
-    assert [s for s, _ in got] == [s for s, _ in want] == list(range(0, 50, 7))
+    assert [s for s, _, _ in got] == [s for s, _, _ in want] == list(
+        range(0, 50, 7))
     def host(c):
         c = c.cpu()
         return (c.view(torch.int16).numpy().view(np.uint16) if depth == 16
                 else c.numpy())
 
-    for (_, a), (_, b) in zip(got, want):
+    for (_, a, _), (_, b, _) in zip(got, want):
         assert a.is_cuda and a.dtype == b.dtype
         np.testing.assert_array_equal(host(a), host(b))
     np.testing.assert_array_equal(
-        np.concatenate([host(c) for _, c in got]), frames)
+        np.concatenate([host(c) for _, c, _ in got]), frames)
     assert feeder.FEED["chunks"] == 8 and feeder.FEED["h2d_ms"] > 0
 
 
@@ -658,7 +659,7 @@ def test_feeds_of_a_session_reuse_the_cached_chunks(rng, cuda_device,
     reserved = []
     for _ in range(3):
         it, _, _ = feeder.raw_device_chunks(SerReader(path), 8, cuda_device)
-        chunks = [c for _, c in it]
+        chunks = [c for _, c, _ in it]
         assert len(chunks) == 3
         del chunks
         torch.cuda.synchronize()
@@ -732,7 +733,7 @@ def test_avi_feed_and_passes_on_the_card_equal_the_8bit_sers(
         it, rot, up = feeder.raw_device_chunks(video, 7, dev)
         proc = RawScanProcessor(shape[0], shape[1], rot, up, dev)
         chunks = []
-        for start, c in it:
+        for start, c, _ in it:
             proc.accumulate(start, c)
             chunks.append(c.cpu())
         mean, mx = proc.mean_max()
@@ -865,7 +866,7 @@ def test_recon_on_band_chunks_matches_plain(cuda_device, tmp_path, wide,
     torch.cuda.synchronize()
     it, rotate, upscale = raw_device_chunks(r, 32, cuda_device)
     p = RawScanProcessor(r.Height, r.Width, rotate, upscale, cuda_device)
-    for start, c in it:
+    for start, c, _ in it:
         p.accumulate(start, c)
     full = p.reconstruct(lf.floor, lf.frac, shifts).cpu()
     for d in (disks["cpu"], full):
@@ -976,3 +977,127 @@ def test_analyser_on_the_card_equals_the_cpu(cuda_device, tmp_path):
     for shift in (0, 10):
         assert torch.equal(a._recon_at(shift).cpu().view(torch.int16),
                            c._recon_at(shift).view(torch.int16))
+
+
+# ---- kernels on another card than the current one; the mesh on the card ----
+
+
+@pytest.fixture
+def two_cards():
+    """cuda:0 and cuda:1; skips with the reason where there are fewer
+    cards (decided when the test runs)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: a kernel launched for a tensor "
+                    "on cuda:1 from a thread whose current card is cuda:0")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def _on_card_one_cases(rng, dev):
+    """(name, kernel call, plain call) of every kernel, inputs on ``dev``."""
+    rotate, upscale = True, False
+    raw, ind_l, left_w = _recon_args(rng, dev, rotate, upscale, 70, 24, 64)
+    mat, _ = get_correction_matrix(0.15, 0.93)
+    m3 = np.eye(3)
+    m3[:2, :2] = mat
+    imgs = rng.integers(0, 65536, (2, 300, 257)).astype(np.uint16)
+    f01 = t(imgs, dev).to(torch.int32).to(torch.float32) / 65536.0
+    w_args = warp_inputs(f01, m3, 310, 270, f01[:, 0, 0])
+    img = t(rng.integers(0, 65536, (301, 257)).astype(np.uint16), dev)
+    b1 = _b1_inputs(rng, dev, 40, 48, 300, 2)
+    frames = t(rng.integers(0, 65536, (33, 24, 64)).astype(np.uint16), dev)
+
+    def pass_a(fn):
+        total = torch.zeros((24, 64), dtype=torch.int32, device=dev)
+        mx = torch.zeros_like(total)
+        fn(frames, total, mx)
+        return total, mx
+
+    from solex_ser_recon_en_torch.ops.fused_cuda import sum_max_plain
+
+    return [
+        ("recon", lambda: recon_chunks([raw], ind_l, left_w, rotate, upscale),
+         lambda: recon_chunks_plain([raw], ind_l, left_w, rotate, upscale)),
+        ("hresample", lambda: hresample(*w_args),
+         lambda: hresample_plain(*w_args)),
+        ("tile_hist", lambda: _launch_hist(img, 2, 2, 65536),
+         lambda: image_tile_histograms_plain(img, 2, 2, 65536)),
+        ("shg_fused", lambda: shg_fused(*b1), lambda: shg_fused_plain(*b1)),
+        ("shg_fused_mxu", lambda: shg_fused_mxu(*b1),
+         lambda: shg_fused_mxu_plain(*b1)),
+        ("sum_max", lambda: pass_a(sum_max), lambda: pass_a(sum_max_plain)),
+    ]
+
+
+def test_kernels_launch_on_their_tensors_card(rng, two_cards):
+    """Each kernel, for tensors on cuda:1, launched while cuda:0 is the
+    thread's current card (B5 needs its 128 KB shared-memory attribute set
+    on cuda:1 too): the output lies on cuda:1 and equals the plain
+    version's; the current card stays cuda:0."""
+    card0, card1 = two_cards
+    torch.cuda.set_device(card0)
+    before = dict(cuda_build.LAUNCHES)
+    for name, kernel, plain in _on_card_one_cases(rng, card1):
+        assert torch.cuda.current_device() == 0
+        got = kernel()
+        torch.cuda.synchronize(card1)
+        want = plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for a, b in zip(got, want):
+            assert a.device == card1, name
+            assert torch.equal(a.view(torch.int16) if a.dtype == torch.uint16
+                               else a, b.view(torch.int16)
+                               if b.dtype == torch.uint16 else b), name
+        assert cuda_build.LAUNCHES[name] > before[name], name
+        assert torch.cuda.current_device() == 0
+
+
+def _mesh_run(path, out, device, mesh=None):
+    from solex_ser_recon_en_torch.config import Options
+    from solex_ser_recon_en_torch.pipeline.run import process_file
+
+    opts = Options(shift=[0, 3], clahe_only=True, output_dir=str(out),
+                   feed_mode="device", frame_chunk=64)
+    process_file(path, opts, device, mesh=mesh)
+    return (out / "m_shift=0_clahe.png").read_bytes()
+
+
+def _mesh_scan(tmp_path):
+    from solex_ser_recon_en_torch.io.synthetic import SyntheticScan
+
+    p = str(tmp_path / "m.ser")
+    SyntheticScan(ih=256, iw=96, frames=203, depth=16,
+                  line_poly=(48.0, 0.02, -1e-4, 2e-7), noise=0.002,
+                  seed=1).write(p, transpose_to_wide=True)
+    return p
+
+
+def test_frame_mesh_on_one_card_equals_no_mesh(cuda_device, tmp_path):
+    """A 4-shard mesh over the one card repeated: pass A once a piece, B3
+    once a shard, the same ``_clahe.png`` bytes."""
+    from solex_ser_recon_en_torch.parallel.mesh import make_mesh
+
+    p = _mesh_scan(tmp_path)
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    want = _mesh_run(p, tmp_path / "a", cuda_device)
+    for k in cuda_build.LAUNCHES:
+        cuda_build.LAUNCHES[k] = 0
+    got = _mesh_run(p, tmp_path / "b", cuda_device,
+                    make_mesh({"frame": 4}, devices=[cuda_device] * 4))
+    assert got == want
+    assert cuda_build.LAUNCHES["recon"] == 4
+    assert cuda_build.LAUNCHES["sum_max"] == 4 * 3 + 4   # 64, 64, 64, 11
+
+
+def test_frame_mesh_on_distinct_cards_equals_one_card(two_cards, tmp_path):
+    from solex_ser_recon_en_torch.parallel.mesh import mesh_from_options
+
+    card0, _ = two_cards
+    p = _mesh_scan(tmp_path)
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    want = _mesh_run(p, tmp_path / "a", card0)
+    mesh = mesh_from_options({"frame": 2}, card0)
+    assert mesh.row(0) == (torch.device("cuda", 0), torch.device("cuda", 1))
+    assert _mesh_run(p, tmp_path / "b", card0, mesh) == want

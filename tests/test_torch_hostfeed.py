@@ -252,9 +252,9 @@ def test_band_device_chunks(tmp_path, wide, depth, threads, slab):
         r, x0, x1, 10, CPU, slab=band if slab else None, threads=threads)
     got = list(it)
     assert (rotate, upscale) == (wide, depth == 8)
-    assert [s for s, _ in got] == list(range(0, 53, 10))
+    assert [s for s, _, _ in got] == list(range(0, 53, 10))
     cat = torch.cat([c.view(torch.int16) if c.dtype == torch.uint16 else c
-                     for _, c in got]).numpy()
+                     for _, c, _ in got]).numpy()
     np.testing.assert_array_equal(cat.view(band.dtype), band)
     assert feeder.FEED["chunks"] == 6 and feeder.FEED["threads"] == threads
 
@@ -279,8 +279,8 @@ def test_reconstruct_band_equals_full_recon(tmp_path, wide, depth):
     it, rotate, upscale = feeder.raw_device_chunks(vid, 16, CPU)
     shape = (vid.Height, vid.Width) if rotate else (vid.ih, vid.iw)
     proc = fused.RawScanProcessor(*shape, rotate, upscale, CPU)
-    for start, c in it:
-        proc.accumulate(start, c)
+    for start, c, shard in it:
+        proc.accumulate(start, c, shard=shard)
     full = proc.reconstruct(lf.floor, lf.frac, shifts)
     x0, x1 = hr.spectral_band(lf.floor, shifts, vid.iw)
     it, _, _ = feeder.band_device_chunks(r, x0, x1, 16, CPU)

@@ -192,11 +192,12 @@ def test_feed_equals_plain_feed_and_file(tmp_path, rng, threads, ring, depth):
                                                                CPU)
     got, want = list(it), list(plain)
     assert (rotate, upscale) == (rotate_p, upscale_p) == (True, depth == 8)
-    assert [s for s, _ in got] == [s for s, _ in want] == list(range(0, 50, 7))
-    for (_, a), (_, b) in zip(got, want):
-        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert [s for s, _, _ in got] == [s for s, _, _ in want] == list(
+        range(0, 50, 7))
+    for (_, a, k), (_, b, k_p) in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b) and k == k_p == 0
     np.testing.assert_array_equal(
-        torch.cat([c for _, c in got]).numpy(), frames)
+        torch.cat([c for _, c, _ in got]).numpy(), frames)
     assert feeder.FEED["chunks"] == 8 and feeder.FEED["threads"] == threads
     assert feeder.FEED["bytes"] == frames.nbytes
     assert _no_feed_thread_left()
@@ -222,7 +223,7 @@ def test_feed_chunks_are_fresh_tensors(tmp_path, rng):
     producer refills."""
     path, frames = _scan(tmp_path, rng, (40, 6, 10))
     it, _, _ = feeder.raw_device_chunks(SerReader(path), 4, CPU)
-    kept = [c for _, c in it]
+    kept = [c for _, c, _ in it]
     np.testing.assert_array_equal(torch.cat(kept).numpy(), frames)
 
 
@@ -249,7 +250,7 @@ def test_closing_the_feed_early_stops_the_producer(tmp_path, rng):
     closed = native.CALLS["ser_close"]
     reads = native.CALLS["ser_read"]
     it, _, _ = feeder.raw_device_chunks(SerReader(path), 2, CPU, threads=2)
-    start, chunk = next(it)
+    start, chunk, _ = next(it)
     np.testing.assert_array_equal(chunk.numpy(), frames[:2])
     it.close()
     assert not _feed_threads()

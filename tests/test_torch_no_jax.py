@@ -5,8 +5,9 @@ generator, runs the ``-c`` slice through the CLI on the CPU, a folder of
 it as an 8-bit SER and a Y800 AVI (``chip_smoke.write_y800_avi``) with
 ``--input-dir`` and ``--profile``, then every
 product mode that writes no figure (``-f``, the crops, a sweep,
-``protus_only``, stubborn, de-vignette) and the ``band`` and ``host``
-feeds, ``python -m solex_ser_recon_en_torch``, the CLAHE tool on a
+``protus_only``, stubborn, de-vignette), the ``band`` and ``host``
+feeds, ``--mesh frame=4`` and the mesh's library functions, ``python -m
+solex_ser_recon_en_torch``, the CLAHE tool on a
 product PNG and the spectral analyser (none of cv2, PIL or matplotlib
 may be loaded by then) and the default mode (which loads matplotlib, in
 pipeline/plots.py alone), the fused step
@@ -67,6 +68,21 @@ for feed in ("band", "host"):
     rc = cli.main(["-cw0", "tiny.ser", "--device", "cpu", "--feed", feed,
                    "--output-dir", "feed_" + feed])
     assert rc == 0, (feed, rc)
+rc = cli.main(["-cw0", "tiny.ser", "--device", "cpu", "--mesh", "frame=4",
+               "--output-dir", "mesh"])
+assert rc == 0, rc
+import numpy as np
+from solex_ser_recon_en_torch.parallel import (
+    device_pipeline_step, make_mesh, shard_scan_recon)
+from solex_ser_recon_en_torch.parallel.distributed import initialize
+frames = np.zeros((2, 8, 16, 12), np.uint16)
+ind = np.zeros((2, 1, 16), np.int32)
+w = np.ones((2, 16), np.float32)
+mesh = make_mesh({"batch": 2, "frame": 2}, [torch.device("cpu")] * 4)
+assert shard_scan_recon(frames[0], ind[0], w[0], mesh).shape == (1, 16, 8)
+out = device_pipeline_step(frames, ind, w, np.stack([np.eye(3)] * 2),
+                           w, mesh=mesh)
+assert out["circular"].shape == (2, 1, 16, 8)
 import runpy
 import solex_ser_recon_en_torch.cli.analyse as analyse
 import solex_ser_recon_en_torch.cli.clahe_tool as clahe_tool
@@ -152,6 +168,8 @@ def test_port_runs_without_importing_jax(tmp_path):
     assert (tmp_path / "dec" / "decomp_shift=0_clahe.png").exists()
     for feed in ("band", "host"):
         assert (tmp_path / f"feed_{feed}" / "tiny_shift=0_clahe.png").exists()
+    assert (tmp_path / "mesh" / "tiny_shift=0_clahe.png").read_bytes() == \
+        (tmp_path / "tiny_shift=0_clahe.png").read_bytes()
     modes = sorted(p.name for p in (tmp_path / "modes").iterdir())
     for name in ("tiny_shift=-2_clahe.fits", "tiny_shift=2_raw.fits",
                  "tiny_mean.fits", "tiny_shift=0_protus.png",

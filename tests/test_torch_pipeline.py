@@ -257,8 +257,9 @@ def test_cli_cuda_missing_fails(basic_scan, tmp_path, capsys):
 
 
 def test_unported_options_raise(basic_scan, tmp_path, monkeypatch):
-    """What still raises: ``flag_display``, ``mesh``, and figures where
-    matplotlib is absent; the product modes that used to raise run."""
+    """What still raises: ``flag_display``, a malformed ``mesh``, and
+    figures where matplotlib is absent; the product modes and the mesh,
+    which used to raise, run."""
     import sys
 
     import solex_ser_recon_en_torch.pipeline as pipeline_pkg
@@ -266,12 +267,15 @@ def test_unported_options_raise(basic_scan, tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="flag_display"):
         port_run.read_scan(basic_scan["path"],
                            Options(clahe_only=True, flag_display=True), CPU)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="mesh"):
         port_run.read_scan(basic_scan["path"],
-                           Options(clahe_only=True, mesh="1x2"), CPU)
+                           Options(clahe_only=True, mesh="1x2",
+                                   output_dir=str(tmp_path)), CPU)
+    assert list(tmp_path.iterdir()) == []
     for kw in (dict(), dict(save_fit=True), dict(protus_only=True),
                dict(crop_width_square=True), dict(fixed_width=300),
-               dict(stubborn_transversalium=True), dict(de_vignette=True)):
+               dict(stubborn_transversalium=True), dict(de_vignette=True),
+               dict(mesh={"frame": 2})):
         port_run.check_supported(Options(**kw))
     monkeypatch.setitem(sys.modules, "matplotlib", None)
     monkeypatch.delitem(sys.modules, "solex_ser_recon_en_torch.pipeline.plots",
@@ -421,7 +425,7 @@ def test_read_scan_error_between_chunks_stops_the_feed(basic_scan,
     from solex_ser_recon_en_torch.io import native
     from solex_ser_recon_en_torch.ops.fused import RawScanProcessor
 
-    def accumulate(self, start, chunk, keep=True):
+    def accumulate(self, start, chunk, keep=True, shard=0):
         raise ValueError("pass A failed")
 
     monkeypatch.setattr(RawScanProcessor, "accumulate", accumulate)

@@ -127,7 +127,7 @@ def test_feeder_cpu_chunks_are_raw_frames(tmp_path, rng, depth):
     reader = _ser(tmp_path, raw)
     it, rotate, upscale = raw_device_chunks(reader, 5, CPU)
     assert rotate and upscale == (depth == 8)
-    got = [(s, c.numpy()) for s, c in it]
+    got = [(s, c.numpy()) for s, c, _ in it]
     assert [s for s, _ in got] == [0, 5, 10, 15, 20]
     np.testing.assert_array_equal(np.concatenate([c for _, c in got]), raw)
 
@@ -178,7 +178,7 @@ def test_streaming_equals_resident_pass_b(rng, step):
         p.accumulate(s, t(c))
     resident = p.reconstruct(floor, curve - floor, [0, 4, -3])
     streamed = p.reconstruct_streaming(
-        [(s, t(c)) for s, c in _uneven_chunks(raw, step)], floor,
+        [(s, t(c), 0) for s, c in _uneven_chunks(raw, step)], floor,
         curve - floor, [0, 4, -3])
     np.testing.assert_array_equal(resident.numpy(), streamed.numpy())
     assert resident.shape == (3, W, 47)
@@ -233,12 +233,12 @@ def test_pass_b_refuses_what_the_feeder_cannot_make(rng, pairs, match,
     p.accumulate(0, t(raw))
     curve = 12 + 0.03 * np.arange(W)
     floor = np.floor(curve).astype(np.int64)
-    chunks = [(s, t(raw[s:s + n])) for s, n in pairs]
+    chunks = [(s, t(raw[s:s + n]), 0) for s, n in pairs]
     with pytest.raises(ValueError, match=match):
         if streaming:
             p.reconstruct_streaming(chunks, floor, curve - floor, [0])
         else:
-            p._chunks = chunks
+            p._pieces = chunks
             p.reconstruct(floor, curve - floor, [0])
 
 

@@ -166,9 +166,9 @@ def test_feed_chunks_of_an_avi_are_the_8bit_sers(scan8, threads, which):
                                                  CPU, threads=threads)
     got, want = list(it), list(it_s)
     assert (rot, up) == (rot_s, up_s) == (True, True)
-    assert [s for s, _ in got] == [s for s, _ in want] == list(range(0, 200,
-                                                                    37))
-    for (_, a), (_, b) in zip(got, want):
+    assert [s for s, _, _ in got] == [s for s, _, _ in want] == list(
+        range(0, 200, 37))
+    for (_, a, _), (_, b, _) in zip(got, want):
         assert a.dtype == b.dtype == torch.uint8 and torch.equal(a, b)
     assert feeder.FEED["threads"] == threads and feeder.FEED["chunks"] == 6
 
@@ -182,8 +182,8 @@ def test_feed_of_a_cv2_avi_yields_normalised_frames(avis):
     it, rot, up = feeder.raw_device_chunks(vid, 16, CPU, threads=4)
     got = list(it)
     assert (rot, up) == (False, False) and feeder.FEED["threads"] == 1
-    assert [s for s, _ in got] == [0, 16, 32]
-    frames = torch.cat([c for _, c in got])
+    assert [(s, k) for s, _, k in got] == [(0, 0), (16, 0), (32, 0)]
+    frames = torch.cat([c for _, c, _ in got])
     assert frames.dtype == torch.uint16
     np.testing.assert_array_equal(
         frames.view(torch.int16).numpy().view(np.uint16),
@@ -192,7 +192,7 @@ def test_feed_of_a_cv2_avi_yields_normalised_frames(avis):
     vid = video.open_video(path)
     vid.frame_count += 5                      # the header promises more
     it, _, _ = feeder.raw_device_chunks(vid, 16, CPU)
-    assert sum(c.shape[0] for _, c in it) == 40
+    assert sum(c.shape[0] for _, c, _ in it) == 40
 
 
 def _tpu_warp_gate(mat3):
