@@ -217,6 +217,28 @@ Phases; any failure exits non-zero before the final result line:
    ``cuda``, call the progress meter once a file and once when done,
    launch B3 once a scan, and write ``_clahe.png`` files equal to phase 4's
    and phase 9's.  The phase should take under 30 s.
+14. golden: phase 4's ``-cw0`` results against the port's reference
+   replica (``utils/cpu_reference.py``: the reference's hot loops in numpy,
+   its OpenCV calls as numpy stand-ins, so it runs without cv2), with the
+   host CPU's model printed beside the card.  Gated (every miss printed,
+   then the script fails): pass A's mean and max equal ``cpu_mean_max``
+   of the scan bit for bit; the line fit within 2 px of ``cpu_line_fit``
+   on every row (the replica fits its blurred argmin once, ~0.8 px off the
+   true line; both fits' distance from the true line is printed);
+   ``cpu_recon`` with the port's fit at shifts [10, 0] within 1 LSB of
+   B3's disks on < 2% of pixels; ``cpu_products`` of B3's shift-0 disk and
+   the port's product core on the card (B5 exactly twice) on the same
+   disk: the CLAHE stretches within 4 LSB; the high-contrast stretch's
+   99.9999th percentile on the card equal to the float32 lerp of the
+   disk's two order statistics (both packages' float32 index, ROADMAP
+   C19) and the replica's stretch at that percentile within 4 LSB of the
+   card's (the difference at numpy's own percentile is printed).  Then the
+   replica's ``-c`` leg as bench.py pairs it, ``cpu_pipeline(scan, [0],
+   clahe_only=True, transversalium=True)``: its wall (``cpu_reference_s``)
+   and its ratio to phase 4's run 2, the replica's circle beside the
+   port's fitted one, and its ``_clahe.png`` against phase 4's (max and
+   mean difference; information: the two differ by design in the warp
+   and in transversalium).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the
@@ -230,7 +252,7 @@ analyser's slab), B5 ``tile_hist``, ``tile_hist_r1001`` and
 ``tile_hist_u8`` (the CLAHE tool's 8-bit image); pass A and B3 also have
 ``sum_max_shard`` and ``recon_shard`` (phase 12's pieces), and B3
 ``recon_live`` (phase 13's once-a-chunk pattern under ``-d``).  The script
-imports nothing of JAX, and prints the seconds phases 1-13 took.
+imports nothing of JAX, and prints the seconds phases 1-14 took.
 """
 
 from __future__ import annotations
@@ -2875,6 +2897,202 @@ def display_gui_phase(path, tmp, png4, card, dev, res, wall2,
     return [record]
 
 
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it (its model name, or where
+    that is missing or "unknown" the vendor, family, model numbers and
+    clock, or an ARM part), its architecture and core count."""
+    import platform
+
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break                      # the first processor only
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    name = fields.get("model name")
+    if name in (None, "", "unknown"):     # a virtualised host may hide it
+        name = " ".join(f"{k} {fields[k]}" for k in (
+            "vendor_id", "cpu family", "model", "cpu MHz", "CPU implementer",
+            "CPU part", "Hardware") if k in fields) or "unknown"
+    return f"{name} ({platform.machine()}), {os.cpu_count()} cores"
+
+
+def golden_phase(path, tmp, png4, card, res, wall2, scan) -> None:
+    """Phase 14: phase 4's ``-cw0`` results against the port's reference
+    replica (utils/cpu_reference.py, numpy with no cv2) on the same scan,
+    then the replica's ``-c`` leg timed (module docstring).  Every gate is
+    checked and printed before the phase fails on any miss."""
+    import torch
+
+    from solex_ser_recon_en_torch.io.png import read_png
+    from solex_ser_recon_en_torch.ops import cuda_build
+    from solex_ser_recon_en_torch.ops.clahe import (
+        percentile_from_hist,
+        percentile_taps,
+        value_histogram,
+    )
+    from solex_ser_recon_en_torch.ops.dtypes import widen
+    from solex_ser_recon_en_torch.pipeline.products import _products_body
+    from solex_ser_recon_en_torch.utils import cpu_reference as ref
+
+    t_phase = time.perf_counter()
+    cpu = host_cpu()
+    print(f"golden: host CPU {cpu} [{card}]", flush=True)
+    sr = res["scan"]
+    misses = []
+
+    def lsb(a, b):
+        d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+        return int(d.max()), float((d > 0).mean()), float(d.mean())
+
+    t0 = time.perf_counter()
+    mean_r, max_r = ref.cpu_mean_max(path)
+    mm_s = time.perf_counter() - t0
+    mean_eq = np.array_equal(mean_r, sr.mean_img)
+    max_eq = np.array_equal(max_r, res["max_img"])
+    print(f"golden: cpu_mean_max {mm_s:.3f} s; pass A's mean "
+          f"{'equals' if mean_eq else 'DIFFERS from'} it, max "
+          f"{'equals' if max_eq else 'DIFFERS from'} it", flush=True)
+    if not (mean_eq and max_eq):
+        misses.append("pass A's mean or max differs from cpu_mean_max")
+
+    t0 = time.perf_counter()
+    fit_r = ref.cpu_line_fit(mean_r, max_r)
+    fit_s = time.perf_counter() - t0
+    lf = sr.linefit
+    curve = lf.floor.astype(np.float64) + lf.frac
+    dfit = np.abs(curve - fit_r.sum(axis=1))
+    ys = np.arange(lf.y1, lf.y2)
+    truth = scan.line_center(ys)
+    print(f"golden: cpu_line_fit {fit_s:.3f} s; the port's fit against it: "
+          f"largest difference of floor + frac {dfit.max():.6f} px (row "
+          f"{int(dfit.argmax())}), {dfit[ys].max():.6f} px on the fitted "
+          f"rows [{lf.y1}, {lf.y2}), mean {dfit.mean():.6f} px; off the true "
+          f"line on those rows: the port {np.abs(curve[ys] - truth).max():.6f}"
+          f" px, the replica {np.abs(fit_r.sum(axis=1)[ys] - truth).max():.6f}"
+          f" px", flush=True)
+    # 2 px, not 1: the replica fits its blurred argmin once (no rejection
+    # rounds, no refit on the sharp argmin) and sits ~0.8 px off the true
+    # line on scans of the bench scan's proportions (ROADMAP C20)
+    if dfit.max() > 2.0:
+        misses.append(f"line fit {dfit.max():.4f} px from cpu_line_fit")
+
+    fit_port = np.stack([lf.floor.astype(np.float64), lf.frac], axis=1)
+    t0 = time.perf_counter()
+    disks_r = ref.cpu_recon(path, fit_port, [10, 0])
+    recon_s = time.perf_counter() - t0
+    disks_p = [sr.disk_list[sr.shifts.index(s)].cpu().numpy()
+               for s in (10, 0)]
+    for s, a, b in zip((10, 0), disks_p, disks_r):
+        mx, frac, _ = lsb(a, b)
+        print(f"golden: B3's shift-{s} disk against cpu_recon with the "
+              f"port's fit: max {mx} LSB on {100 * frac:.4f}% of pixels",
+              flush=True)
+        if mx > 1 or frac >= 0.02:
+            misses.append(f"shift-{s} disk beyond 1 LSB on 2% of pixels")
+    print(f"golden: cpu_recon (2 shifts) {recon_s:.3f} s", flush=True)
+
+    disk0 = disks_p[1]
+    t0 = time.perf_counter()
+    cc_r, hc_r = ref.cpu_products(disk0)
+    prod_s = time.perf_counter() - t0
+    img = sr.disk_list[sr.shifts.index(0)]
+    for k in cuda_build.LAUNCHES:
+        cuda_build.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    _, cc, hc, _ = _products_body(img)
+    torch.cuda.synchronize()
+    core_ms = 1e3 * (time.perf_counter() - t0)
+    n_b5 = cuda_build.LAUNCHES["tile_hist"]
+    cc, hc = widen(cc).cpu().numpy(), widen(hc).cpu().numpy()
+    d_cc, d_hc = lsb(cc, cc_r), lsb(hc, hc_r)
+    # the high-contrast stretch's 99.9999th percentile: numpy's index
+    # q (n - 1) in float64, the packages' in float32 (jnp.percentile;
+    # ops/clahe.py:percentile_taps), so on 4.1 M pixels its lerp weight
+    # between the two top order statistics moves (ROADMAP C19); the
+    # replica's stretch at the port's percentile isolates the rest
+    low, high, low_w, high_w = percentile_taps(99.9999, disk0.size)
+    stats = np.partition(disk0.ravel(), [low, high])[[low, high]]
+    bright32 = np.float32(stats[0]) * low_w + np.float32(stats[1]) * high_w
+    bright_p = float(percentile_from_hist(value_histogram(img, 65536),
+                                          disk0.size, 99.9999))
+    bright_r = float(np.percentile(disk0, 99.9999))
+    hc_at_p = (65535.0 * (disk0 - bright_p * 0.25)
+               / max(bright_p * 0.75, 1)).clip(0, 65535).astype(np.uint16)
+    d_hc_p = lsb(hc, hc_at_p)
+    print(f"golden: the product core on the card ({n_b5} B5 launches, "
+          f"{core_ms:.2f} ms host clock) against cpu_products ({prod_s:.3f} "
+          f"s) on B3's shift-0 disk {tuple(disk0.shape)}: CLAHE stretch max "
+          f"{d_cc[0]} LSB on {100 * d_cc[1]:.4f}%, high contrast max "
+          f"{d_hc[0]} LSB on {100 * d_hc[1]:.4f}%; its 99.9999th percentile "
+          f"{bright_p!r} on the card (the float32 lerp of order statistics "
+          f"{low}, {high} = {stats.tolist()} at {float(high_w)!r}: "
+          f"{float(bright32)!r}), np.percentile {bright_r!r} (weight "
+          f"{0.999999 * (disk0.size - 1) - low!r}); at the card's percentile "
+          f"the replica's stretch is max {d_hc_p[0]} LSB on "
+          f"{100 * d_hc_p[1]:.4f}% from the card's [{card}]", flush=True)
+    if n_b5 != 2:
+        misses.append(f"the product core launched B5 {n_b5} times, not 2")
+    if d_cc[0] > 4:
+        misses.append(f"CLAHE stretch {d_cc[0]} LSB from cpu_products")
+    if bright_p != float(bright32) or d_hc_p[0] > 4:
+        misses.append(f"high contrast {d_hc_p[0]} LSB from cpu_products' "
+                      f"stretch at the card's percentile {bright_p!r} "
+                      f"(float32 lerp of the order statistics "
+                      f"{float(bright32)!r})")
+
+    # the replica's -c leg as bench.py pairs it with -cw0, its circle kept
+    captured = {}
+    ellipse_warp = ref.cpu_ellipse_warp
+
+    def keep_circle(*a, **k):
+        out = ellipse_warp(*a, **k)
+        captured["circle"] = out[1]
+        return out
+
+    out_dir = os.path.join(tmp, "golden")
+    os.makedirs(out_dir)
+    ref.cpu_ellipse_warp = keep_circle
+    try:
+        cpu_reference_s = ref.cpu_pipeline(path, [0], clahe_only=True,
+                                           transversalium=True,
+                                           save_dir=out_dir)
+    finally:
+        ref.cpu_ellipse_warp = ellipse_warp
+    names = sorted(os.listdir(out_dir))
+    if names != ["scan_shift=0_clahe.png"]:
+        misses.append(f"the replica's -c leg wrote {names}")
+    mine = read_png(os.path.join(out_dir, "scan_shift=0_clahe.png"))
+    theirs = read_png(png4)
+    h = min(mine.shape[0], theirs.shape[0])
+    w = min(mine.shape[1], theirs.shape[1])
+    mx, frac, mean = lsb(mine[:h, :w], theirs[:h, :w])
+    rc, pc = captured.get("circle"), res["circle"]
+    print(f"golden: cpu_reference_s {cpu_reference_s:.3f} s (the replica's "
+          f"-c leg), {cpu_reference_s / wall2:.2f}x phase 4's run 2 "
+          f"{wall2:.3f} s; circle (x, y, r): replica "
+          f"{None if rc is None else tuple(round(float(v), 3) for v in rc)},"
+          f" port {tuple(round(float(v), 3) for v in pc)}; its _clahe.png "
+          f"{mine.shape} against phase 4's {theirs.shape} on the common "
+          f"{h} x {w}: max {mx} LSB, mean {mean:.3f} LSB, {100 * frac:.2f}% "
+          f"differ (the warp and transversalium differ by design) "
+          f"[{card}; host CPU {cpu}]", flush=True)
+    print("golden: " + json.dumps({
+        "cpu_reference_s": cpu_reference_s, "vs_phase4_run2": cpu_reference_s
+        / wall2, "cpu_mean_max_s": mm_s, "cpu_line_fit_s": fit_s,
+        "cpu_recon_s": recon_s, "cpu_products_s": prod_s,
+        "line_fit_max_px": float(dfit.max()), "host_cpu": cpu,
+        "card": card}), flush=True)
+    took = time.perf_counter() - t_phase
+    print(f"phase 14 took {took:.1f} s [{card}]", flush=True)
+    if misses:
+        fail("golden: " + "; ".join(misses))
+
+
 def two_card_checks(path, tmp, png4, card) -> None:
     """Phase 12 on a machine with two cards or more: ``-cw0`` under a mesh
     of cuda:0 and cuda:1 gives phase 4's ``_clahe.png``, and each kernel,
@@ -3048,6 +3266,7 @@ def main() -> int:
 
         def single_image_process(frame, *a, **k):
             res["frame"] = frame
+            res["circle"] = a[2] if len(a) > 2 else k["circle"]
             return orig["single_image_process"](frame, *a, **k)
 
         def recon_chunks(chunks, ind_l, left_w, rotate, upscale, out=None,
@@ -3571,7 +3790,10 @@ def main() -> int:
         records += display_gui_phase(path, tmp, png4, card,
                                      torch.device("cuda"), res, wall2,
                                      n_chunks)
-        print(f"chip_smoke: phases 1-13 took "
+
+        # 14. golden: phase 4's results against the reference replica
+        golden_phase(path, tmp, png4, card, res, wall2, scan)
+        print(f"chip_smoke: phases 1-14 took "
               f"{time.perf_counter() - t_start:.1f} s [{card}]", flush=True)
 
         for r in records:

@@ -39,6 +39,22 @@ def _blur(img: np.ndarray, kx: int, ky: int, device) -> np.ndarray:
     return box_blur(t.to(device), kx, ky).cpu().numpy()
 
 
+def downscale_local_mean(image: np.ndarray, factor: int) -> np.ndarray:
+    """Block-mean downscale, zero-padding ragged edges (skimage semantics).
+
+    reference consumer: ellipse_to_circle.py:301 (the pipeline downscales
+    on the device, geometry/correct.py:downscale_mean; the reference
+    replica, utils/cpu_reference.py, takes this numpy one)
+    """
+    h, w = image.shape
+    ph = (-h) % factor
+    pw = (-w) % factor
+    if ph or pw:
+        image = np.pad(image, ((0, ph), (0, pw)), mode="constant")
+    H, W = image.shape
+    return image.reshape(H // factor, factor, W // factor, factor).mean(axis=(1, 3))
+
+
 def flood_threshold(image: np.ndarray, device):
     """Binarisation threshold from a cubic fit of the brightness histogram.
 

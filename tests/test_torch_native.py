@@ -44,9 +44,12 @@ def _scan(tmp_path, rng, shape, depth=16, name="s.ser"):
 
 
 def _feed_threads():
+    """The port's threads but io/writers.py's two product pools (file
+    writes and the figure lane), which live for the process by design."""
     return [t for t in threading.enumerate()
             if t.name.startswith("solex-torch-")
-            and not t.name.startswith("solex-torch-write")]
+            and not t.name.startswith(("solex-torch-write",
+                                       "solex-torch-figure"))]
 
 
 def _no_feed_thread_left(timeout=2.0):

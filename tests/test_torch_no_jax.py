@@ -226,18 +226,23 @@ def test_no_import_of_the_jax_package(rel):
 def test_port_sources_import_no_cv2_no_pil_and_matplotlib_in_plots_only():
     """The card's machine has none of the three; matplotlib is imported by
     pipeline/plots.py (loaded only when a run wants figures), to ask
-    whether it is there, by pipeline/run.py:check_supported, and by the
+    whether it is there, by pipeline/run.py:check_supported, by the
     analyser's window for its canvas (gui/analyser_window.py, when the
-    window opens)."""
+    window opens), and by the reference replica (utils/cpu_reference.py:
+    _new_figure) inside the function that draws the reference's
+    diagnostic figures, only for a replica run that saves them (its ``-c``
+    leg needs none; where matplotlib is absent such a run raises)."""
     plots = os.path.join("pipeline", "plots.py")
     run = os.path.join("pipeline", "run.py")
     window = os.path.join("gui", "analyser_window.py")
+    replica = os.path.join("utils", "cpu_reference.py")
     for path in list(_port_sources()) + [os.path.join(ROOT, f)
                                          for f in CHECKED_FILES]:
         for root, line in _imported_roots(path):
             assert root not in ("cv2", "PIL"), (path, line)
             if root == "matplotlib":
-                assert path.endswith((plots, run, window)), (path, line)
+                assert path.endswith((plots, run, window, replica)), (
+                    path, line)
         # OpenCV decodes compressed AVIs, OpenCV or PIL non-PNG images for
         # the CLAHE tool, and OpenCV draws -d's windows, loaded by name on
         # demand
@@ -267,6 +272,7 @@ def test_importing_the_port_imports_no_matplotlib(tmp_path):
     assert "solex_ser_recon_en_torch.ops.filters" in mods
     assert "solex_ser_recon_en_torch.gui.analyser_window" in mods
     assert "solex_ser_recon_en_torch.utils.display" in mods
+    assert "solex_ser_recon_en_torch.utils.cpu_reference" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
