@@ -55,7 +55,10 @@ def box_blur(img: torch.Tensor, kx: int, ky: int) -> torch.Tensor:
     float32."""
     s = _window_sum_1d(img.to(torch.float64), ky, img.ndim - 2)
     s = _window_sum_1d(s, kx, img.ndim - 1)
-    return s.to(torch.float32) / np.float32(kx * ky)
+    # a divisor on the image's device: CUDA divides by a host scalar as a
+    # multiply by its reciprocal, which can round the other way
+    k = torch.full((), kx * ky, dtype=torch.float32, device=img.device)
+    return s.to(torch.float32) / k
 
 
 # --- host twin for the line fit (integer numpy images) ---------------------

@@ -10,17 +10,50 @@ Gaussian blur (shifted multiply-adds, constant padding, divided by the
 blurred support mask as skimage does) -> Sobel gradients (shifted
 multiply-adds, reflect borders) -> quantised-direction non-maximum
 suppression -> double threshold -> hysteresis by masked dilation, looped
-in Python until a fixed point.  Float32 elementwise arithmetic in the JAX
-package's order; no convolution (cuDNN would use TF32 on CUDA).
+in Python until a fixed point.  No convolution (cuDNN would use TF32 on
+CUDA).
+
+Every float32 value up to the sector is the one the JAX package's jitted
+Canny computes on XLA:CPU, bit for bit, and the same on the CPU and on
+CUDA.  The flooded image has exact ties between neighbouring magnitudes,
+so one ulp anywhere moves edge points through the non-maximum
+suppression.  Each step is a separate elementwise op that both devices
+round correctly (no divisor is a host scalar: CUDA divides by one as a
+multiply by its reciprocal), and what XLA:CPU does besides is written out:
+
+- it contracts each ``acc + k * x`` of the blur into a fused multiply-add
+  (LLVM, FPOpFusion::Fast): here the exact product is added to the
+  accumulator in float64 and rounded once to float32 (``_conv1d``);
+- the second pass over the support mask adds its centre tap uncontracted
+  (``_support_norm``);
+- ``jnp.hypot`` is max * sqrt(1 + (min / max)^2), the inner sum contracted;
+- ``jnp.arctan2`` is a call of libm's atan2f: ``_atan2f`` is glibc's
+  (fdlibm's) float algorithm, step for step; the sector's floor division
+  by pi/4 is exact, so it is compared against the exact multiples.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+# fdlibm s_atanf.c / e_atan2f.c (glibc sysdeps/ieee754/flt-32)
+_ATANHI = (4.6364760399e-01, 7.8539812565e-01, 9.8279368877e-01,
+           1.5707962513e+00)
+_ATANLO = (5.0121582440e-09, 3.7748947079e-08, 3.4473217170e-08,
+           7.5497894159e-08)
+_AT = (3.3333334327e-01, -2.0000000298e-01, 1.4285714924e-01,
+       -1.1111110449e-01, 9.0908870101e-02, -7.6918758452e-02,
+       6.6610731184e-02, -5.8335702866e-02, 4.9768779427e-02,
+       -3.6531571299e-02, 1.6285819933e-02)
+_PI32 = 3.1415927410e+00
+_PI_O_2 = 1.5707963705e+00
+_PI_LO = -8.7422776573e-08
+_TINY = 1.0e-30
 
 
 def _gaussian_kernel_1d(sigma: float) -> np.ndarray:
@@ -30,16 +63,89 @@ def _gaussian_kernel_1d(sigma: float) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
-def _conv1d(img: torch.Tensor, k: np.ndarray, dim: int) -> torch.Tensor:
+def _f32(v) -> float:
+    """The float32 nearest ``v``, as a Python float: a multiply, add or
+    subtract with it rounds in float32 on both devices."""
+    return float(np.float32(v))
+
+
+def _round_sum(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The float32 nearest the exact p + c of two float64 tensors: their
+    float64 sum is rounded to odd (its TwoSum error sets the last bit when
+    the sum is inexact), and a float64 rounded to odd rounds to float32 as
+    the exact sum would."""
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    bits = s.view(torch.int64)
+    trunc = bits - (torch.signbit(s) != torch.signbit(e)).long()
+    return torch.where(e == 0, bits, trunc | 1).view(torch.float64).float()
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c rounded once (the product is exact in float64)."""
+    return _round_sum(a.double() * b.double(), c.double())
+
+
+# a float64 whose low 29 significand bits are 1 << 28 lies halfway between
+# two float32 values (normal range; XLA:CPU flushes subnormals anyway)
+_LOW29 = (1 << 29) - 1
+_HALF29 = 1 << 28
+
+
+def _conv1d(img: torch.Tensor, k: np.ndarray, dim: int,
+            plain_centre: bool = False, exact: bool = False) -> torch.Tensor:
+    """Zero-padded correlation along ``dim``: x0 * k0 + x1 * k1 + ... in
+    XLA:CPU's contraction, fma(x0, k0, x1 * k1) then fma(xi, ki, acc);
+    ``plain_centre``: the centre tap's product rounded and added.
+
+    Each fused multiply-add is the float64 sum of the exact product and
+    the float32 accumulator, rounded to float32: one rounding, unless the
+    float64 sum fell exactly halfway between two float32 values.  Where
+    that happens anywhere, the pass is redone with ``_round_sum`` at every
+    tap (``exact``)."""
     r = len(k) // 2
     pad = [0, 0, 0, 0]
     pad[2 * (1 - dim): 2 * (1 - dim) + 2] = [r, r]   # F.pad: last dim first
-    xp = F.pad(img, pad)
+    xp = F.pad(img, pad).double()
     n = img.shape[dim]
-    out = torch.zeros_like(img)
-    for i in range(len(k)):
-        out = out + float(k[i]) * xp.narrow(dim, i, n)
-    return out
+
+    def x(i):
+        return xp.narrow(dim, i, n)
+
+    if len(k) == 1:
+        return (x(0) * float(k[0])).float()
+    halfway = None
+
+    def fma(i, c):   # x_i * k_i (exact in float64) + c
+        nonlocal halfway
+        if exact:
+            return _round_sum(x(i) * float(k[i]), c.double())
+        s = torch.add(c.double(), x(i), alpha=float(k[i]))
+        tie = (s.view(torch.int64) & _LOW29) == _HALF29
+        halfway = tie if halfway is None else halfway | tie
+        return s.float()
+
+    acc = fma(0, (x(1) * float(k[1])).float())
+    for i in range(2, len(k)):
+        if plain_centre and i == r:
+            acc = acc + (x(i) * float(k[i])).float()
+        else:
+            acc = fma(i, acc)
+    if halfway is not None and bool(halfway.any()):
+        return _conv1d(img, k, dim, plain_centre, exact=True)
+    return acc
+
+
+@functools.lru_cache(maxsize=8)
+def _support_norm(h: int, w: int, sigma: float, device: str) -> torch.Tensor:
+    """The blurred support mask the blur is divided by, as XLA:CPU computes
+    it: its second pass reads the centre tap as the row's loop-invariant
+    value, a product hoisted out of the loop and added, not contracted.
+    It depends on the shape alone, so it is made once a shape."""
+    k = _gaussian_kernel_1d(sigma)
+    ones = torch.ones((h, w), dtype=torch.float32, device=device)
+    return _conv1d(_conv1d(ones, k, 0), k, 1, plain_centre=True)
 
 
 def _reflect_pad1(img: torch.Tensor) -> torch.Tensor:
@@ -49,7 +155,8 @@ def _reflect_pad1(img: torch.Tensor) -> torch.Tensor:
 
 
 def _sobel(img: torch.Tensor):
-    """ndi.sobel-compatible gradients with reflect borders."""
+    """ndi.sobel-compatible gradients with reflect borders (taps -1, 0, 1,
+    2: every product is exact, so contraction changes nothing)."""
     smooth = (1.0, 2.0, 1.0)
     deriv = (-1.0, 0.0, 1.0)
     h, w = img.shape
@@ -67,6 +174,91 @@ def _sobel(img: torch.Tensor):
     return sep(deriv, smooth), sep(smooth, deriv)   # d/dy, d/dx
 
 
+def _hypot32(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """jnp.hypot as XLA:CPU runs it: hi * sqrt(fma(r, r, 1)), r = lo / hi
+    (hi = 0 gives 0; the square root rounded once, through float64)."""
+    ay, ax = y.abs(), x.abs()
+    hi, lo = torch.maximum(ay, ax), torch.minimum(ay, ax)
+    one = torch.ones_like(hi)
+    r = lo / torch.where(hi == 0, one, hi)
+    root = _fma32(r, r, one).double().sqrt().float()
+    return torch.where(hi == 0, hi, hi * root)
+
+
+def _pick(idx: torch.Tensor, table) -> torch.Tensor:
+    """float32 table[idx] for a small table of constants."""
+    out = torch.full(idx.shape, _f32(table[-1]), device=idx.device)
+    for i in range(len(table) - 2, -1, -1):
+        out = torch.where(idx == i, _f32(table[i]), out)
+    return out
+
+
+def _atanf(x: torch.Tensor) -> torch.Tensor:
+    """fdlibm's float atan (glibc __atanf), every branch evaluated and the
+    right one selected per element."""
+    ix = x.view(torch.int32) & 0x7FFFFFFF
+    ax = x.abs()
+    reduced = ix >= 0x3EE00000                      # |x| >= 0.4375
+    idx = ((ix >= 0x3F300000).int() + (ix >= 0x3F980000).int()
+           + (ix >= 0x401C0000).int())
+    xr = torch.where(idx == 0, (2.0 * ax - 1.0) / (ax + 2.0),
+                     torch.where(idx == 1, (ax - 1.0) / (ax + 1.0),
+                                 torch.where(idx == 2,
+                                             (ax - 1.5) / (1.5 * ax + 1.0),
+                                             -ax.reciprocal())))
+    xr = torch.where(reduced, xr, x)
+    z = xr * xr
+    w = z * z
+    at = [_f32(v) for v in _AT]
+    s1 = z * (at[0] + w * (at[2] + w * (at[4] + w * (at[6] + w * (
+        at[8] + w * at[10])))))
+    s2 = w * (at[1] + w * (at[3] + w * (at[5] + w * (at[7] + w * at[9]))))
+    hi, lo = _pick(idx, _ATANHI), _pick(idx, _ATANLO)
+    big = hi - ((xr * (s1 + s2) - lo) - xr)
+    out = torch.where(reduced, torch.where(x < 0, -big, big),
+                      xr - xr * (s1 + s2))
+    inf_lim = _f32(np.float32(_ATANHI[3]) + np.float32(_ATANLO[3]))
+    out = torch.where(ix >= 0x4C000000,                 # |x| >= 2^25
+                      torch.where(x > 0, inf_lim, -inf_lim), out)
+    return torch.where(ix < 0x31000000, x, out)         # |x| < 2^-29
+
+
+def _atan2f(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """glibc's atan2f (fdlibm __ieee754_atan2f) for finite float32 y, x,
+    with XLA:CPU's flush of a subnormal quotient to zero."""
+    hx, hy = x.view(torch.int32), y.view(torch.int32)
+    ix, iy = hx & 0x7FFFFFFF, hy & 0x7FFFFFFF
+    m = ((hy >> 31) & 1) | ((hx >> 30) & 2)   # 2 * sign(x) + sign(y)
+    k = (iy - ix) >> 23
+    q = (y / torch.where(ix == 0, torch.ones_like(x), x)).abs()
+    q = torch.where(q < 2.0 ** -126, 0.0, q)
+    z = _atanf(q)
+    f32 = np.float32
+    pi, pi_lo = f32(_PI32), f32(_PI_LO)
+    z = torch.where(k > 60, _f32(f32(_PI_O_2) + f32(0.5) * pi_lo), z)
+    z = torch.where((hx < 0) & (k < -60), 0.0, z)
+    out = torch.where(m == 0, z, torch.where(
+        m == 1, -z, torch.where(m == 2, float(pi) - (z - float(pi_lo)),
+                                (z - float(pi_lo)) - float(pi))))
+    half_pi = _f32(f32(_PI_O_2) + f32(_TINY))
+    out = torch.where(ix == 0, torch.where(hy < 0, -half_pi, half_pi), out)
+    pi_t = _f32(pi + f32(_TINY))
+    at_zero = torch.where(m < 2, y, torch.where(m == 2, pi_t, -pi_t))
+    out = torch.where(iy == 0, at_zero, out)
+    return torch.where(hx == 0x3F800000, _atanf(y), out)   # x = 1: atanf(y)
+
+
+def _sector(gy: torch.Tensor, gx: torch.Tensor) -> torch.Tensor:
+    """floor((atan2 folded to [0, pi) + pi/8) / (pi/4)) % 4 in float32 as
+    the JAX package computes it; the quotient's floor is exact, taken as a
+    count of the exact multiples of pi/4 (float32) at or below it."""
+    ang = _atan2f(gy, gx)
+    ang = torch.where(ang < 0, ang + _f32(math.pi), ang)
+    a = (ang + _f32(math.pi / 8)).double()
+    n = sum((a >= _f32(math.pi / 4) * j).int() for j in (1, 2, 3, 4))
+    return n % 4
+
+
 def _shift(p: torch.Tensor, dy: int, dx: int, shape) -> torch.Tensor:
     return p[1 + dy: 1 + dy + shape[0], 1 + dx: 1 + dx + shape[1]]
 
@@ -80,25 +272,22 @@ def _dilate(m: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def gradients(image: torch.Tensor, sigma: float = 2.0):
+    """(magnitude, sector) of the blurred image, as the JAX Canny's."""
+    img = image.to(torch.float32)
+    k = _gaussian_kernel_1d(sigma)
+    sm = _conv1d(_conv1d(img, k, 0), k, 1)
+    norm = _support_norm(*img.shape, float(sigma), str(img.device))
+    sm = sm / torch.clamp(norm, min=1e-12)
+    gy, gx = _sobel(sm)
+    return _hypot32(gy, gx), _sector(gy, gx)
+
+
 def canny(image: torch.Tensor, sigma: float = 2.0,
           low_threshold: float = 0.1, high_threshold: float = 0.2
           ) -> torch.Tensor:
     """Boolean edge map (H, W) on ``image``'s device."""
-    img = image.to(torch.float32)
-    k = _gaussian_kernel_1d(sigma)
-    sm = _conv1d(_conv1d(img, k, 0), k, 1)
-    ones = torch.ones_like(img)
-    norm = _conv1d(_conv1d(ones, k, 0), k, 1)
-    sm = sm / torch.clamp(norm, min=1e-12)
-
-    gy, gx = _sobel(sm)
-    mag = torch.hypot(gy, gx)
-
-    # non-maximum suppression over 4 quantised gradient directions
-    ang = torch.atan2(gy, gx)                                   # [-pi, pi]
-    ang = torch.where(ang < 0, ang + math.pi, ang)              # [0, pi)
-    sector = torch.floor_divide(ang + math.pi / 8, math.pi / 4).to(
-        torch.int32) % 4
+    mag, sector = gradients(image, sigma)
 
     pad = F.pad(mag, (1, 1, 1, 1))
 

@@ -1140,3 +1140,56 @@ def test_frame_mesh_on_distinct_cards_equals_one_card(two_cards, tmp_path):
     mesh = mesh_from_options({"frame": 2}, card0)
     assert mesh.row(0) == (torch.device("cuda", 0), torch.device("cuda", 1))
     assert _mesh_run(p, tmp_path / "b", card0, mesh) == want
+
+
+# ---- the ellipse fit's small ops: the card equals the CPU -----------------
+# (no kernel of the port's own: plain torch ops that both devices round
+# correctly, ops/canny.py and ops/blur.py:box_blur; the CPU side is held to
+# the JAX package in tests/test_torch_canny.py)
+
+
+@pytest.mark.parametrize("shape", [(257, 256), (512, 500)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("kind", ["flooded", "graded"])
+def test_canny_on_the_card_equals_the_cpu(cuda_device, kind, shape):
+    from solex_ser_recon_en_torch.ops import canny
+
+    from torch_parity import flooded_ellipse, graded_ellipse
+
+    make = flooded_ellipse if kind == "flooded" else graded_ellipse
+    low, high = (0.05, 0.075) if kind == "flooded" else (650.0, 975.0)
+    img = torch.from_numpy(make(*shape, 0))
+    for got, want in zip(canny.gradients(img.to(cuda_device)),
+                         canny.gradients(img)):
+        assert torch.equal(got.cpu(), want)
+    edges = canny.canny(img, 2.0, low, high)
+    assert edges.any()
+    assert torch.equal(canny.canny(img.to(cuda_device), 2.0, low, high).cpu(),
+                       edges)
+
+
+def test_canny_float_steps_on_the_card_equal_the_cpu(rng, cuda_device):
+    """atan2f and the once-rounded multiply-add on wide random inputs."""
+    from solex_ser_recon_en_torch.ops import canny
+
+    n = 200_000
+    y, x, c = (torch.from_numpy((rng.standard_normal(n) * 10.0 ** rng.uniform(
+        -4, 6, n)).astype(np.float32)) for _ in range(3))
+    assert torch.equal(canny._atan2f(y.to(cuda_device),
+                                     x.to(cuda_device)).cpu(),
+                       canny._atan2f(y, x))
+    assert torch.equal(canny._fma32(y.to(cuda_device), x.to(cuda_device),
+                                    c.to(cuda_device)).cpu(),
+                       canny._fma32(y, x, c))
+
+
+@pytest.mark.parametrize("kx,ky", [(5, 5), (2, 2), (7, 3)])
+def test_box_blur_on_the_card_equals_the_cpu(rng, cuda_device, kx, ky):
+    """The ellipse fit's blurs of a downscaled disk (block means of u16 /
+    65536): the card divides by a device tensor, not by a host scalar."""
+    from solex_ser_recon_en_torch.ops.blur import box_blur
+
+    img = torch.from_numpy((rng.integers(0, 16 * 65536, (128, 125))
+                            / (16 * 65536.0)).astype(np.float32))
+    assert torch.equal(box_blur(img.to(cuda_device), kx, ky).cpu(),
+                       box_blur(img, kx, ky))

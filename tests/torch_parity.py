@@ -25,3 +25,46 @@ def lsb_diff(a, b):
     """(max |a-b|, fraction of differing entries) of integer images."""
     d = np.abs(np.asarray(a).astype(np.int64) - np.asarray(b).astype(np.int64))
     return int(d.max()), float((d > 0).mean())
+
+
+def flooded_ellipse(h: int, w: int, seed: int) -> np.ndarray:
+    """A 0/65000 float32 ellipse, as the ellipse fit floods its disk: a
+    random centre, axes and tilt from ``seed``."""
+    rng = np.random.default_rng(seed)
+    cy, cx = h / 2 + rng.uniform(-5, 5), w / 2 + rng.uniform(-5, 5)
+    a, b = rng.uniform(0.3, 0.42) * h, rng.uniform(0.3, 0.42) * w
+    tilt = rng.uniform(0, np.pi)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    u = ((x - cx) * np.cos(tilt) + (y - cy) * np.sin(tilt)) / b
+    v = (-(x - cx) * np.sin(tilt) + (y - cy) * np.cos(tilt)) / a
+    return np.where(u * u + v * v <= 1, 65000.0, 0.0).astype(np.float32)
+
+
+def graded_ellipse(h: int, w: int, seed: int) -> np.ndarray:
+    """The flooded ellipse with a brightness gradient across it and
+    Gaussian noise (sigma 300), clipped at 0: no exact ties."""
+    f = flooded_ellipse(h, w, seed)
+    rng = np.random.default_rng(seed + 1000)
+    x = np.arange(w, dtype=np.float32)[None, :]
+    g = f * (0.6 + 0.4 * np.cos(x / w * 3)) + rng.normal(
+        0, 300, (h, w)).astype(np.float32)
+    return np.clip(g, 0, None).astype(np.float32)
+
+
+def limb_darkened_disk(h: int, w: int, seed: int) -> np.ndarray:
+    """A uint16 disk image of the bench scan's kind: an ellipse of Y/X
+    1.08 tilted by up to 10 degrees, limb-darkened (0.4 + 0.6 mu) on a
+    600-count sky, Gaussian noise of 150 counts."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    cy, cx = h / 2 + rng.uniform(-20, 20), w / 2 + rng.uniform(-20, 20)
+    a = 0.40 * h
+    b = a / 1.08
+    tilt = np.deg2rad(rng.uniform(-10, 10))
+    u = ((x - cx) * np.cos(tilt) + (y - cy) * np.sin(tilt)) / b
+    v = (-(x - cx) * np.sin(tilt) + (y - cy) * np.cos(tilt)) / a
+    r2 = u * u + v * v
+    mu = np.sqrt(np.clip(1 - r2, 0, 1))
+    img = np.where(r2 <= 1, 30000 * (0.4 + 0.6 * mu), 600.0)
+    img = img + rng.normal(0, 150, img.shape)
+    return np.clip(np.round(img), 0, 65535).astype(np.uint16)
