@@ -114,10 +114,11 @@ def main(argv) -> int:
               f"buffer; consumer waited "
               f"{1e3 * FEED['consumer_wait_s']:.1f} ms for a filled buffer "
               f"and {1e3 * FEED['upload_wait_s']:.1f} ms for uploads "
-              f"(closing the reader, inside the last wait, "
+              f"(closing the reader, after the last chunk, "
               f"{1e3 * FEED['close_s']:.1f} ms); the rest of its wall "
               f"{1e3 * (FEED['wall_s'] - FEED['consumer_wait_s'] - FEED['upload_wait_s']):.1f}"
-              f" ms (its own CUDA calls, the caller's work between chunks); "
+              f" ms (its own CUDA calls, the closing, the caller's work "
+              f"between chunks); "
               f"uploads {FEED['h2d_ms']:.1f} ms on the card [{card}]")
         for kid, kernel in KERNEL_NAMES.items():
             hits = [v for k, v in by_name.items() if kernel in k]

@@ -3426,9 +3426,10 @@ def main() -> int:
               f"waited {1e3 * feed2['producer_wait_s']:.1f} ms for a free "
               f"buffer, consumer {1e3 * feed2['consumer_wait_s']:.1f} ms for "
               f"a filled one and {1e3 * feed2['upload_wait_s']:.1f} ms for "
-              f"uploads (closing the reader, inside the last wait, "
+              f"uploads (closing the reader, after the last chunk, "
               f"{1e3 * feed2['close_s']:.1f} ms); the rest of the wall, its "
-              f"own CUDA calls and the caller's work between chunks, "
+              f"own CUDA calls, the closing and the caller's work between "
+              f"chunks, "
               f"{1e3 * (feed2['wall_s'] - feed2['consumer_wait_s'] - feed2['upload_wait_s']):.1f}"
               f" ms [{card}]", flush=True)
 

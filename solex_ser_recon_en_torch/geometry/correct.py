@@ -28,6 +28,7 @@ from ..ops.dtypes import widen
 from ..ops.warp import warp_host_u16, warp_projective_u16, warp_to_u16
 from ..ops.warp_fast import unit_y_row, warp_unit_y_u16, window_for
 from ..utils.placement import host_pipeline, small_ops_device
+from ..utils.timer import span
 from .edges import get_edge_list
 from .ellipse import get_correction_matrix, two_step
 
@@ -200,34 +201,36 @@ def ellipse_to_circle(
     (the hidden ellipse-fit shift yields no product).
     """
     factor = 4
-    small = downscale_mean(image_u16, factor)
+    with span("downscale"):
+        small = downscale_mean(image_u16, factor)
     X, raw_X = get_edge_list(small, small_ops_device(image_u16.device))
-    X = X * factor
-    raw_X = raw_X * factor
-    center_yx, height, phi, ratio, X_f, ell_pts = two_step(X)
-    center = np.array([center_yx[1], center_yx[0]])  # (x, y)
+    with span("fit"):
+        X = X * factor
+        raw_X = raw_X * factor
+        center_yx, height, phi, ratio, X_f, ell_pts = two_step(X)
+        center = np.array([center_yx[1], center_yx[0]])  # (x, y)
 
-    if need_image:
-        fixed, circle, mat3 = correct_image(
-            image_u16, phi, ratio, center, height, log=log
-        )
-    else:
-        fixed = None
-        circle, mat3, _, _ = correction_geometry(
-            image_u16.shape, phi, ratio, center, height, log=log
-        )
+        if need_image:
+            fixed, circle, mat3 = correct_image(
+                image_u16, phi, ratio, center, height, log=log
+            )
+        else:
+            fixed = None
+            circle, mat3, _, _ = correction_geometry(
+                image_u16.shape, phi, ratio, center, height, log=log
+            )
 
-    # transform kept edge points into the corrected frame for the borders
-    pts = np.ones((X_f.shape[0], 3))
-    pts[:, 0] = X_f[:, 1]  # x
-    pts[:, 1] = X_f[:, 0]  # y
-    pts_t = (np.linalg.inv(mat3) @ pts.T).T
-    borders = [
-        float(np.min(pts_t[:, 0])),
-        float(np.min(pts_t[:, 1])),
-        float(np.max(pts_t[:, 0])),
-        float(np.max(pts_t[:, 1])),
-    ]
+        # transform kept edge points into the corrected frame for the borders
+        pts = np.ones((X_f.shape[0], 3))
+        pts[:, 0] = X_f[:, 1]  # x
+        pts[:, 1] = X_f[:, 0]  # y
+        pts_t = (np.linalg.inv(mat3) @ pts.T).T
+        borders = [
+            float(np.min(pts_t[:, 0])),
+            float(np.min(pts_t[:, 1])),
+            float(np.max(pts_t[:, 0])),
+            float(np.max(pts_t[:, 1])),
+        ]
     return GeometryResult(
         image=fixed,
         circle=circle,

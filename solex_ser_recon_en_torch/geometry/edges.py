@@ -24,6 +24,7 @@ from scipy.spatial import ConvexHull
 from ..ops.blur import box_blur
 from ..ops.canny import canny
 from ..ops.canny_host import canny as canny_host
+from ..utils.timer import span
 
 NUM_REG = 2  # include biggest NUM_REG regions (ellipse_to_circle.py:31)
 #: blobs of this many pixels or fewer take the host Canny (JAX
@@ -109,25 +110,43 @@ def get_edge_list(image: np.ndarray, device, sigma: float = 2.0
                   ) -> Tuple[np.ndarray, np.ndarray]:
     """Edge points (filtered, raw) of the solar limb, (row, col) like
     np.argwhere.  Retries with smaller sigma when nothing is found."""
+    # each step is a sub-span of the caller's stage (utils/timer.py); a
+    # retry's steps add to the same keys
     while sigma > 0:
-        low = float(np.median(_blur(image, 5, 5, device))) / 10
-        high = low * 1.5
-        flooded = get_flood_image(image, device)
-        if flooded.size <= HOST_CANNY_MAX_PX:
-            edges = canny_host(flooded, sigma=float(sigma),
-                               low_threshold=low, high_threshold=high)
-        else:
-            edges = canny(torch.from_numpy(flooded).to(device),
-                          sigma=float(sigma), low_threshold=low,
-                          high_threshold=high).cpu().numpy()
-        raw_X = np.argwhere(edges)
-        labelled, nf = scipy.ndimage.label(edges, structure=np.ones((3, 3)))
+        with span("flood"):
+            low = float(np.median(_blur(image, 5, 5, device))) / 10
+            high = low * 1.5
+            flooded = get_flood_image(image, device)
+        with span("canny"):
+            if flooded.size <= HOST_CANNY_MAX_PX:
+                edges = canny_host(flooded, sigma=float(sigma),
+                                   low_threshold=low, high_threshold=high)
+            else:
+                edges = canny(torch.from_numpy(flooded).to(device),
+                              sigma=float(sigma), low_threshold=low,
+                              high_threshold=high).cpu().numpy()
+        with span("edges"):
+            raw_X = np.argwhere(edges)
+            labelled, nf = scipy.ndimage.label(edges,
+                                               structure=np.ones((3, 3)))
         if nf > 0:
             break
         sigma -= 0.5
     else:
         raise ValueError("could not find any edges")
 
+    with span("edges"):
+        X = _limb_points(edges, labelled, nf)
+    if X.shape[0] < 6:
+        raise ValueError("too few limb edge points for an ellipse fit")
+    return X, raw_X.astype(np.float64)
+
+
+def _limb_points(edges: np.ndarray, labelled: np.ndarray, nf: int
+                 ) -> np.ndarray:
+    """The limb's edge points, (row, col) float64: those of the ``NUM_REG``
+    largest of the ``nf`` labelled edge regions that touch their convex
+    hull, less 1.7% of their rows' extent at each end."""
     sizes = scipy.ndimage.sum_labels(edges, labelled, index=np.arange(1, nf + 1))
     big = 1 + np.argsort(sizes)[::-1][: min(nf, NUM_REG)]
     filt = np.isin(labelled, big)
@@ -145,7 +164,4 @@ def get_edge_list(image: np.ndarray, device, sigma: float = 2.0
     mask = np.zeros(filt.shape, bool)
     mask[int(x_min + dx * crop) : int(x_max - dx * crop), :] = True
     filt &= mask
-    X = np.argwhere(filt).astype(np.float64)
-    if X.shape[0] < 6:
-        raise ValueError("too few limb edge points for an ellipse fit")
-    return X, raw_X.astype(np.float64)
+    return np.argwhere(filt).astype(np.float64)

@@ -63,6 +63,7 @@ from __future__ import annotations
 
 import mmap
 import queue
+import resource
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -72,6 +73,7 @@ import numpy as np
 import torch
 
 from ..ops.dtypes import as_int16, to_u16, widen
+from ..utils.timer import span
 from .native import NativeSerReader
 from .ser import SerReader
 from .video import _AviVideo, _SerVideo
@@ -95,9 +97,13 @@ _POLL_S = 0.05
 #: spent inside ``ser_read``
 #: (summed over threads) and the producer spent filling (wall) and waiting
 #: for a free buffer; seconds the consumer waited for a filled
-#: buffer (the last such wait holds ``close_s``, the unmapping of the file
-#: when the reader closes) and for an upload's event; device milliseconds
-#: of the uploads (CUDA only, when the run reached its end)
+#: buffer and for an upload's event (the spans ``staging wait`` and
+#: ``upload wait``, utils/timer.py); ``close_s``, the source's closing
+#: (the unmapping of the file) inside the consumer's span ``close`` after
+#: the last chunk; device milliseconds of the uploads (CUDA only, when the
+#: run reached its end); ``minflt``, the process's minor page faults from
+#: the first chunk's request to the end (every thread's: the copy
+#: threads' first touch of the file's mapped pages)
 FEED = {}
 
 #: the upload stream of each card, shared by every feed.  The chunks are
@@ -600,6 +606,7 @@ def _device_chunks(source, chunk: int, device: torch.device, threads: int,
 
     def gen():
         t_begin = time.perf_counter()
+        minflt = resource.getrusage(resource.RUSAGE_SELF).ru_minflt
         stats = dict(threads=threads, depth=depth, chunks=0, bytes=0,
                      wall_s=0.0, copy_thread_s=0.0, fill_s=0.0,
                      producer_wait_s=0.0, consumer_wait_s=0.0,
@@ -607,59 +614,70 @@ def _device_chunks(source, chunk: int, device: torch.device, threads: int,
         staged = _staged_chunks(source, chunk, cuda, threads, depth, stats)
         copy_streams = [_copy_stream(d) for d in devices] if cuda else None
         uploads = []            # (begin, end) timing events of each upload
+        fed = 0                 # frames yielded so far
         try:
-            while True:
-                t0 = time.perf_counter()
-                item = next(staged, None)
-                stats["consumer_wait_s"] += time.perf_counter() - t0
+            # the last chunk ends the loop, so that the source closes under
+            # ``close`` and not inside a wait for a chunk that never comes
+            # (a decoder that runs out of frames ends it through None; the
+            # first request, which opens the source, is always made)
+            while not fed or fed < source.frame_count:
+                with span("staging wait", timed=True) as wait:
+                    item = next(staged, None)
+                stats["consumer_wait_s"] += wait.seconds
                 if item is None:
                     break
                 start, host, release = item
+                fed = start + host.shape[0]
                 stats["chunks"] += 1
                 stats["bytes"] += host.numel() * host.element_size()
                 pieces = [(k, a, b) for k, (a, b) in enumerate(
                     frame_split(host.shape[0], len(devices))) if a < b]
                 if not cuda:
-                    out = [(start + a, host[a:b].clone(), k)
-                           for k, a, b in pieces]
+                    with span("upload"):
+                        out = [(start + a, host[a:b].clone(), k)
+                               for k, a, b in pieces]
                     release()
                     yield from out
                     continue
                 out, ends = [], []
-                for k, a, b in pieces:
-                    # each piece on its own card's upload stream, waited on
-                    # by that card's consumer stream
-                    dev_k, copy_stream = devices[k], copy_streams[k]
-                    consumer = torch.cuda.current_stream(dev_k)
-                    with torch.cuda.stream(copy_stream):
-                        # allocated from the copy stream's pool;
-                        # record_stream makes the allocator wait for the
-                        # consumer's work before reuse
-                        dev = torch.empty((b - a, *host.shape[1:]),
-                                          dtype=dtype, device=dev_k)
-                        begin = torch.cuda.Event(enable_timing=True)
-                        end = torch.cuda.Event(enable_timing=True)
-                        begin.record(copy_stream)
-                        dev.copy_(host[a:b], non_blocking=True)
-                        end.record(copy_stream)
-                    dev.record_stream(consumer)
-                    consumer.wait_event(end)
-                    uploads.append((begin, end))
-                    ends.append(end)
-                    out.append((start + a, dev, k))
+                with span("upload"):
+                    for k, a, b in pieces:
+                        # each piece on its own card's upload stream, waited
+                        # on by that card's consumer stream
+                        dev_k, copy_stream = devices[k], copy_streams[k]
+                        consumer = torch.cuda.current_stream(dev_k)
+                        with torch.cuda.stream(copy_stream):
+                            # allocated from the copy stream's pool;
+                            # record_stream makes the allocator wait for the
+                            # consumer's work before reuse
+                            dev = torch.empty((b - a, *host.shape[1:]),
+                                              dtype=dtype, device=dev_k)
+                            begin = torch.cuda.Event(enable_timing=True)
+                            end = torch.cuda.Event(enable_timing=True)
+                            begin.record(copy_stream)
+                            dev.copy_(host[a:b], non_blocking=True)
+                            end.record(copy_stream)
+                        dev.record_stream(consumer)
+                        consumer.wait_event(end)
+                        uploads.append((begin, end))
+                        ends.append(end)
+                        out.append((start + a, dev, k))
                 yield from out
                 # the buffer goes back once every upload of it has read
                 # it; the producer fills the other buffers meanwhile
-                t0 = time.perf_counter()
-                for end in ends:
-                    end.synchronize()
-                stats["upload_wait_s"] += time.perf_counter() - t0
+                with span("upload wait", timed=True) as wait:
+                    for end in ends:
+                        end.synchronize()
+                stats["upload_wait_s"] += wait.seconds
                 release()
             if cuda:
                 stats["h2d_ms"] = sum(b.elapsed_time(e) for b, e in uploads)
         finally:
-            staged.close()
+            with span("close"):
+                staged.close()
             stats["wall_s"] = time.perf_counter() - t_begin
+            stats["minflt"] = (resource.getrusage(resource.RUSAGE_SELF)
+                               .ru_minflt - minflt)
             FEED.clear()
             FEED.update(stats)
 

@@ -116,7 +116,7 @@ from ..utils import display
 from ..utils.device import synchronize
 from ..utils.log import RunLog
 from ..utils.placement import set_host_pipeline, set_small_ops_on_host
-from ..utils.timer import StageTimer
+from ..utils.timer import StageTimer, span
 from .products import (
     crop_width,
     image_process,
@@ -404,7 +404,8 @@ def _read_scan(file: str, options: Options, device: torch.device,
             # closing: an error between chunks must stop the feed's producer
             with contextlib.closing(raw_iter):
                 for start, chunk, shard in raw_iter:
-                    proc.accumulate(start, chunk, keep_resident, shard)
+                    with span("accumulate"):
+                        proc.accumulate(start, chunk, keep_resident, shard)
             mean_img, max_img = proc.mean_max()
             passa = "device" + (f", {len(shards)} frame shards"
                                 if shards else "")
@@ -637,7 +638,7 @@ def process_scan(scan: ScanResult, options: Options,
         with scan_writes(scan.writes):
             return _process_shifts(scan, options, timer)
     finally:
-        with timer.stage("products"):
+        with timer.stage("products"), span("write barrier"):
             write_barrier(scan.writes)
 
 
