@@ -159,7 +159,16 @@ def main() -> int:
                 def call():
                     cuda_build.check(lib.solex_sum_max(
                         slab.data_ptr(), 2, total.data_ptr(), mx.data_ptr(),
-                        F, IH * IW, stream), "sum_max")
+                        F, IH * IW, stream, None), "sum_max")
+
+                lib.solex_sum_max_plan.argtypes = cuda_build._SIGNATURES[
+                    "solex_sum_max_plan"]
+                plan = (ctypes.c_longlong * 12)()
+                cuda_build.check(lib.solex_sum_max_plan(
+                    slab.data_ptr(), 2, F, IH * IW, plan), "sum_max_plan")
+                row.update(plan="owned" if plan[0] else "split", K=plan[2],
+                           D=plan[3], smem=plan[6], blocks_per_sm=plan[7],
+                           grid=[plan[9], plan[10]])
 
                 row["ms"] = chip_smoke.device_ms(call, REPS)
                 total.zero_()

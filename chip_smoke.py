@@ -1147,6 +1147,8 @@ def session_phase(path, tmp, png4, card, dev, frames8) -> list:
             cuda_build.LAUNCHES[k] = 0
         for k in native.CALLS:
             native.CALLS[k] = 0
+        for k in fused_cuda.SUM_MAX_PLANS:
+            fused_cuda.SUM_MAX_PLANS[k] = 0
 
     def pngs(d):
         out = {}
@@ -1240,6 +1242,7 @@ def session_phase(path, tmp, png4, card, dev, frames8) -> list:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(cuda_build.LAUNCHES)
+        plans = dict(fused_cuda.SUM_MAX_PLANS)
         feed_last = dict(feeder.FEED)
         peak = torch.cuda.max_memory_allocated() - held
         reserved = torch.cuda.max_memory_reserved() - held_r
@@ -1269,6 +1272,10 @@ def session_phase(path, tmp, png4, card, dev, frames8) -> list:
         if launches[name] != n:
             fail(f"session: kernel {name} was launched {launches[name]} "
                  f"times, not {n}")
+    print(f"session: pass A plans {plans}", flush=True)
+    if plans != {"owned": expect["sum_max"], "split": 0}:
+        fail(f"session: pass A took the plans {plans}, not "
+             f"{expect['sum_max']} owned")
     if launches["hresample"] < len(files) or caps["u8_recon"] != 2 or \
             caps["u8_sum_max"] != 2 * chunks8:
         fail(f"session: B4 {launches['hresample']} launches, u8 B3 "
@@ -3319,7 +3326,8 @@ def main() -> int:
         from solex_ser_recon_en_torch.cli import main as cli_main
         from solex_ser_recon_en_torch.geometry import linefit
         from solex_ser_recon_en_torch.io import feeder
-        from solex_ser_recon_en_torch.ops import clahe, fused, warp_fast
+        from solex_ser_recon_en_torch.ops import clahe, fused, fused_cuda
+        from solex_ser_recon_en_torch.ops import warp_fast
         from solex_ser_recon_en_torch.pipeline import run as run_mod
 
         res = {}
@@ -3386,11 +3394,14 @@ def main() -> int:
             cuda_build.LAUNCHES[k] = 0
         for k in native.CALLS:
             native.CALLS[k] = 0
+        for k in fused_cuda.SUM_MAX_PLANS:
+            fused_cuda.SUM_MAX_PLANS[k] = 0
         t0 = time.perf_counter()
         rc = cli_main.main(args)
         torch.cuda.synchronize()
         wall2 = time.perf_counter() - t0
         launches = dict(cuda_build.LAUNCHES)
+        plans2 = dict(fused_cuda.SUM_MAX_PLANS)
         calls = dict(native.CALLS)
         feed2 = dict(feeder.FEED)
         if rc != 0:
@@ -3410,6 +3421,11 @@ def main() -> int:
             if launches[name] != n:
                 fail(f"kernel {name} was launched {launches[name]} times "
                      f"by the -cw0 path, not {n}")
+        # pass A's frames are large enough that every launch owns its runs
+        print(f"pass A plans in run 2: {plans2}", flush=True)
+        if plans2 != {"owned": n_chunks, "split": 0}:
+            fail(f"pass A took the plans {plans2} on the -cw0 path, not "
+                 f"{n_chunks} owned")
 
         print(f"host library calls in run 2: {calls}", flush=True)
         for name in HOST_ENTRY_POINTS:

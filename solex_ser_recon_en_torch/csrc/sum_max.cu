@@ -18,17 +18,30 @@
 // the 2000 x 2048 x 300 u16 bench slab) and the two int32 accumulators
 // merged once (4.9 MB): 0.735 ms at 3.35 TB/s.
 //
-// - A frame is a flat run of pixels.  A block owns up to 16 KB of every
-//   frame (4 16-byte chunks for each of its 256 threads) over a range of
-//   frames; a ring of D stages of K frames is filled by TMA bulk copies (a
-//   16-byte aligned slab, frames and runs multiples of 16 bytes) or by
-//   16-byte cp.async granules (anything else), chosen from the pointer and
-//   the shape alone.
+// - A frame is a flat run of pixels, cut into 16-byte granules.  A block
+//   owns a run of granules of every frame of its frame range; a ring of D
+//   stages of K frames is filled by TMA bulk copies (a 16-byte aligned slab,
+//   frames a multiple of 16 bytes) or by 16-byte cp.async granules
+//   (anything else), chosen from the pointer and the shape alone.
 // - Each thread keeps the int32 sums and packed maxima of its chunks in
-//   registers and merges them at the end with atomicAdd / atomicMax, which
-//   is also what lets a caller accumulate chunk after chunk.
-// - Grid: (runs of a frame, frame splits), the split chosen from the blocks
-//   an SM holds so that the last wave is as full as it can be.
+//   registers and merges them into the outputs at the end.
+// - Two launch plans, chosen from the pointer, the element size, the frame
+//   count, the pixels of a frame and the card's block slots (SMs x blocks
+//   an SM holds at the ring's shared memory) alone (make_plan):
+//   * owned: the frame's granules split evenly over every slot (runs that
+//     differ by one granule at most, one full wave; more waves of whole
+//     slots only where a run would pass 16 KB), each block reading every
+//     frame of the launch for its run, in stages of up to 16 frames and
+//     64 KB (a block waits and synchronises once a stage, so few long
+//     stages stream faster than many short ones) within the split ring's
+//     shared memory.  No two blocks touch one pixel, so the merge is a
+//     plain load, add (max) and store, no atomics.  Two launches into one
+//     accumulator pair are ordered by the stream the caller launches them
+//     on: the caller keeps them on one stream.
+//   * split: where a frame is too small to give every slot a run of
+//     kMinOwnedRun bytes, runs of up to 16 KB over a frame split, the split
+//     chosen so that the last wave is as full as it can be; blocks that
+//     share pixels merge with atomicAdd / atomicMax.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,12 +57,19 @@ using namespace solex_ring;
 constexpr int kChunks = 4;                       // 16-byte chunks a thread owns
 constexpr size_t kMaxRunBytes = 16 * kChunks * kThreads;
 constexpr int kMaxK = 8;                         // frames per stage
+constexpr int kOwnedMaxK = 16;                   // of an owned plan
 constexpr size_t kStageTarget = 16 * 1024;
+constexpr size_t kOwnedStageTarget = 64 * 1024;  // an owned plan's stages
 constexpr size_t kRingTarget = 100 * 1024;
+// the shortest run an owned plan gives a block: below it most of a block's
+// threads hold no chunk of the run, and at a chunk's frame count the split
+// plan's 16 KB runs stream faster (measured on an H100: PERF.md section 6)
+constexpr size_t kMinOwnedRun = 1024;
 
 struct Plan {
-  int bulk, K, D;
-  long long run;                                 // pixels of a block's run
+  int bulk, owned, K, D, fper;                   // fper: frames a block
+  long long blocks;                              // blocks across a frame
+  long long base, rem;   // granules of a run; the first rem runs take one more
   size_t smem;
 };
 
@@ -58,32 +78,125 @@ __host__ __device__ inline size_t stage_frame_bytes(size_t run_bytes) {
   return align16(run_bytes) + 16;
 }
 
-void make_plan(uintptr_t ptr, int eb, long long npix, Plan* p) {
-  const size_t frame_b = (size_t)npix * eb;
-  const size_t run_b = std::min(frame_b, kMaxRunBytes);
-  p->run = (long long)(run_b / eb);
-  p->bulk = ptr % 16 == 0 && frame_b % 16 == 0 && run_b % 16 == 0;
-  const size_t fst = stage_frame_bytes(run_b);
-  p->K = (int)std::min((size_t)kMaxK, std::max((size_t)1, kStageTarget / fst));
+// K frames a stage (towards `stage` bytes, at most max_k) and D stages for
+// runs of `granules`, the ring within `cap` bytes; returns the block's
+// shared memory
+size_t size_ring(long long granules, size_t stage, int max_k, size_t cap,
+                 Plan* p) {
+  const size_t fst = stage_frame_bytes((size_t)granules * 16);
+  p->K = (int)std::min((size_t)max_k, std::max((size_t)1, stage / fst));
   while (p->K & (p->K - 1)) --p->K;              // a power of two
+  while (p->K > 1 && 2 * p->K * fst > cap) p->K /= 2;  // two stages fit
   p->D = (int)std::min((size_t)kMaxD,
-                       std::max((size_t)2, kRingTarget / (p->K * fst)));
-  p->smem = kBarBytes + (size_t)p->D * p->K * fst;
+                       std::max((size_t)2, cap / (p->K * fst)));
+  return kBarBytes + (size_t)p->D * p->K * fst;
+}
+
+// The split plan's ring, whose shared memory sets the card's block slots
+// for both plans: runs of up to 16 KB.
+void split_ring(uintptr_t ptr, int eb, long long npix, Plan* p) {
+  const long long G = (npix * eb + 15) / 16;     // granules of a frame
+  p->bulk = ptr % 16 == 0 && npix * eb % 16 == 0;
+  p->owned = 0;
+  p->base = std::min(G, (long long)(kMaxRunBytes / 16));
+  p->rem = 0;
+  p->blocks = (G + p->base - 1) / p->base;
+  p->smem = size_ring(p->base, kStageTarget, kMaxK, kRingTarget, p);
+}
+
+// The launch plan for F frames at `slots` blocks the card holds at once
+// (at the split ring's shared memory, p->smem on entry).  Mirrored by
+// ops/fused_cuda.py:sum_max_plan.
+void make_plan(int F, long long npix, int eb, long long slots, Plan* p) {
+  const long long G = (npix * eb + 15) / 16;
+  const long long max_g = kMaxRunBytes / 16, min_g = kMinOwnedRun / 16;
+  if (G >= slots * min_g) {
+    p->owned = 1;
+    p->blocks = slots * ((G + slots * max_g - 1) / (slots * max_g));
+    p->base = G / p->blocks;
+    p->rem = G % p->blocks;
+    // the split ring's shared memory, so the slots stay those counted
+    size_ring(p->base + (p->rem > 0), kOwnedStageTarget, kOwnedMaxK,
+              p->smem - kBarBytes, p);
+    p->fper = F;
+  } else {
+    p->fper = frames_per_block(p->blocks, slots, F);
+  }
+}
+
+// Add an owned run's sums to sb[0 .. nacc) and raise mb[0 .. nacc) to its
+// maxima with plain loads and stores: no other block of the launch touches
+// these pixels.  16-byte vectors where both outputs are aligned.
+template <int EB, int P>
+__device__ __forceinline__ void merge_owned(const SumMax<EB, P>& a,
+                                            int32_t* sb, int32_t* mb,
+                                            int nacc, int nch, int tid) {
+  constexpr int kPer = SumMax<EB, P>::kPer;
+  constexpr int kIn = kPer / 4;                  // elements of a word
+  constexpr uint32_t kMask = EB == 2 ? 0xffffu : 0xffu;
+  const bool vec = ((reinterpret_cast<uintptr_t>(sb) |
+                     reinterpret_cast<uintptr_t>(mb)) & 15) == 0;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int c = tid + p * kThreads;
+    if (c >= nch) continue;
+    const int e0 = kPer * c;
+    uint32_t m[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      m[i] = (a.m[p][i / kIn] >> (8 * EB * (i % kIn))) & kMask;
+    if (vec && e0 + kPer <= nacc) {
+      uint4* vs = reinterpret_cast<uint4*>(sb + e0);
+      int4* vm = reinterpret_cast<int4*>(mb + e0);
+      uint4 s4[kPer / 4];
+      int4 m4[kPer / 4];
+#pragma unroll
+      for (int q = 0; q < kPer / 4; ++q) {
+        s4[q] = vs[q];
+        m4[q] = vm[q];
+      }
+#pragma unroll
+      for (int q = 0; q < kPer / 4; ++q) {
+        s4[q].x += a.s[p][4 * q];
+        s4[q].y += a.s[p][4 * q + 1];
+        s4[q].z += a.s[p][4 * q + 2];
+        s4[q].w += a.s[p][4 * q + 3];
+        m4[q].x = max(m4[q].x, (int32_t)m[4 * q]);
+        m4[q].y = max(m4[q].y, (int32_t)m[4 * q + 1]);
+        m4[q].z = max(m4[q].z, (int32_t)m[4 * q + 2]);
+        m4[q].w = max(m4[q].w, (int32_t)m[4 * q + 3]);
+        vs[q] = s4[q];
+        vm[q] = m4[q];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int e = e0 + i;
+        if (e < nacc) {
+          sb[e] = (int32_t)((uint32_t)sb[e] + a.s[p][i]);
+          mb[e] = max(mb[e], (int32_t)m[i]);
+        }
+      }
+    }
+  }
 }
 
 template <bool kBulk, int EB>
 __global__ void __launch_bounds__(kThreads, 2)
 sum_max_kernel(const unsigned char* __restrict__ frames,
                int32_t* __restrict__ sum, int32_t* __restrict__ mx, int F,
-               long long npix, int run, int K, int D, int fper) {
+               long long npix, long long base, long long rem, int K, int D,
+               int fper, int owned) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kGpx = 16 / EB;                  // pixels of a granule
   const int tid = threadIdx.x;
-  const long long p0 = (long long)blockIdx.x * run;
+  const long long b = blockIdx.x;
+  const long long p0 = (b * base + min(b, rem)) * kGpx;
   const int fs = blockIdx.y * fper;
   const int fe = min(F, fs + fper);
-  const int n = (int)min((long long)run, npix - p0);   // pixels of the run
+  const int n = (int)min((base + (b < rem)) * kGpx, npix - p0);  // pixels
   const int nch = (n * EB + 15) / 16;
-  const size_t fst = stage_frame_bytes((size_t)run * EB);
+  const size_t fst = stage_frame_bytes((size_t)(base + (rem > 0)) * 16);
 
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   unsigned char* ring = smem + kBarBytes;
@@ -120,6 +233,7 @@ sum_max_kernel(const unsigned char* __restrict__ frames,
     const unsigned char* slot = ring + (size_t)(k % D) * K * fst;
     const int f0 = fs + k * K;
     const int mc = min(K, fe - f0);
+#pragma unroll 2
     for (int m = 0; m < mc; ++m) {
       const int head =
           kBulk ? 0 : (int)((run0_addr + (size_t)(f0 + m) * frame_b) & 15);
@@ -127,46 +241,89 @@ sum_max_kernel(const unsigned char* __restrict__ frames,
     }
   }
 
-  acc.merge(sum + p0, mx + p0, n, nch, tid);
+  if (owned)
+    merge_owned(acc, sum + p0, mx + p0, n, nch, tid);
+  else
+    acc.merge(sum + p0, mx + p0, n, nch, tid);
+}
+
+struct Launch {
+  Plan plan;
+  int blocks_per_sm, sms;
+  dim3 grid;
+};
+
+template <bool kBulk, int EB>
+cudaError_t configure(int F, long long npix, Launch* L) {
+  Plan& p = L->plan;
+  const cudaError_t err = block_slots(sum_max_kernel<kBulk, EB>, p.smem,
+                                      &L->blocks_per_sm, &L->sms);
+  if (err != cudaSuccess) return err;
+  make_plan(F, npix, EB, (long long)L->blocks_per_sm * L->sms, &p);
+  if (p.blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  L->grid = dim3((unsigned)p.blocks, (unsigned)((F + p.fper - 1) / p.fper));
+  return cudaSuccess;
+}
+
+cudaError_t configure(const void* frames, int eb, int F, long long npix,
+                      Launch* L) {
+  if ((eb != 1 && eb != 2) || F < 1 || npix < 1) return cudaErrorInvalidValue;
+  split_ring(reinterpret_cast<uintptr_t>(frames), eb, npix, &L->plan);
+  if (eb == 2)
+    return L->plan.bulk ? configure<true, 2>(F, npix, L)
+                        : configure<false, 2>(F, npix, L);
+  return L->plan.bulk ? configure<true, 1>(F, npix, L)
+                      : configure<false, 1>(F, npix, L);
 }
 
 template <bool kBulk, int EB>
-cudaError_t launch(const unsigned char* frames, int32_t* sum, int32_t* mx,
-                   int F, long long npix, const Plan& p, cudaStream_t st) {
-  int blocks_per_sm = 0, sms = 0;
-  const cudaError_t err = block_slots(sum_max_kernel<kBulk, EB>, p.smem,
-                                      &blocks_per_sm, &sms);
-  if (err != cudaSuccess) return err;
-  const long long tiles = (npix + p.run - 1) / p.run;
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const int fper = frames_per_block(tiles, (long long)blocks_per_sm * sms, F);
-  const dim3 grid((unsigned)tiles, (unsigned)((F + fper - 1) / fper));
-  sum_max_kernel<kBulk, EB><<<grid, kThreads, p.smem, st>>>(
-      frames, sum, mx, F, npix, (int)p.run, p.K, p.D, fper);
-  return cudaGetLastError();
+void launch(const unsigned char* frames, int32_t* sum, int32_t* mx, int F,
+            long long npix, const Launch& L, cudaStream_t st) {
+  const Plan& p = L.plan;
+  sum_max_kernel<kBulk, EB><<<L.grid, kThreads, p.smem, st>>>(
+      frames, sum, mx, F, npix, p.base, p.rem, p.K, p.D, p.fper, p.owned);
 }
 
 }  // namespace
 
 // frames: (F, npix) unsigned elements of elem_bytes (1 or 2), C-contiguous;
 // sum, mx: (npix,) i32, accumulated into (the caller zeroes them before the
-// first chunk).  The caller keeps the frames of all chunks within 32767, so
-// that the int32 sum stays exact.
+// first chunk, and launches every chunk into one pair on one stream).  The
+// caller keeps the frames of all chunks within 32767, so that the int32
+// sum stays exact.  `owned`, where not null, receives 1 for the owned plan
+// and 0 for the split plan.
 extern "C" int solex_sum_max(const void* frames, int elem_bytes, int32_t* sum,
                              int32_t* mx, int F, long long npix,
-                             void* stream) {
-  if ((elem_bytes != 1 && elem_bytes != 2) || F < 1 || npix < 1)
-    return (int)cudaErrorInvalidValue;
+                             void* stream, int* owned) {
+  Launch L;
+  cudaError_t err = configure(frames, elem_bytes, F, npix, &L);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned char* src = static_cast<const unsigned char*>(frames);
-  Plan p;
-  make_plan(reinterpret_cast<uintptr_t>(frames), elem_bytes, npix, &p);
-  cudaError_t err;
-  if (elem_bytes == 2)
-    err = p.bulk ? launch<true, 2>(src, sum, mx, F, npix, p, st)
-                 : launch<false, 2>(src, sum, mx, F, npix, p, st);
-  else
-    err = p.bulk ? launch<true, 1>(src, sum, mx, F, npix, p, st)
-                 : launch<false, 1>(src, sum, mx, F, npix, p, st);
-  return (int)err;
+  if (elem_bytes == 2) {
+    if (L.plan.bulk) launch<true, 2>(src, sum, mx, F, npix, L, st);
+    else launch<false, 2>(src, sum, mx, F, npix, L, st);
+  } else {
+    if (L.plan.bulk) launch<true, 1>(src, sum, mx, F, npix, L, st);
+    else launch<false, 1>(src, sum, mx, F, npix, L, st);
+  }
+  if (owned) *owned = L.plan.owned;
+  return (int)cudaGetLastError();
+}
+
+// The launch plan solex_sum_max would use for these arguments, into
+// out[12]: owned plan (1) or split (0), bulk path (1) or element (0), K, D,
+// granules of a run, runs that take one more, shared bytes a block, blocks
+// an SM holds, SMs, grid x, grid y, frames a block.
+extern "C" int solex_sum_max_plan(const void* frames, int elem_bytes, int F,
+                                  long long npix, long long* out) {
+  Launch L;
+  const cudaError_t err = configure(frames, elem_bytes, F, npix, &L);
+  if (err != cudaSuccess) return (int)err;
+  const Plan& p = L.plan;
+  const long long v[12] = {p.owned, p.bulk, p.K, p.D, p.base, p.rem,
+                           (long long)p.smem, L.blocks_per_sm, L.sms,
+                           L.grid.x, L.grid.y, p.fper};
+  for (int i = 0; i < 12; ++i) out[i] = v[i];
+  return 0;
 }

@@ -75,8 +75,10 @@ _SIGNATURES = {
     "solex_shg_fused_plan": [_P, _I, _I, _I, _I, _P],
     # frames, S, F, ih, iw, out[10]: kernel B6's launch geometry
     "solex_shg_fused_mxu_plan": [_P, _I, _I, _I, _I, _P],
-    # frames, elem_bytes, sum, max, F, pixels a frame, stream
-    "solex_sum_max": [_P, _I, _P, _P, _I, _L, _P],
+    # frames, elem_bytes, sum, max, F, pixels a frame, stream, int* owned
+    "solex_sum_max": [_P, _I, _P, _P, _I, _L, _P, _P],
+    # frames, elem_bytes, F, pixels a frame, out[12]: pass A's launch plan
+    "solex_sum_max_plan": [_P, _I, _I, _L, _P],
 }
 
 _lock = threading.Lock()

@@ -99,14 +99,126 @@ def _sum_max_check(frames: torch.Tensor, name: str) -> None:
                          "int32 frame sum would overflow)")
 
 
+#: pass A's launch geometry (csrc/sum_max.cu, csrc/ring.cuh; the ring's most
+#: stages and barrier bytes are B1's, below): a block's run is at most this
+#: many bytes of a frame (16-byte chunks a thread x threads)
+SUM_MAX_MAX_RUN = 16 * 4 * 256
+#: the shortest run (bytes) the owned plan gives a block; a frame below
+#: this many bytes a block slot takes the split plan
+SUM_MAX_MIN_OWNED_RUN = 1024
+SUM_MAX_MAX_K = 8
+#: an owned plan's most frames a stage
+SUM_MAX_OWNED_MAX_K = 16
+SUM_MAX_STAGE_TARGET, SUM_MAX_RING_TARGET = 16 * 1024, 100 * 1024
+#: an owned plan's stage, bytes (its ring within the split ring's memory)
+SUM_MAX_OWNED_STAGE_TARGET = 64 * 1024
+#: frames of a split plan's frame range come in multiples of this
+SPLIT_FRAMES = 32
+
+#: pass A's launches by plan ("owned": every block owns a run of pixels
+#: over all frames of the launch, plain merge; "split": runs over frame
+#: splits, atomic merge), as the kernel library reports them; reset by
+#: callers that count a run
+SUM_MAX_PLANS = {"owned": 0, "split": 0}
+
+
+def _frames_per_block(tiles: int, slots: int, F: int) -> int:
+    """csrc/ring.cuh:frames_per_block: frames a block takes (a multiple of
+    SPLIT_FRAMES) so that the last wave is as full as it can be, then the
+    split with fewer blocks."""
+    nfb = -(-F // SPLIT_FRAMES)
+    top = min(nfb, 4 * (-(-slots // tiles)))
+    best, best_blocks, best_cap = SPLIT_FRAMES * nfb, 0, 1
+    for sp in range(1, top + 1):
+        fper = SPLIT_FRAMES * (-(-nfb // sp))
+        blocks = tiles * (-(-F // fper))
+        cap = -(-blocks // slots) * slots
+        if sp == 1 or blocks * best_cap > best_blocks * cap:
+            best, best_blocks, best_cap = fper, blocks, cap
+    return best
+
+
+def _sum_max_ring(granules: int, stage: int, max_k: int, cap: int):
+    """csrc/sum_max.cu:size_ring: (K frames a stage, D stages, shared bytes
+    a block) for runs of ``granules`` 16-byte granules, stages towards
+    ``stage`` bytes of at most ``max_k`` frames, the ring within ``cap``
+    bytes."""
+    fst = 16 * granules + 16
+    K = min(max_k, max(1, stage // fst))
+    K = 1 << (K.bit_length() - 1)
+    while K > 1 and 2 * K * fst > cap:
+        K //= 2
+    D = min(B1_MAX_D, max(2, cap // (K * fst)))
+    return K, D, B1_BAR_BYTES + D * K * fst
+
+
+def sum_max_plan(data_ptr: int, elem_bytes: int, F: int, npix: int,
+                 sms: int, blocks_per_sm: int) -> dict:
+    """csrc/sum_max.cu:make_plan in Python: pass A's launch plan for F
+    frames of ``npix`` elements of ``elem_bytes`` at ``data_ptr`` on a card
+    of ``sms`` SMs that holds ``blocks_per_sm`` blocks of the kernel at the
+    split ring's shared memory: owned where every slot gets a run of
+    SUM_MAX_MIN_OWNED_RUN bytes.  A dict: plan ("owned" or "split"), path
+    ("bulk" or "element"), K frames a stage, D stages, base granules
+    (16 bytes) of a block's run and rem runs that take one more, smem bytes
+    a block, blocks across a frame, fper frames a block, grid.  The wrapper
+    does not call it: tests hold it to the library's plan
+    (``sum_max_plan_cuda``)."""
+    frame_b = npix * elem_bytes
+    G = -(-frame_b // 16)
+    max_g = SUM_MAX_MAX_RUN // 16
+    min_g = SUM_MAX_MIN_OWNED_RUN // 16
+    slots = sms * blocks_per_sm
+    base, rem = min(G, max_g), 0
+    K, D, smem = _sum_max_ring(base, SUM_MAX_STAGE_TARGET, SUM_MAX_MAX_K,
+                               SUM_MAX_RING_TARGET)
+    blocks = -(-G // base)
+    if G >= slots * min_g:
+        plan = "owned"
+        blocks = slots * (-(-G // (slots * max_g)))
+        base, rem = divmod(G, blocks)
+        K, D, _ = _sum_max_ring(base + (rem > 0), SUM_MAX_OWNED_STAGE_TARGET,
+                                SUM_MAX_OWNED_MAX_K, smem - B1_BAR_BYTES)
+        fper = F
+    else:
+        plan = "split"
+        fper = _frames_per_block(blocks, slots, F)
+    bulk = data_ptr % 16 == 0 and frame_b % 16 == 0
+    return dict(plan=plan, path="bulk" if bulk else "element", K=K, D=D,
+                base=base, rem=rem, smem=smem, blocks=blocks, fper=fper,
+                grid=(blocks, -(-F // fper)))
+
+
+def sum_max_plan_cuda(frames: torch.Tensor) -> dict:
+    """The launch plan pass A's kernel would use on these CUDA frames (F, h,
+    w), from the kernel library itself (csrc/sum_max.cu:
+    solex_sum_max_plan): the keys of ``sum_max_plan`` plus blocks_per_sm
+    and sms."""
+    F = frames.shape[0]
+    out = (ctypes.c_longlong * 12)()
+    with torch.cuda.device(frames.device):
+        rc = cuda_build.lib().solex_sum_max_plan(
+            frames.data_ptr(), frames.element_size(), F,
+            frames[0].numel(), out)
+    cuda_build.check(rc, "sum_max_plan")
+    v = list(out)
+    return dict(plan="owned" if v[0] else "split",
+                path="bulk" if v[1] else "element", K=v[2], D=v[3],
+                base=v[4], rem=v[5], smem=v[6], blocks_per_sm=v[7], sms=v[8],
+                blocks=v[9], fper=v[11], grid=(v[9], v[10]))
+
+
 def sum_max(frames: torch.Tensor, total: torch.Tensor,
             mx: torch.Tensor) -> None:
     """Pass A over one chunk, accumulated in place: ``total += sum_f frames``
     and ``mx = max(mx, max_f frames)`` for frames (F, h, w) u8 or u16 in any
     layout and total, mx (h, w) int32 that the caller holds (zeroed before
-    the first chunk).  CUDA tensors launch the sum/max kernel, CPU tensors
-    take ``sum_max_plain``.  The caller keeps the frames of all chunks
-    within MAX_FRAMES."""
+    the first chunk).  CUDA tensors launch the sum/max kernel on the
+    current stream, CPU tensors take ``sum_max_plain``.  The caller keeps
+    the frames of all chunks within MAX_FRAMES, and every launch into one
+    total/mx pair on one stream: the owned plan's merge is a plain load and
+    store, ordered only by the stream.  Each launch adds one to
+    ``SUM_MAX_PLANS`` under the plan the library took."""
     _sum_max_check(frames, "sum_max")
     for arg, t in (("total", total), ("mx", mx)):
         if (t.dtype != torch.int32 or t.shape != frames.shape[1:]
@@ -117,12 +229,15 @@ def sum_max(frames: torch.Tensor, total: torch.Tensor,
         sum_max_plain(frames, total, mx)
         return
     F, h, w = frames.shape
+    owned = ctypes.c_int(0)
     with torch.cuda.device(frames.device):
         rc = cuda_build.lib().solex_sum_max(
             frames.data_ptr(), frames.element_size(), total.data_ptr(),
-            mx.data_ptr(), F, h * w, cuda_build.stream_handle(frames.device))
+            mx.data_ptr(), F, h * w, cuda_build.stream_handle(frames.device),
+            ctypes.byref(owned))
     cuda_build.check(rc, "sum_max")
     cuda_build.count_launch("sum_max")
+    SUM_MAX_PLANS["owned" if owned.value else "split"] += 1
 
 
 def mean_max(frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -45,7 +45,11 @@ from solex_ser_recon_en_torch.ops.fused_cuda import (
     shg_fused_mxu_plain,
     shg_fused_plain,
     sum_max,
+    sum_max_plain,
+    sum_max_plan,
+    sum_max_plan_cuda,
 )
+from solex_ser_recon_en_torch.ops import fused_cuda
 from solex_ser_recon_en_torch.ops.recon import (
     build_shift_indices,
     recon_chunks_plain,
@@ -644,6 +648,108 @@ def test_pass_a_accumulates_through_the_kernel(rng, cuda_device):
     mean_c, mx_c = cpu.mean_max()
     np.testing.assert_array_equal(mean, mean_c)
     np.testing.assert_array_equal(mx, mx_c)
+
+
+#: pass A's launches as -c makes them: (frames, frame shape, dtype, chunk
+#: frames, pieces a chunk): the bench scan's 25 u16 chunks (24 x 81 + 56),
+#: its 13 u8 chunks (12 x 163 + 44), a 4-shard mesh's pieces of 14-21
+#: frames, a small-frame scan on the split plan
+PASS_A_SEQUENCES = {
+    "u16 -c": (2000, (300, 2048), torch.uint16, 81, 1),
+    "u8 -c": (2000, (300, 2048), torch.uint8, 163, 1),
+    "mesh pieces": (2000, (300, 2048), torch.uint16, 81, 4),
+    "small split": (200, (448, 96), torch.uint16, 200, 1),
+}
+
+
+def _card_frames(F, shape, dtype, device, seed=20):
+    """Random frames made on the card, frame F // 3 saturated in its first
+    rows."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    if dtype == torch.uint16:
+        x = torch.randint(-32768, 32768, (F, *shape), generator=g,
+                          dtype=torch.int16, device=device)
+        x[F // 3, :3] = -1
+        return x.view(torch.uint16)
+    x = torch.randint(0, 256, (F, *shape), generator=g, dtype=torch.uint8,
+                      device=device)
+    x[F // 3, :3] = 255
+    return x
+
+
+@pytest.mark.parametrize("name,F,shape,dtype,aligned", [
+    ("u16 chunk", 81, (300, 2048), torch.uint16, True),
+    ("u16 tail", 56, (300, 2048), torch.uint16, True),
+    ("u8 chunk", 163, (300, 2048), torch.uint8, True),
+    ("u8 tail", 44, (300, 2048), torch.uint8, True),
+    ("mesh piece", 14, (300, 2048), torch.uint16, True),
+    ("slab", 2000, (2048, 300), torch.uint16, True),
+    ("small", 200, (448, 96), torch.uint16, True),
+    ("small u8", 200, (448, 96), torch.uint8, True),
+    ("unaligned u16", 81, (300, 2048), torch.uint16, False),
+    ("unaligned u8", 163, (300, 2048), torch.uint8, False),
+    ("odd frame", 40, (9001, 3), torch.uint16, True),
+])
+def test_sum_max_plan_matches_kernel_library(cuda_device, name, F, shape,
+                                             dtype, aligned):
+    """The library's launch plan for pass A is its Python mirror's at the
+    card's own slots; the bench chunks and the resident slab take one full
+    owned wave, small frames the split plan."""
+    n = F * shape[0] * shape[1]
+    buf = torch.empty(n + 1, dtype=dtype, device=cuda_device)
+    frames = buf[:n] if aligned else buf[1:]
+    frames = frames.view(F, *shape)
+    got = sum_max_plan_cuda(frames)
+    want = sum_max_plan(frames.data_ptr(), frames.element_size(), F,
+                        shape[0] * shape[1], got["sms"], got["blocks_per_sm"])
+    assert {k: got[k] for k in want} == want
+    if shape == (300, 2048) or name == "slab":
+        assert got["plan"] == "owned"
+        assert got["grid"] == (got["sms"] * got["blocks_per_sm"], 1)
+    if name.startswith("small"):
+        assert got["plan"] == "split"
+    assert got["path"] == ("bulk" if aligned and name != "odd frame"
+                           else "element")
+
+
+@pytest.mark.parametrize("name", sorted(PASS_A_SEQUENCES))
+def test_sum_max_sequences_match_plain(cuda_device, name):
+    """``sum_max`` accumulated over -c's chunk sequences (each mesh piece
+    into its shard's pair) equals ``sum_max_plain`` over the same launches
+    bit for bit, and ``SUM_MAX_PLANS`` counts each launch under its plan."""
+    F, shape, dtype, chunk, pieces = PASS_A_SEQUENCES[name]
+    frames = _card_frames(F, shape, dtype, cuda_device)
+    accs = [[torch.zeros(shape, dtype=torch.int32, device=cuda_device)
+             for _ in range(4)] for _ in range(pieces)]
+    for k in fused_cuda.SUM_MAX_PLANS:
+        fused_cuda.SUM_MAX_PLANS[k] = 0
+    launches = 0
+    for a in range(0, F, chunk):
+        c = frames[a:a + chunk]
+        cuts = [c.shape[0] * k // pieces for k in range(pieces + 1)]
+        for k in range(pieces):
+            piece = c[cuts[k]:cuts[k + 1]]
+            sum_max(piece, accs[k][0], accs[k][1])
+            sum_max_plain(piece, accs[k][2], accs[k][3])
+            launches += 1
+    torch.cuda.synchronize()
+    for s, m, ps, pm in accs:
+        assert torch.equal(s, ps) and torch.equal(m, pm)
+    plan = "split" if name == "small split" else "owned"
+    assert fused_cuda.SUM_MAX_PLANS == {"owned": 0, "split": 0,
+                                        plan: launches}
+    assert launches == {"u16 -c": 25, "u8 -c": 13, "mesh pieces": 100,
+                        "small split": 1}[name]
+
+
+def test_sum_max_unaligned_slice_matches_plain(rng, cuda_device):
+    """A bench-sized chunk one element into its allocation: the owned plan
+    on the element path, accumulated over three launches."""
+    arr = rng.integers(0, 65536, (3 * 27, 300, 2048)).astype(np.uint16)
+    frames = _unaligned(arr, cuda_device)
+    assert sum_max_plan_cuda(frames[:27])["plan"] == "owned"
+    _check_sum_max([frames[:27], frames[27:54], frames[54:]])
 
 
 # ---- the feed and the product download, on the card ------------------------

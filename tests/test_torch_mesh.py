@@ -648,6 +648,7 @@ def test_every_wrapper_launches_under_its_inputs_device():
     names = {(rel, fn) for rel, fn, *_ in sites}
     assert names == {
         ("ops/fused_cuda.py", "sum_max"),
+        ("ops/fused_cuda.py", "sum_max_plan_cuda"),
         ("ops/fused_cuda.py", "fused_mxu_plan_cuda"),
         ("ops/fused_cuda.py", "fused_plan_cuda"),
         ("ops/fused_cuda.py", "_launch"),
