@@ -23,6 +23,15 @@ written (pipeline/run.py:check_supported).
 (pipeline/run.py); a mesh larger than the visible cards exits 2, nothing
 written.
 
+The session's steps are spans of one StageTimer's stage ``session``
+(utils/timer.py): ``read`` (each file's read_scan), ``post wait`` (the
+wait for the last scan's post-processing after each read), ``tail`` (the
+wait after the last read) and, on the pool thread, ``post`` (each
+process_scan, the outer range of that scan's post stages).  While a
+profiler records each is the range ``stage:session:<step>``.  ``SESSION``
+keeps the last call's seconds of each step, the posts' time queued in
+the pool (``queue_s``), the files' wall time and the scans done.
+
 A batch of more than ``PROBE_BATCH_BYTES`` rates the link to the card
 once up front (io/feeder.py:probe_transfer_rate), so every file of it,
 however small, takes the ``auto`` feed on the same reading (pipeline/
@@ -42,6 +51,7 @@ beside the last one's post-processing (that module's docstring).
 
 from __future__ import annotations
 
+import contextvars
 import glob
 import os
 import sys
@@ -49,7 +59,7 @@ import tempfile
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
@@ -61,12 +71,18 @@ from ..parallel.distributed import shard_folder_batch
 from ..parallel.mesh import mesh_from_options
 from ..pipeline.run import check_supported, process_scan, read_scan
 from ..utils.device import resolve_device
-from ..utils.timer import StageTimer
+from ..utils.timer import StageTimer, span
 from .flags import UnsupportedOption, parse_cli, usage
 
 CONFIG_NAME = "SHG_config.txt"
 #: a batch of more bytes than this gets one link probe before its first file
 PROBE_BATCH_BYTES = 256 * 1024**2
+
+#: the last ``handle_files`` call's counters, reset at its start: scans
+#: done; seconds of the reads, of the pool thread's posts, of the waits
+#: for a post between reads and after the last read, of the posts' time
+#: queued in the pool, and of the files' whole run (reads and posts)
+SESSION: Dict[str, float] = {}
 
 
 def read_ini(path: str = CONFIG_NAME) -> Options:
@@ -116,6 +132,14 @@ def is_openable(file: str) -> bool:
         return False
 
 
+def _post(scan, options: Options, timer: StageTimer, queued_at: float):
+    """``process_scan`` on the pool thread, under the session's span
+    ``post``; called through the module's name, which callers may wrap."""
+    SESSION["queue_s"] += time.perf_counter() - queued_at
+    with span("post"):
+        return process_scan(scan, options, timer)
+
+
 def handle_files(files: Iterable[str], options: Options,
                  device: torch.device,
                  meter: Optional[Callable[[int, int, str], object]] = None
@@ -128,6 +152,8 @@ def handle_files(files: Iterable[str], options: Options,
     GUI's progress meter: called before file i of a batch of n > 1 files
     is read, and with i = n when the batch is done.
     """
+    SESSION.update(scans=0, read_s=0.0, post_s=0.0, post_wait_s=0.0,
+                   tail_s=0.0, queue_s=0.0, wall_s=0.0)
     tasks = precheck_files(files, options)
 
     def progress(i: int, msg: str) -> None:
@@ -157,25 +183,38 @@ def handle_files(files: Iterable[str], options: Options,
         return n
 
     done = 0
-    with ThreadPoolExecutor(max_workers=1,
-                            thread_name_prefix="solex-torch-post") as pool:
-        pending = []
-        for i, (file, opts) in enumerate(tasks):
-            print(f"file {file} is processing")
-            progress(i, "Reading file...")
-            timer = StageTimer()
-            try:
-                scan = read_scan(file, opts, device, timer)
-            except Exception:
-                print(f"ERROR ENCOUNTERED: {file}")
-                traceback.print_exc()
-                continue
-            # the previous scan's post-processing ran while this one was
-            # read; wait for it before queueing this one
-            done += drain(pending)
-            pending.append((file, pool.submit(process_scan, scan, opts,
-                                              timer), timer))
-        done += drain(pending)
+    session = StageTimer()
+    with session.stage("session"):
+        with ThreadPoolExecutor(max_workers=1,
+                                thread_name_prefix="solex-torch-post") as pool:
+            pending = []
+            for i, (file, opts) in enumerate(tasks):
+                print(f"file {file} is processing")
+                progress(i, "Reading file...")
+                timer = StageTimer()
+                try:
+                    with span("read"):
+                        scan = read_scan(file, opts, device, timer)
+                except Exception:
+                    print(f"ERROR ENCOUNTERED: {file}")
+                    traceback.print_exc()
+                    continue
+                # the previous scan's post-processing ran while this one
+                # was read; wait for it before queueing this one
+                with span("post wait"):
+                    done += drain(pending)
+                # the pool thread runs the post in a copy of this thread's
+                # context, so its span ``post`` is the session's
+                pending.append((file, pool.submit(
+                    contextvars.copy_context().run, _post, scan, opts, timer,
+                    time.perf_counter()), timer))
+            with span("tail"):
+                done += drain(pending)
+    t = session.times
+    SESSION.update(scans=done, read_s=t.get("session:read", 0.0),
+                   post_s=t.get("session:post", 0.0),
+                   post_wait_s=t.get("session:post wait", 0.0),
+                   tail_s=t.get("session:tail", 0.0), wall_s=t["session"])
     # deferred diagnostic-figure lane: join here so every file exists when
     # the command finishes (io/writers.py)
     try:
@@ -243,14 +282,18 @@ def handle_folder(options: Options, device: torch.device,
 
 def _profiled(run, profile_dir: str, device: torch.device) -> int:
     """``run()`` under torch.profiler (CPU activity, and CUDA activity on
-    the card); the trace goes into ``profile_dir`` as a Chrome trace."""
+    the card) on every thread, the session's post pool included; the trace
+    goes into ``profile_dir`` as a Chrome trace."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    every_thread = torch._C._profiler._ExperimentalConfig(
+        profile_all_threads=True)
+    with profile(activities=activities,
+                 experimental_config=every_thread) as prof:
         rc = run()
     path = os.path.join(profile_dir, f"solex_torch_{os.getpid()}_"
                         f"{time.strftime('%Y%m%d_%H%M%S')}.trace.json")

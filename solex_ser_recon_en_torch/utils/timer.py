@@ -16,7 +16,11 @@ reads no clock in ``span`` and records nothing.
 While a torch profiler records, every stage and span is also a profiler
 range named ``stage:<stage>`` or ``stage:<stage>:<name>``, on the trace's
 clock beside the device's activity; with no profiler recording, a stage
-or span costs one flag check and opens no range.
+or span costs one flag check and opens no range.  The flag is the
+process's, so a thread other than the profiler's (the session's post
+pool, cli/main.py) opens its ranges too; torch keeps them where the
+profiler records every thread (``profile_all_threads``, as ``--profile``
+does) and drops them otherwise.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ _CURRENT: ContextVar[Optional[Tuple["StageTimer", str]]] = ContextVar(
 def _open_range(key: str):
     """The entered profiler range ``RANGE + key`` while a profiler records,
     else None."""
-    if not torch.autograd._profiler_enabled():
+    if not torch.autograd.profiler._is_profiler_enabled:
         return None
     rng = torch.profiler.record_function(RANGE + key)
     rng.__enter__()

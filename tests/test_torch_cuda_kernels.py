@@ -965,6 +965,43 @@ def test_session_on_the_card_equals_per_file_runs(cuda_device, tmp_path):
                            ref.disk_list.view(torch.int16))
 
 
+def test_session_counter_on_the_card(cuda_device, tmp_path):
+    """Three distinct scans through handle_files, each post on the pool
+    thread beside the next read: every product is the bytes of its file's
+    own process_file run, and cli.main.SESSION counts the three."""
+    from solex_ser_recon_en_torch.cli import main as cli
+    from solex_ser_recon_en_torch.config import Options
+    from solex_ser_recon_en_torch.io.synthetic import SyntheticScan
+    from solex_ser_recon_en_torch.pipeline.run import process_file
+
+    folder = tmp_path / "in"
+    folder.mkdir()
+    kw = dict(ih=256, iw=96, depth=16, line_poly=(48.0, 0.02, -1e-4, 2e-7),
+              noise=0.002, frames=200)
+    files = []
+    for seed in (4, 5, 6):
+        path = str(folder / f"s{seed}.ser")
+        SyntheticScan(seed=seed, **kw).write(path, transpose_to_wide=True)
+        files.append(path)
+    session, alone = tmp_path / "session", tmp_path / "alone"
+    session.mkdir()
+    alone.mkdir()
+    assert cli.handle_files(files, Options(
+        shift=[0], clahe_only=True, output_dir=str(session)),
+        cuda_device) == 3
+    s = dict(cli.SESSION)
+    assert s["scans"] == 3 and s["post_s"] > 0 and s["read_s"] > 0
+    assert s["post_wait_s"] + s["tail_s"] <= s["post_s"] + s["queue_s"]
+    for f in files:
+        process_file(f, Options(shift=[0], clahe_only=True,
+                                output_dir=str(alone)), cuda_device)
+    names = sorted(p.name for p in session.glob("*.png"))
+    assert len([n for n in names if n.endswith("_clahe.png")]) == 3
+    assert names == sorted(p.name for p in alone.glob("*.png"))
+    for name in names:
+        assert (session / name).read_bytes() == (alone / name).read_bytes()
+
+
 # ---- the band feed: kernel B3 on band chunks; the host feed launches none --
 
 
