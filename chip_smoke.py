@@ -18,7 +18,9 @@ Phases; any failure exits non-zero before the final result line:
    (sum_max) must be launched once per chunk the feeder made, kernel B3
    (recon) exactly once (one launch over all resident chunks), B5
    (tile_hist) exactly twice (the CLAHE tiles, the CLAHE image's value
-   histogram) and B4 (hresample) at least once, and the host library's
+   histogram), B4 (hresample) at least once and the transversalium row
+   statistics' kernel (csrc/rowstats.cu) exactly once with no plain call
+   (``ops.rowstats.ROW_STATS_LAUNCHES``), and the host library's
    ``ser_read``, ``box_blur_u16_exact`` and ``png_encode_stored_band``
    must have been called (``io.native.CALLS``); the feed's line gives its
    copy threads, ring depth, wall time, the uploads' device time and the
@@ -47,6 +49,11 @@ Phases; any failure exits non-zero before the final result line:
    that run 1 kept resident, one launch a chunk into fresh accumulators,
    against torch's reductions chunk by chunk (bit-identical), with the
    launches' queued device time, read rate and share of their bound.  The
+   row statistics' kernel on the frame run 1 gave it, against the plain
+   twin: chord bounds, medians, MADs and kept counts bit for bit, the two
+   means within 1e-6 of the row's mean |log ratio|, two launches the same
+   bits; the kernel, its queued device time, the twin and the twin's two
+   ``torch.sort`` calls alone timed.  The
    rows of B1 and B6 and pass A's second row are taken
    after phase 6, on the normalised slab phase 6 left resident: B1 at
    S = 2, B6 at S = 2 and at the S = 7 sweep of the shoot-out (both
@@ -300,6 +307,10 @@ REPLACES = {
     "sum_max": ("solex_ser_recon_en_torch/csrc/sum_max.cu",
                 "solex_ser_recon_en_tpu/ops/fused.py:33-34 (an XLA "
                 "reduction, not a Pallas kernel)"),
+    # the transversalium row statistics: jnp.sort on the TPU side
+    "row_stats": ("solex_ser_recon_en_torch/csrc/rowstats.cu",
+                  "solex_ser_recon_en_tpu/ops/rowstats.py:24 (jnp.sort, "
+                  "not a Pallas kernel)"),
 }
 #: the kernels of each driven path: phase 4 (-cw0), phase 6 (resident) and
 #: phase 7 (the shoot-out)
@@ -1193,6 +1204,14 @@ def session_phase(path, tmp, png4, card, dev, frames8) -> list:
             super().__init__()
             timers[len(timers)] = self
 
+    def file_stages():
+        """Each file's stage means (ms), in the order the files ran; the
+        timer of handle_files' own stage ``session`` is left out."""
+        per_file = [t for _, t in sorted(timers.items())
+                    if "session" not in t.times]
+        return {name: {s: round(v * 1e3, 1) for s, v in t.times.items()}
+                for name, t in zip(files, per_file)}
+
     caps = {"u8_sum_max": 0, "u8_recon": 0, "scans": {}, "max": {}}
     orig = {"sum_max": fused.sum_max, "recon_chunks": fused.recon_chunks,
             "read_scan": cli_main.read_scan, "StageTimer": cli_main.StageTimer,
@@ -1252,8 +1271,7 @@ def session_phase(path, tmp, png4, card, dev, frames8) -> list:
         cli_main.read_scan, cli_main.StageTimer = orig["read_scan"], orig[
             "StageTimer"]
         fused.RawScanProcessor.mean_max = orig["mean_max"]
-    stages = {files[k]: {s: round(v * 1e3, 1) for s, v in t.times.items()}
-              for k, t in timers.items()}
+    stages = file_stages()
     print(f"session: {len(files)} scans in {wall:.3f} s (read of scan N+1 "
           f"beside the post-processing of scan N); peak device memory "
           f"{peak / 1e9:.3f} GB allocated, {reserved / 1e9:.3f} GB reserved "
@@ -1323,9 +1341,7 @@ def session_phase(path, tmp, png4, card, dev, frames8) -> list:
     finally:
         cli_main.StageTimer = orig["StageTimer"]
     wall_s = time.perf_counter() - t0
-    print("serial stages (ms): " + json.dumps(
-        {files[k]: {s: round(v * 1e3, 1) for s, v in t.times.items()}
-         for k, t in timers.items()}), flush=True)
+    print("serial stages (ms): " + json.dumps(file_stages()), flush=True)
     if pngs(out_s) != got:
         fail("session: the per-file runs' _clahe.png differ from the "
              "session's")
@@ -3327,7 +3343,7 @@ def main() -> int:
         from solex_ser_recon_en_torch.geometry import linefit
         from solex_ser_recon_en_torch.io import feeder
         from solex_ser_recon_en_torch.ops import clahe, fused, fused_cuda
-        from solex_ser_recon_en_torch.ops import warp_fast
+        from solex_ser_recon_en_torch.ops import rowstats, warp_fast
         from solex_ser_recon_en_torch.pipeline import run as run_mod
 
         res = {}
@@ -3335,7 +3351,8 @@ def main() -> int:
         targets = {"read_scan": cli_main, "mean_max": fused.RawScanProcessor,
                    "single_image_process": run_mod, "recon_chunks": fused,
                    "hresample": warp_fast, "image_tile_histograms": clahe,
-                   "box_blur_u16_host": linefit}
+                   "box_blur_u16_host": linefit,
+                   "transversalium_gain": run_mod}
         orig = {name: getattr(obj, name) for name, obj in targets.items()}
 
         def box_blur_u16_host(img, kx, ky):
@@ -3373,11 +3390,17 @@ def main() -> int:
                                                             tx, hs)
             return orig["image_tile_histograms"](img, ty, tx, hs)
 
+        def transversalium_gain(img, circle, borders, strength):
+            caps["row_stats"] = (img.clone(), circle, borders)
+            return orig["transversalium_gain"](img, circle, borders,
+                                               strength)
+
         hooks = {"read_scan": read_scan, "mean_max": mean_max,
                  "single_image_process": single_image_process,
                  "recon_chunks": recon_chunks, "hresample": hresample,
                  "image_tile_histograms": image_tile_histograms,
-                 "box_blur_u16_host": box_blur_u16_host}
+                 "box_blur_u16_host": box_blur_u16_host,
+                 "transversalium_gain": transversalium_gain}
         for name, obj in targets.items():
             setattr(obj, name, hooks[name])
 
@@ -3396,12 +3419,15 @@ def main() -> int:
             native.CALLS[k] = 0
         for k in fused_cuda.SUM_MAX_PLANS:
             fused_cuda.SUM_MAX_PLANS[k] = 0
+        for k in rowstats.ROW_STATS_LAUNCHES:
+            rowstats.ROW_STATS_LAUNCHES[k] = 0
         t0 = time.perf_counter()
         rc = cli_main.main(args)
         torch.cuda.synchronize()
         wall2 = time.perf_counter() - t0
         launches = dict(cuda_build.LAUNCHES)
         plans2 = dict(fused_cuda.SUM_MAX_PLANS)
+        row_stats2 = dict(rowstats.ROW_STATS_LAUNCHES)
         calls = dict(native.CALLS)
         feed2 = dict(feeder.FEED)
         if rc != 0:
@@ -3426,6 +3452,11 @@ def main() -> int:
         if plans2 != {"owned": n_chunks, "split": 0}:
             fail(f"pass A took the plans {plans2} on the -cw0 path, not "
                  f"{n_chunks} owned")
+        # the transversalium row statistics: one kernel launch a scan
+        print(f"row statistics in run 2: {row_stats2}", flush=True)
+        if row_stats2 != {"kernel": 1, "plain": 0}:
+            fail(f"the row statistics ran {row_stats2} on the -cw0 path, "
+                 "not one kernel launch")
 
         print(f"host library calls in run 2: {calls}", flush=True)
         for name in HOST_ENTRY_POINTS:
@@ -3597,6 +3628,83 @@ def main() -> int:
                  f"{100 * bA[0] / dms:.1f}% of bound; plain is torch's "
                  f"int32 copy, sum and amax of each chunk"))
         del acc_s, acc_m, raw_chunks
+
+        # the transversalium row statistics on the frame the -cw0 path gave
+        # them: the kernel against the plain twin (chord, medians, MADs and
+        # kept counts bit for bit; the sums within 1e-6 of the row's mean
+        # |log ratio|), then the kernel, the twin and the twin's two sorts
+        # alone timed
+        from solex_ser_recon_en_torch.ops.dtypes import as_f32
+
+        rs_img, rs_circle, rs_borders = caps["row_stats"]
+        h, w = rs_img.shape
+        c32 = np.asarray(rs_circle, dtype=np.float32)
+        b32 = np.asarray(rs_borders, dtype=np.float32)
+
+        def rs_plain(detail=False):
+            valid, _, _ = rowstats.strip_mask(h, w, c32, b32, rs_img.device)
+            return rowstats.row_log_ratio_stats(rs_img, valid, detail)
+
+        valid, _, _ = rowstats.strip_mask(h, w, c32, b32, rs_img.device)
+        all_p, r_p, det_p = rs_plain(True)
+        all_k, r_k, det_k = rowstats._launch_row_stats(rs_img, rs_circle,
+                                                       rs_borders, True)
+        again = rowstats.row_stats(rs_img, rs_circle, rs_borders)
+        xs = torch.arange(w, device=rs_img.device)
+        chords = (det_k["row_ok"][:, None] & (xs >= det_k["x_lo"][:, None])
+                  & (xs < det_k["x_hi"][:, None]))
+
+        def bits(x):
+            x = x.clone()
+            x[x.isnan()] = float("nan")    # any NaN equal to any NaN
+            return x.view(torch.int32)
+
+        bad_rows = ((chords != valid).any(dim=1)
+                    | (bits(det_k["med"]) != bits(det_p["med"]))
+                    | (bits(det_k["mdev"]) != bits(det_p["mdev"]))
+                    | (det_k["nk"] != det_p["nk"]))
+        err = int(bad_rows.sum().item())
+        f32 = as_f32(rs_img)
+        rat = torch.log(f32 / torch.cat([f32[:1], f32[:-1]], dim=0))
+        mass = torch.where(valid, rat.abs(), torch.zeros_like(rat)).double()
+        scale = mass.sum(dim=1) / valid.sum(dim=1).clamp(min=1)
+        sum_err = max(
+            float(((a.double() - b.double()).abs()
+                   / torch.maximum(scale, b.double().abs())
+                   ).nan_to_num(0.0).max().item())
+            for a, b in ((all_k, all_p), (r_k, r_p)))
+        same = all(torch.equal(bits(a), bits(b))
+                   for a, b in zip((all_k, r_k), again))
+        if sum_err > 1e-6 or not same:
+            fail(f"row statistics: the kernel's means are {sum_err:.3g} of "
+                 f"the row's mean |log ratio| from the twin's (limit 1e-6); "
+                 f"two launches {'agree' if same else 'DIFFER'}")
+        ms = cuda_ms(lambda: rowstats.row_stats(rs_img, rs_circle,
+                                                rs_borders), reps)
+        dms = device_ms(lambda: rowstats.row_stats(rs_img, rs_circle,
+                                                   rs_borders), reps)
+        pms = cuda_ms(rs_plain, reps)
+        big = torch.where(valid, rat, torch.full_like(rat, float("inf")))
+        sort_ms = cuda_ms(lambda: (torch.sort(big, dim=1),
+                                   torch.sort(big, dim=1)), reps)
+        # bound: the distinct pixels read once (each chord and the chord
+        # of the row above), the two (H,) outputs written once
+        read = valid | torch.cat([valid[1:], torch.zeros_like(valid[:1])],
+                                 dim=0)
+        n_valid = int(valid.sum().item())
+        brs = bound(int(read.sum().item()) * rs_img.element_size() + 8 * h,
+                    {"f32": 2 * n_valid})
+        records.append(dict(
+            name="row_stats", kernel="row_stats",
+            launches=row_stats2["kernel"], err=err, ms=ms, plain_ms=pms,
+            library_ms=sort_ms, bound=brs,
+            note=f"the {tuple(rs_img.shape)} {rs_img.dtype} frame, circle "
+                 f"{tuple(round(float(v), 3) for v in rs_circle)}, "
+                 f"{n_valid} chord pixels; device {dms:.4f} ms queued, "
+                 f"{100 * brs[0] / dms:.1f}% of bound; means within "
+                 f"{sum_err:.3g} of the row's mean |log ratio|; library: "
+                 f"the twin's two torch.sort calls alone"))
+        del rs_img, valid, rat, big, f32, mass
 
         # 6. the resident path on the phase-3 scan
         from solex_ser_recon_en_torch import bench_device

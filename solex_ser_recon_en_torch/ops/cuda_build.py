@@ -36,7 +36,8 @@ NVCC_FLAGS = [
 
 #: kernel launches per wrapper (ops/recon_cuda.py, ops/warp_fast.py,
 #: ops/clahe.py, ops/fused_cuda.py), added by ``count_launch``; reset by
-#: callers that want to count one run
+#: callers that want to count one run (ops/rowstats.py counts its own in
+#: ``ROW_STATS_LAUNCHES``)
 LAUNCHES = {"recon": 0, "hresample": 0, "tile_hist": 0, "shg_fused": 0,
             "shg_fused_mxu": 0, "sum_max": 0}
 _launches_lock = threading.Lock()
@@ -51,6 +52,11 @@ def count_launch(name: str) -> None:
 #: the most raw chunks one launch of kernel B3 takes (its pointer table,
 #: csrc/recon.cu:kMaxChunks; checked against the library when it loads)
 RECON_MAX_CHUNKS = 256
+
+#: the widest row the transversalium row statistics stage in shared memory
+#: (csrc/rowstats.cu:kStageFloats; checked when the library loads); wider
+#: rows need an (H, W) float32 workspace
+ROW_STATS_STAGE_FLOATS = 8192
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -79,6 +85,11 @@ _SIGNATURES = {
     "solex_sum_max": [_P, _I, _P, _P, _I, _L, _P, _P],
     # frames, elem_bytes, F, pixels a frame, out[12]: pass A's launch plan
     "solex_sum_max_plan": [_P, _I, _I, _L, _P],
+    # img, elem_bytes, H, W, cx, cy, r, bx0, by1, bx2, by3, mean_all,
+    # mean_r, workspace, dbg_i, dbg_f, stream
+    "solex_row_stats": [_P, _I, _I, _I] + [ctypes.c_float] * 7
+    + [_P, _P, _P, _P, _P, _P],
+    "solex_row_stats_stage_floats": [],
 }
 
 _lock = threading.Lock()
@@ -178,6 +189,11 @@ def lib() -> ctypes.CDLL:
                 raise RuntimeError("csrc/recon.cu's chunk table holds "
                                    f"{handle.solex_recon_max_chunks()} "
                                    f"pointers, not {RECON_MAX_CHUNKS}")
+            if handle.solex_row_stats_stage_floats() != ROW_STATS_STAGE_FLOATS:
+                raise RuntimeError(
+                    "csrc/rowstats.cu stages rows of "
+                    f"{handle.solex_row_stats_stage_floats()} floats, not "
+                    f"{ROW_STATS_STAGE_FLOATS}")
             _lib = handle
         return _lib
 

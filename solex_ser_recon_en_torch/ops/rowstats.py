@@ -9,13 +9,33 @@ masked entries pushed to +inf.
 0/0 pixels give NaN log-ratios.  They stay counted in the row's valid
 count and sort after +inf (torch.sort, like jnp.sort and np.sort, puts
 NaN last), so the order statistics match the JAX package's exactly.
+
+``row_stats`` is the entry point: on CUDA tensors one launch of
+csrc/rowstats.cu (the chord from the geometry, the log ratio, the medians
+by radix selection, the sums), on CPU tensors the plain twin
+``strip_mask`` + ``row_log_ratio_stats``.  ``ROW_STATS_LAUNCHES`` counts
+the calls by path.
 """
 
 from __future__ import annotations
 
+import threading
+
+import numpy as np
 import torch
 
+from . import cuda_build
 from .dtypes import as_f32, to_u16
+
+#: calls of ``row_stats`` by path: ``kernel`` (CUDA tensors, one launch
+#: each) or ``plain`` (CPU tensors); reset by callers that count one run
+ROW_STATS_LAUNCHES = {"kernel": 0, "plain": 0}
+_count_lock = threading.Lock()
+
+
+def _count(path: str) -> None:
+    with _count_lock:          # a session posts from its pool thread
+        ROW_STATS_LAUNCHES[path] += 1
 
 
 def _masked_row_median(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -59,10 +79,12 @@ def strip_mask(h: int, w: int, circle, borders, device):
     return valid, y1.to(torch.int32), y2.to(torch.int32)
 
 
-def row_log_ratio_stats(img: torch.Tensor, valid: torch.Tensor):
+def row_log_ratio_stats(img: torch.Tensor, valid: torch.Tensor,
+                        detail: bool = False):
     """Per-row (mean, MAD-rejected mean) of log(img[y]/img[y-1]) over the
     valid strip; rows with no valid pixels give 0.  ``img`` is an integer
-    image or a float one (the de-vignetted frame), taken as float32."""
+    image or a float one (the de-vignetted frame), taken as float32.
+    ``detail`` adds a dict of the rows' median, MAD and kept count."""
     f = as_f32(img)
     prev = torch.cat([f[:1], f[:-1]], dim=0)
     rat = torch.log(f / prev)
@@ -84,7 +106,63 @@ def row_log_ratio_stats(img: torch.Tensor, valid: torch.Tensor):
         torch.where(keep, rat, zero).sum(dim=1) / torch.clamp(nk, min=1),
         zero,
     )
+    if detail:
+        return mean_all, mean_r, {"med": med, "mdev": mdev, "nk": nk}
     return mean_all, mean_r
+
+
+def row_stats(img: torch.Tensor, circle, borders):
+    """(mean_all, mean_r), (H,) float32 on the image's device: the row
+    statistics of ``row_log_ratio_stats`` over ``strip_mask``'s chords of
+    the circle (cx, cy, r) and borders (x0, y1, x2, y3), both taken as
+    float32.  ``img`` is (H, W), integer or float.  The kernel on CUDA
+    tensors, the plain twin on CPU tensors."""
+    if img.device.type == "cuda":
+        return _launch_row_stats(img, circle, borders)
+    if img.device.type != "cpu":
+        raise ValueError(f"row_stats: unsupported device {img.device}")
+    _count("plain")
+    h, w = img.shape
+    valid, _, _ = strip_mask(h, w, np.asarray(circle, dtype=np.float32),
+                             np.asarray(borders, dtype=np.float32),
+                             img.device)
+    return row_log_ratio_stats(img, valid)
+
+
+def _launch_row_stats(img: torch.Tensor, circle, borders,
+                      detail: bool = False):
+    """One launch of csrc/rowstats.cu on a CUDA image: u16 and float32
+    read in place, any other dtype through ``as_f32`` (the same values).
+    ``detail`` adds a dict of the kernel's chord bounds (clipped to
+    [0, W]), row_ok, median, MAD and kept count, row by row."""
+    src = img if img.dtype in (torch.uint16, torch.float32) else as_f32(img)
+    src = src.contiguous()
+    h, w = src.shape
+    dev = src.device
+    out = torch.empty((2, h), dtype=torch.float32, device=dev)
+    ws = (torch.empty((h, w), dtype=torch.float32, device=dev)
+          if w > cuda_build.ROW_STATS_STAGE_FLOATS else None)
+    dbg_i = torch.empty((h, 4), dtype=torch.int32, device=dev) if detail \
+        else None
+    dbg_f = torch.empty((h, 2), dtype=torch.float32, device=dev) if detail \
+        else None
+    geometry = [float(v) for v in np.concatenate([
+        np.asarray(circle, dtype=np.float32)[:3],
+        np.asarray(borders, dtype=np.float32)[:4]])]
+    with torch.cuda.device(dev):
+        rc = cuda_build.lib().solex_row_stats(
+            src.data_ptr(), src.element_size(), h, w, *geometry,
+            out[0].data_ptr(), out[1].data_ptr(),
+            *(None if t is None else t.data_ptr() for t in (ws, dbg_i, dbg_f)),
+            cuda_build.stream_handle(dev))
+    cuda_build.check(rc, "row_stats")
+    _count("kernel")
+    if not detail:
+        return out[0], out[1]
+    return out[0], out[1], {
+        "x_lo": dbg_i[:, 0], "x_hi": dbg_i[:, 1], "row_ok": dbg_i[:, 2] != 0,
+        "nk": dbg_i[:, 3].to(torch.int64), "med": dbg_f[:, 0],
+        "mdev": dbg_f[:, 1]}
 
 
 def apply_row_gain(img: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:

@@ -12,8 +12,9 @@ Tukey-tapered at the band edges, is the per-row gain.
 
 The image-sized work (masked per-row robust log-ratio means, the row
 multiply, the stubborn variant's mean filters) runs on the image's device
-(ops/rowstats.py, ops/filters.py); the (H,)-vector math stays on the host in
-float64 with scipy's savgol, as in the JAX package.  On the fused branch of
+(ops/rowstats.py: one kernel launch for the row statistics on the card,
+the plain twin on the CPU; ops/filters.py); the (H,)-vector math stays on
+the host in float64 with scipy's savgol, as in the JAX package.  On the fused branch of
 pipeline/run.py the gain multiply itself runs inside the product step
 (pipeline/products.py).
 
@@ -37,7 +38,7 @@ from scipy.signal import savgol_filter
 from ..io.native import row_medstats
 from ..ops.filters import mean_filter_hole, mean_filter_line
 from ..ops.dtypes import widen
-from ..ops.rowstats import apply_row_gain, row_log_ratio_stats, strip_mask
+from ..ops.rowstats import apply_row_gain, row_stats
 from ..utils.placement import host_ops_device, host_pipeline
 
 
@@ -185,13 +186,6 @@ def _mean_r_host(img: np.ndarray, circle, borders) -> np.ndarray:
     return mean_r
 
 
-def _valid_mask(shape, circle, borders, device) -> torch.Tensor:
-    h, w = shape
-    valid, _, _ = strip_mask(h, w, np.asarray(circle, dtype=np.float32),
-                             np.asarray(borders, dtype=np.float32), device)
-    return valid
-
-
 def _clipped_band(circle, borders, h: int) -> Tuple[int, int]:
     y1, y2 = _row_band(circle, borders)
     return max(y1, 0), min(y2, h)
@@ -210,8 +204,7 @@ def transversalium_gain(
     if host_pipeline():
         mean_r = _mean_r_host(img.numpy(), circle, borders)
     else:
-        _, mean_r = row_log_ratio_stats(
-            img, _valid_mask(img.shape, circle, borders, img.device))
+        _, mean_r = row_stats(img, circle, borders)
         mean_r = mean_r.cpu().numpy().astype(np.float64)
     y1, y2 = _clipped_band(circle, borders, h)
     c, correction = _gain_from_mean_r(mean_r, y1, y2, h, trans_strength)

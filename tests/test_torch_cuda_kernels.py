@@ -1336,3 +1336,153 @@ def test_box_blur_on_the_card_equals_the_cpu(rng, cuda_device, kx, ky):
                             / (16 * 65536.0)).astype(np.float32))
     assert torch.equal(box_blur(img.to(cuda_device), kx, ky).cpu(),
                        box_blur(img, kx, ky))
+
+
+# ---- the transversalium row statistics (csrc/rowstats.cu) against the plain
+# twin (ops/rowstats.py: strip_mask + row_log_ratio_stats) on the card.
+# Chord bounds, medians, MADs and kept counts bit for bit; mean_all and
+# mean_r (float32 sums in another order) within 1e-6 of the row's mean
+# absolute log ratio over what was summed (or of the value, the larger).
+
+
+def _row_stats_case(name):
+    """(image, circle, borders) of one case: the bench frame (u16 and the
+    de-vignetted float form), integer rows with ties, 0/0 (NaN), f/0
+    (+inf), 0/f (-inf) and chords of 0, 1, 2, 3, ... pixels, float rows
+    with -0.0 and negatives, borders that cut the chords, the backup
+    geometry of pipeline/run.py, rows wider than the shared stage, a
+    circle above the image."""
+    from torch_parity import limb_darkened_disk
+
+    rng = np.random.default_rng(ROW_STATS_CASES.index(name))
+    if name in ("bench_u16", "bench_f32"):
+        stripes = 1 + 0.02 * np.sin(np.arange(2048) / 3.0)[:, None]
+        img = np.round(limb_darkened_disk(2048, 2204, 5) * stripes).astype(
+            np.uint16)
+        img[1000, 700:720] = 0              # 0/0 and 0/f inside the disk
+        img[1201, 900:905] = 0
+        if name == "bench_f32":
+            img = img.astype(np.float32) * np.float32(1.0003)
+            img[900, 800:810] = -0.0
+        return img, (1101.7, 1023.4, 790.3), [0.0, 0.0, 2203.0, 2047.0]
+    if name in ("ties_odd", "ties_even"):
+        img = rng.integers(0, 4, (96, 128)).astype(np.uint16)
+        img[10:13] = 0                      # rows of NaN: the median NaN
+        img[20, ::2] = 0                    # half NaN
+        img[30:33] = 1                      # rows of 0: the MAD 0
+        cx = 64.5 if name == "ties_odd" else 64.0
+        return img, (cx, 48.0, 40.0), [0.0, 0.0, 127.0, 95.0]
+    if name == "float_specials":
+        vals = np.array([-0.0, 0.0, 1.0, 2.0, 0.5, -1.0, 3.0],
+                        dtype=np.float32)
+        img = vals[rng.integers(0, len(vals), (40, 64))]
+        return img, (31.0, 20.0, 18.0), [0.0, 0.0, 63.0, 39.0]
+    if name == "cut_borders":
+        img = limb_darkened_disk(256, 300, 9)
+        return img, (150.0, 128.0, 110.0), [60.0, 40.5, 230.0, 200.0]
+    if name == "backup":
+        img = limb_darkened_disk(300, 340, 11)
+        return img, (0.0, 0.0, 99999.0), [0.0, 30.0 + 20, 339.0, 270.0 - 20]
+    if name == "wide":
+        img = rng.integers(900, 1100, (10, 9000)).astype(np.uint16)
+        return img, (4500.0, 5.0, 6000.0), [0.0, 0.0, 8999.0, 9.0]
+    assert name == "above"
+    img = limb_darkened_disk(64, 80, 13)
+    return img, (40.0, -500.0, 100.0), [0.0, 0.0, 79.0, 63.0]
+
+
+ROW_STATS_CASES = ["bench_u16", "bench_f32", "ties_odd", "ties_even",
+                   "float_specials", "cut_borders", "backup", "wide", "above"]
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, any NaN equal to any NaN."""
+    a, b = a.cpu(), b.cpu()
+    assert torch.equal(a.isnan(), b.isnan())
+    keep = ~a.isnan()
+    assert torch.equal(a[keep].view(torch.int32), b[keep].view(torch.int32))
+
+
+def _close_sums(got, want, scale):
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(got[~fin], want[~fin])   # NaN == NaN here
+    d = np.abs(got[fin].astype(np.float64) - want[fin])
+    assert (d <= 1e-6 * np.maximum(np.abs(want[fin]), scale[fin])).all(), \
+        d.max()
+
+
+@pytest.mark.parametrize("name", ROW_STATS_CASES)
+def test_row_stats_kernel_matches_the_plain_twin(cuda_device, name):
+    from solex_ser_recon_en_torch.ops import rowstats
+    from solex_ser_recon_en_torch.ops.dtypes import as_f32
+    from solex_ser_recon_en_torch.pipeline.transversalium import (
+        _strip_bounds_host,
+    )
+
+    img_np, circle, borders = _row_stats_case(name)
+    img = t(img_np, cuda_device)
+    h, w = img.shape
+    valid, _, _ = rowstats.strip_mask(
+        h, w, np.asarray(circle, dtype=np.float32),
+        np.asarray(borders, dtype=np.float32), cuda_device)
+    all_p, r_p, det_p = rowstats.row_log_ratio_stats(img, valid, detail=True)
+    before = rowstats.ROW_STATS_LAUNCHES["kernel"]
+    all_k, r_k, det_k = rowstats._launch_row_stats(img, circle, borders,
+                                                   detail=True)
+    all_k2, r_k2 = rowstats.row_stats(img, circle, borders)
+    assert rowstats.ROW_STATS_LAUNCHES["kernel"] == before + 2
+    for a, b in ((all_k, all_k2), (r_k, r_k2)):     # two launches, one result
+        _same_bits(a, b)
+
+    row_ok, lo, hi = _strip_bounds_host(h, w, circle, borders)
+    np.testing.assert_array_equal(det_k["row_ok"].cpu().numpy(), row_ok)
+    np.testing.assert_array_equal(det_k["x_lo"].cpu().numpy(), lo)
+    np.testing.assert_array_equal(det_k["x_hi"].cpu().numpy(), hi)
+    xs = torch.arange(w, device=cuda_device)
+    mask = (det_k["row_ok"][:, None] & (xs >= det_k["x_lo"][:, None])
+            & (xs < det_k["x_hi"][:, None]))
+    assert torch.equal(mask, valid)
+    _same_bits(det_k["med"], det_p["med"])
+    _same_bits(det_k["mdev"], det_p["mdev"])
+    assert torch.equal(det_k["nk"], det_p["nk"])
+
+    # the scale of each sum: the mean |rat| of what it summed (the twin's
+    # keep, from its median and MAD); rows with a non-finite value compare
+    # exactly
+    f = as_f32(img)
+    rat = torch.log(f / torch.cat([f[:1], f[:-1]], dim=0))
+    dist = (rat - det_p["med"][:, None]).abs()
+    mdev = det_p["mdev"][:, None]
+    s = torch.where(mdev > 0, dist / mdev.clamp(min=1e-30),
+                    torch.zeros_like(dist))
+    keep = valid & (s < 2.0)
+    for got, want, mask in ((all_k, all_p, valid), (r_k, r_p, keep)):
+        mass = torch.where(mask, rat.abs(), torch.zeros_like(rat)).double()
+        scale = (mass.sum(dim=1) / mask.sum(dim=1).clamp(min=1)).cpu().numpy()
+        _close_sums(got, want, np.nan_to_num(scale, nan=0.0, posinf=0.0))
+    assert torch.equal(keep.sum(dim=1), det_p["nk"])
+    n = valid.sum(dim=1).cpu().numpy()
+    assert int(n.sum()) > 0 or name == "above"
+
+
+@pytest.mark.parametrize("name", ["bench_u16", "bench_f32", "cut_borders"])
+def test_transversalium_gain_on_the_card_matches_the_cpu(cuda_device, name):
+    """The gain c from the kernel's mean_r against the CPU twin's, 1e-6
+    relative, one kernel launch a call."""
+    from solex_ser_recon_en_torch.ops import rowstats
+    from solex_ser_recon_en_torch.pipeline.transversalium import (
+        transversalium_gain,
+    )
+
+    img_np, circle, borders = _row_stats_case(name)
+    img = t(img_np)
+    before = dict(rowstats.ROW_STATS_LAUNCHES)
+    got = transversalium_gain(img.to(cuda_device), circle, borders, 301)
+    want = transversalium_gain(img, circle, borders, 301)
+    assert rowstats.ROW_STATS_LAUNCHES == {
+        "kernel": before["kernel"] + 1, "plain": before["plain"] + 1}
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-6)
+    assert got[1:3] == want[1:3]
+    assert np.abs(got[0] - 1).max() > 1e-4      # it corrects something
