@@ -6,15 +6,17 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_ring_probe.py
 
 The two kernels choose their shared-memory ring from a few constants of
-their sources (csrc/fused_mxu.cu: the rows a block owns, the stage and ring
-sizes, the blocks an SM that ``__launch_bounds__`` asks for;
-csrc/sum_max.cu: the 16-byte chunks a thread owns, the ring size, the
-blocks an SM).  This script shows what those constants were chosen from:
-it copies each source with the constants of one variant written over the
-committed ones, builds every copy into a library of its own (one nvcc each,
-all started together, in a temporary directory), and times each variant on
-the shoot-out's slab (2000 x 2048 x 300 random u16 on the card): the mean
-device time of calls queued behind a sleep kernel, B6 at S = 2, 7 and 21.
+their launch plans (csrc/plans.cuh, namespace fused_mxu: the rows a block
+owns, the stage and ring sizes; namespace sum_max: the 16-byte chunks a
+thread owns, the ring size) and the blocks an SM that the
+``__launch_bounds__`` of their sources (csrc/fused_mxu.cu, csrc/sum_max.cu)
+ask for.  This script shows what those constants were chosen from: it
+copies the plans and each source with the constants of one variant written
+over the committed ones, builds every copy into a library of its own (one
+nvcc each, all started together, in a temporary directory), and times each
+variant on the shoot-out's slab (2000 x 2048 x 300 random u16 on the card):
+the mean device time of calls queued behind a sleep kernel, B6 at S = 2, 7
+and 21.
 Every variant's outputs must equal the committed kernel's bit for bit.
 The variant marked ``committed`` leaves the constants as they are.
 
@@ -50,21 +52,26 @@ PASS_A_VARIANTS = [("committed", None, None, None),
                    (None, 4, 100, 2), (None, 4, 130, 1)]
 
 
-def with_constants(text: str, constants: dict, blocks) -> str:
-    """The source with each ``constexpr ... name = ...;`` of ``constants``
-    and the blocks an SM of its ``__launch_bounds__`` rewritten; a name
-    that is not there exactly once is an error."""
+def with_constants(plans: str, text: str, kernel: str, constants: dict,
+                   blocks):
+    """(plans.cuh with each ``constexpr ... name = ...;`` of ``constants``
+    rewritten in the kernel's namespace, the kernel's source with the
+    blocks an SM of its ``__launch_bounds__`` rewritten); a name that is
+    not there exactly once is an error."""
+    head, start, rest = plans.partition(f"\nnamespace {kernel} {{\n")
+    body, end, tail = rest.partition(f"\n}}  // namespace {kernel}\n")
     for name, value in constants.items():
-        text, n = re.subn(rf"(constexpr \w+ {name} = )[^;]+;",
-                          rf"\g<1>{value};", text)
+        body, n = re.subn(rf"(constexpr \w+ {name} = )[^;]+;",
+                          rf"\g<1>{value};", body)
         if n != 1:
             chip_smoke.fail(f"constant {name} found {n} times")
+    plans = head + start + body + end + tail
     if blocks is not None:
         text, n = re.subn(r"__launch_bounds__\(kThreads, \d+\)",
                           f"__launch_bounds__(kThreads, {blocks})", text)
         if n != 1:
             chip_smoke.fail(f"__launch_bounds__ found {n} times")
-    return text
+    return plans, text
 
 
 def main() -> int:
@@ -97,8 +104,12 @@ def main() -> int:
         for i, (_, _, src, consts, blocks) in enumerate(variants):
             d = f"{tmp}/{i}"
             shutil.copytree(cuda_build.CSRC, d)
-            text = with_constants((cuda_build.CSRC / src).read_text(),
-                                  consts, blocks)
+            plans, text = with_constants(
+                (cuda_build.CSRC / "plans.cuh").read_text(),
+                (cuda_build.CSRC / src).read_text(), src[:-3], consts,
+                blocks)
+            with open(f"{d}/plans.cuh", "w") as f:
+                f.write(plans)
             with open(f"{d}/{src}", "w") as f:
                 f.write(text)
             libs.append(f"{d}/probe.so")

@@ -39,8 +39,8 @@
 //   copy the 16-byte granules that hold the run, aligned down, with
 //   cp.async (the granule at the slab's end clipped, zero fill), and the
 //   run sits at a per-frame offset of 0-7 elements in the stage.  The path
-//   follows from the pointer and the shape alone (make_plan); it is never
-//   a fallback.
+//   follows from the pointer and the shape alone (csrc/plans.cuh); it is
+//   never a fallback.
 // - Sum and max: each thread owns fixed 16-byte chunks of the run across
 //   all frames, reads them from the stage (uint4 on the bulk path), keeps
 //   int32 sums and packed u16x2 maxima in registers, and merges them at the
@@ -75,90 +75,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
-
 #include "ring.cuh"
 
 namespace {
 
 using namespace solex_ring;
-
-constexpr int kChunks = 4;                       // 16-byte chunks a thread owns
-constexpr int kMaxRun = 8 * kChunks * kThreads;  // elements a block holds a frame
-constexpr int kMaxRows = 64;
-constexpr int kMaxK = 8;                         // frames per stage
-constexpr size_t kStageTarget = 16 * 1024;
-constexpr size_t kRingTarget = 72 * 1024;
-
-struct Plan {
-  int bulk, yb, xw, K, D, fb;
-  size_t smem;
-};
-
-// bytes of one frame's run in the ring (+16: the element path's offset)
-__host__ __device__ inline size_t frame_bytes(int n) {
-  return align16(2 * (size_t)n) + 16;
-}
-
-// longest run a block holds: whole rows, or a column chunk and its tap column
-__host__ __device__ inline int max_run(int yb, int xw, int iw) {
-  return xw < iw ? xw + 1 : yb * iw;
-}
-
-size_t smem_bytes(int S, int yb, int K, int D, int fb, int nmax) {
-  return kBarBytes + (size_t)D * K * frame_bytes(nmax) +
-         align16(2 * (size_t)S * yb * fb) + 4 * (size_t)S * yb + 4 * (size_t)yb;
-}
-
-// The launch geometry (ops/fused_cuda.py:fused_plan mirrors it); false when
-// even yb = K = 1, D = 2 and 8-frame disk stores do not fit.
-bool make_plan(uintptr_t ptr, int S, int ih, int iw, Plan* p) {
-  const bool aligned = ptr % 16 == 0 && ((long long)ih * iw) % 8 == 0;
-  p->xw = iw > kMaxRun ? kMaxRun - 1 : iw;
-  p->yb = 1;
-  if (p->xw == iw) {
-    // rows: a bulk-aligned run first, then the larger share of the threads'
-    // chunk slots used (n / P), then more rows
-    long long bn = 0, bP = 1;
-    bool bb = false;
-    const int top = std::min(std::min(ih, kMaxRows), kMaxRun / iw);
-    for (int yb = 1; yb <= top; ++yb) {
-      const long long n = (long long)yb * iw;
-      const long long P = (n + 8 * kThreads - 1) / (8 * kThreads);
-      const bool b = aligned && n % 8 == 0;
-      if (yb == 1 || (b && !bb) || (b == bb && n * bP >= bn * P)) {
-        p->yb = yb;
-        bn = n;
-        bP = P;
-        bb = b;
-      }
-    }
-  }
-  const bool want_bulk = p->xw == iw && aligned && ((long long)p->yb * iw) % 8 == 0;
-  size_t fst = frame_bytes(max_run(p->yb, p->xw, iw));
-  p->K = (int)std::min((size_t)kMaxK, std::max((size_t)1, kStageTarget / fst));
-  while (p->K & (p->K - 1)) --p->K;              // a power of two
-  p->D = (int)std::min((size_t)kMaxD,
-                       std::max((size_t)2, kRingTarget / (p->K * fst)));
-  p->fb = 32;
-  while ((p->smem = smem_bytes(S, p->yb, p->K, p->D, p->fb,
-                               max_run(p->yb, p->xw, iw))) > kMaxSmem) {
-    if (p->D > 2) {
-      --p->D;
-    } else if (p->K > 1) {
-      p->K /= 2;
-    } else if (p->yb > 1) {
-      do --p->yb;
-      while (p->yb > 1 && want_bulk && ((long long)p->yb * iw) % 8 != 0);
-    } else if (p->fb > 8) {
-      p->fb /= 2;
-    } else {
-      return false;
-    }
-  }
-  p->bulk = p->xw == iw && aligned && ((long long)p->yb * iw) % 8 == 0;
-  return true;
-}
+using namespace solex_plans::fused;
 
 template <bool kBulk>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -334,11 +256,12 @@ cudaError_t configure(uintptr_t ptr, int S, int F, int ih, int iw,
 // frames: (F, ih, iw) u16, C-contiguous, normalised orientation;
 // ind_l: (S, ih) i32; left_w: (ih,) f32.  Outputs: sum, mx (ih, iw) i32,
 // zeroed here on the stream; disks (S, ih, F) u16.  F <= 32767 keeps the
-// int32 sum exact (65535 * 32767 < 2^31).
+// int32 sum exact (65535 * 32767 < 2^31).  `bulk`, where not null,
+// receives 1 for the bulk copy path and 0 for the element path.
 extern "C" int solex_shg_fused(const uint16_t* frames, const int32_t* ind_l,
                                const float* left_w, int32_t* sum, int32_t* mx,
                                uint16_t* disks, int S, int F, int ih, int iw,
-                               void* stream) {
+                               void* stream, int* bulk) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Launch L;
   cudaError_t err =
@@ -359,6 +282,7 @@ extern "C" int solex_shg_fused(const uint16_t* frames, const int32_t* ind_l,
     fused_kernel<false><<<L.grid, kThreads, p.smem, st>>>(
         frames, ind_l, left_w, sum, mx, disks, S, F, ih, iw, p.yb, p.xw, p.K,
         p.D, p.fb, L.fper, disk_vec);
+  if (bulk) *bulk = p.bulk;
   return (int)cudaGetLastError();
 }
 

@@ -52,7 +52,7 @@
 //   mbarrier (a 16-byte aligned slab, yb * iw and ih * iw multiples of 8).
 //   Element path (any other pointer or shape): 16-byte cp.async granules,
 //   the run at a per-frame offset of 0-7 elements.  The path follows from
-//   the pointer and the shape alone (make_plan), never as a fallback.
+//   the pointer and the shape alone (csrc/plans.cuh), never as a fallback.
 // - The stage is the A tile: a lane reads its A element (frame lane / 4)
 //   straight from the ring slot.  Frames sit frame_stride bytes apart, 16
 //   more than a multiple of 128, so the 8 frames of a fragment start 4
@@ -92,85 +92,19 @@
 #include <limits.h>
 #include <stdint.h>
 
-#include <algorithm>
-
 #include "ring.cuh"
 
 namespace {
 
 using namespace solex_ring;
+using namespace solex_plans::fused_mxu;
 
 constexpr int kWarps = kThreads / 32;
-constexpr int kM = 8;                     // frames per mma tile and per stage
-constexpr int kN = 8;                     // shifts per mma tile
 constexpr int kK = 4;                     // spectral columns per mma
 constexpr int kChunks = 2;                // 16-byte chunks a thread owns
-constexpr int kCap = 3072;                // elements (rows x iw) per block
-constexpr int kMaxRows = 8;
-constexpr size_t kStageTarget = 20 * 1024;
-constexpr size_t kRingTarget = 60 * 1024;
 constexpr int kDead = -16;                // tap column of an absent shift
 
 static_assert(kCap <= 8 * kChunks * kThreads, "a run fits the threads' chunks");
-
-struct Plan {
-  int bulk, yb, D, fb;
-  size_t smem;
-};
-
-// bytes between two frames of a stage: room for the run and the element
-// path's offset (2 n + 16), rounded up to 16 more than a multiple of 128
-__host__ __device__ inline size_t frame_stride(int n) {
-  return ((2 * (size_t)n + 16 + 127) & ~size_t(127)) + 16;
-}
-
-size_t smem_bytes(int S, int iw, int yb, int D, int fb) {
-  const size_t nsg = (S + kN - 1) / kN;
-  return kBarBytes + (size_t)D * kM * frame_stride(yb * iw) +
-         align16(2 * (size_t)S * yb * fb) + 16 * (size_t)yb +
-         8 * (size_t)yb * nsg + 4 * (size_t)yb * nsg * kN;
-}
-
-// The launch geometry (ops/fused_cuda.py:fused_mxu_plan mirrors it); false
-// when even yb = 1, D = 2 and 8-frame disk stores do not fit.
-bool make_plan(uintptr_t ptr, int S, int ih, int iw, Plan* p) {
-  const bool aligned = ptr % 16 == 0 && ((long long)ih * iw) % 8 == 0;
-  // rows: a bulk-aligned run first, then the longest run whose stage stays
-  // within kStageTarget (the shortest run, if none does)
-  const int top = std::min(std::min(ih, kMaxRows), kCap / iw);
-  long long bkey = 0;
-  bool bb = false;
-  p->yb = 1;
-  for (int yb = 1; yb <= top; ++yb) {
-    const long long n = (long long)yb * iw;
-    const bool b = aligned && n % 8 == 0;
-    const long long key = kM * frame_stride((int)n) <= kStageTarget ? n : -n;
-    if (yb == 1 || (b && !bb) || (b == bb && key > bkey)) {
-      p->yb = yb;
-      bkey = key;
-      bb = b;
-    }
-  }
-  const bool want_bulk = bb;
-  p->D = (int)std::min(
-      (size_t)kMaxD,
-      std::max((size_t)2, kRingTarget / (kM * frame_stride(p->yb * iw))));
-  p->fb = 32;
-  while ((p->smem = smem_bytes(S, iw, p->yb, p->D, p->fb)) > kMaxSmem) {
-    if (p->D > 2) {
-      --p->D;
-    } else if (p->yb > 1) {
-      do --p->yb;
-      while (p->yb > 1 && want_bulk && ((long long)p->yb * iw) % 8 != 0);
-    } else if (p->fb > 8) {
-      p->fb /= 2;
-    } else {
-      return false;
-    }
-  }
-  p->bulk = aligned && ((long long)p->yb * iw) % 8 == 0;
-  return true;
-}
 
 __device__ __forceinline__ void dmma_8x8x4(double& d0, double& d1, double a,
                                            double b) {

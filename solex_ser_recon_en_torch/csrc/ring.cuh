@@ -18,29 +18,22 @@
 // contiguous run of every frame of its frame range; fill_stage / wait_stage
 // move the runs of a few frames into a ring slot and wait for them; SumMax
 // keeps a thread's int32 sums and packed maxima of its fixed 16-byte chunks
-// of the run and merges them into the int32 outputs with atomics; and
-// frames_per_block splits the frames over blocks so that the last wave of
-// the grid is as full as it can be.
+// of the run and merges them into the int32 outputs with atomics.  The
+// ring's limits, the frame split and the kernels' launch plans are in
+// csrc/plans.cuh.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
+#include "plans.cuh"
 
 namespace solex_ring {
 
-constexpr int kThreads = 256;                    // threads of a block
-constexpr int kMaxD = 8;                         // stages in a ring, at most
-constexpr size_t kBarBytes = 8 * kMaxD;          // the stages' mbarriers
-constexpr int kSplitFrames = 32;                 // frame-split granule
-constexpr size_t kMaxSmem = 232448;              // opt-in limit of a block
-constexpr size_t kDefaultSmem = 48 * 1024;
+using namespace solex_plans;
 
-__host__ __device__ inline size_t align16(size_t n) {
-  return (n + 15) & ~size_t(15);
-}
+constexpr size_t kDefaultSmem = 48 * 1024;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -275,28 +268,6 @@ struct SumMax {
     }
   }
 };
-
-// Frames a block takes (a multiple of kSplitFrames) when `tiles` blocks
-// cover one frame and the card holds `slots` blocks at once: the split
-// whose last wave is fullest, then the one with fewer blocks.
-inline int frames_per_block(long long tiles, long long slots, int F) {
-  const int nfb = (F + kSplitFrames - 1) / kSplitFrames;
-  const int top =
-      (int)std::min((long long)nfb, 4 * ((slots + tiles - 1) / tiles));
-  long long best_blocks = 0, best_cap = 1;
-  int best = kSplitFrames * nfb;
-  for (int sp = 1; sp <= top; ++sp) {
-    const int fper = kSplitFrames * ((nfb + sp - 1) / sp);
-    const long long blocks = tiles * ((F + fper - 1) / fper);
-    const long long cap = (blocks + slots - 1) / slots * slots;
-    if (sp == 1 || blocks * best_cap > best_blocks * cap) {
-      best_blocks = blocks;
-      best_cap = cap;
-      best = fper;
-    }
-  }
-  return best;
-}
 
 // Blocks of `kernel` an SM holds at `smem` dynamic bytes (raising the
 // kernel's limit past the default where needed), and the card's SM count.

@@ -27,7 +27,7 @@
 //   registers and merges them into the outputs at the end.
 // - Two launch plans, chosen from the pointer, the element size, the frame
 //   count, the pixels of a frame and the card's block slots (SMs x blocks
-//   an SM holds at the ring's shared memory) alone (make_plan):
+//   an SM holds at the ring's shared memory) alone (csrc/plans.cuh):
 //   * owned: the frame's granules split evenly over every slot (runs that
 //     differ by one granule at most, one full wave; more waves of whole
 //     slots only where a run would pass 16 KB), each block reading every
@@ -46,83 +46,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
-
 #include "ring.cuh"
 
 namespace {
 
 using namespace solex_ring;
-
-constexpr int kChunks = 4;                       // 16-byte chunks a thread owns
-constexpr size_t kMaxRunBytes = 16 * kChunks * kThreads;
-constexpr int kMaxK = 8;                         // frames per stage
-constexpr int kOwnedMaxK = 16;                   // of an owned plan
-constexpr size_t kStageTarget = 16 * 1024;
-constexpr size_t kOwnedStageTarget = 64 * 1024;  // an owned plan's stages
-constexpr size_t kRingTarget = 100 * 1024;
-// the shortest run an owned plan gives a block: below it most of a block's
-// threads hold no chunk of the run, and at a chunk's frame count the split
-// plan's 16 KB runs stream faster (measured on an H100: PERF.md section 6)
-constexpr size_t kMinOwnedRun = 1024;
-
-struct Plan {
-  int bulk, owned, K, D, fper;                   // fper: frames a block
-  long long blocks;                              // blocks across a frame
-  long long base, rem;   // granules of a run; the first rem runs take one more
-  size_t smem;
-};
-
-// bytes of one frame's run in the ring (+16: the element path's offset)
-__host__ __device__ inline size_t stage_frame_bytes(size_t run_bytes) {
-  return align16(run_bytes) + 16;
-}
-
-// K frames a stage (towards `stage` bytes, at most max_k) and D stages for
-// runs of `granules`, the ring within `cap` bytes; returns the block's
-// shared memory
-size_t size_ring(long long granules, size_t stage, int max_k, size_t cap,
-                 Plan* p) {
-  const size_t fst = stage_frame_bytes((size_t)granules * 16);
-  p->K = (int)std::min((size_t)max_k, std::max((size_t)1, stage / fst));
-  while (p->K & (p->K - 1)) --p->K;              // a power of two
-  while (p->K > 1 && 2 * p->K * fst > cap) p->K /= 2;  // two stages fit
-  p->D = (int)std::min((size_t)kMaxD,
-                       std::max((size_t)2, cap / (p->K * fst)));
-  return kBarBytes + (size_t)p->D * p->K * fst;
-}
-
-// The split plan's ring, whose shared memory sets the card's block slots
-// for both plans: runs of up to 16 KB.
-void split_ring(uintptr_t ptr, int eb, long long npix, Plan* p) {
-  const long long G = (npix * eb + 15) / 16;     // granules of a frame
-  p->bulk = ptr % 16 == 0 && npix * eb % 16 == 0;
-  p->owned = 0;
-  p->base = std::min(G, (long long)(kMaxRunBytes / 16));
-  p->rem = 0;
-  p->blocks = (G + p->base - 1) / p->base;
-  p->smem = size_ring(p->base, kStageTarget, kMaxK, kRingTarget, p);
-}
-
-// The launch plan for F frames at `slots` blocks the card holds at once
-// (at the split ring's shared memory, p->smem on entry).  Mirrored by
-// ops/fused_cuda.py:sum_max_plan.
-void make_plan(int F, long long npix, int eb, long long slots, Plan* p) {
-  const long long G = (npix * eb + 15) / 16;
-  const long long max_g = kMaxRunBytes / 16, min_g = kMinOwnedRun / 16;
-  if (G >= slots * min_g) {
-    p->owned = 1;
-    p->blocks = slots * ((G + slots * max_g - 1) / (slots * max_g));
-    p->base = G / p->blocks;
-    p->rem = G % p->blocks;
-    // the split ring's shared memory, so the slots stay those counted
-    size_ring(p->base + (p->rem > 0), kOwnedStageTarget, kOwnedMaxK,
-              p->smem - kBarBytes, p);
-    p->fper = F;
-  } else {
-    p->fper = frames_per_block(p->blocks, slots, F);
-  }
-}
+using namespace solex_plans::sum_max;
 
 // Add an owned run's sums to sb[0 .. nacc) and raise mb[0 .. nacc) to its
 // maxima with plain loads and stores: no other block of the launch touches

@@ -1,13 +1,16 @@
-"""ctypes bindings of the port's native host library (csrc/ser_io.cpp).
+"""ctypes bindings of the port's native host library (csrc/ser_io.cpp and
+csrc/plans.cpp).
 
 Counterpart of solex_ser_recon_en_tpu/io/native.py.  ``csrc/ser_io.cpp`` is
 the port's own copy of the JAX package's ``native/ser_io.cpp``, held to it
-byte for byte by the tests.  It is compiled at first use with the system
-C++ compiler into the directory of the CUDA kernels
-(``build/solex_torch_kernels/``, ``SOLEX_TORCH_BUILD_DIR`` overrides), the
-way ops/cuda_build.py builds those: the file name carries a hash of the
-source, the flags, the compiler's version line and the instruction set
-``-march=native`` resolves to on this machine, so an edited source or
+byte for byte by the tests; ``csrc/plans.cpp`` holds the host entry points
+of the kernels' launch plans (``csrc/plans.cuh``).  Both are compiled at
+first use with the system C++ compiler into the directory of the CUDA
+kernels (``build/solex_torch_kernels/``, ``SOLEX_TORCH_BUILD_DIR``
+overrides), the way ops/cuda_build.py builds those: the file name carries a
+hash of the sources and plans.cuh, the flags, the compiler's version line
+and the instruction set ``-march=native`` resolves to on this machine, so
+an edited source or
 another machine builds anew and a stale library is never loaded; the
 library is written under a temporary name and ``os.replace``d, so
 processes that build at once never load a half-written file.
@@ -36,7 +39,9 @@ Every entry point of the library is bound:
   ``clahe_u16``;
 - ``box_blur_u16_exact`` (``box_blur_u16``), ``png_pack_rows``
   (``png_pack``), ``png_encode_stored_band`` (``png_encode_band``) and
-  ``fits_pack_u16`` (the FITS writer's payload).
+  ``fits_pack_u16`` (the FITS writer's payload);
+- the launch plans (``solex_*``, called by ops/fused_cuda.py and not
+  counted).
 """
 
 from __future__ import annotations
@@ -54,6 +59,8 @@ import numpy as np
 from ..ops.cuda_build import CSRC, build_dir
 
 SOURCE = CSRC / "ser_io.cpp"
+#: the launch plans' host entry points; they include plans.cuh beside them
+PLANS = CSRC / "plans.cpp"
 #: the C++ compiler, by name (looked up on PATH)
 CXX = "g++"
 CXX_FLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-shared", "-fPIC"]
@@ -63,6 +70,7 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 _U = ctypes.c_uint32
 _UP = ctypes.POINTER(ctypes.c_uint32)
+_Z = ctypes.c_size_t
 #: entry point -> (restype, argtypes)
 _SIGNATURES = {
     # path, handle out, width, height, pixel depth, frame count
@@ -120,6 +128,15 @@ _SIGNATURES = {
     # src (h, w) u16, h, w, tiles_x, tiles_y, clip limit, out u16, hist
     # u32[65536] or NULL
     "clahe_u16": (_I, [_P, _L, _L, _I, _I, ctypes.c_double, _P, _P]),
+    # frames' address, elem_bytes, F, pixels a frame, block slots, out
+    "solex_sum_max_plan_host": (_I, [_Z, _I, _I, _L, _L, _P]),
+    # frames' address, S, ih, iw, out (both)
+    "solex_shg_fused_plan_host": (_I, [_Z, _I, _I, _I, _P]),
+    "solex_shg_fused_mxu_plan_host": (_I, [_Z, _I, _I, _I, _P]),
+    # tiles, block slots, F
+    "solex_frames_per_block": (_I, [_L, _L, _I]),
+    "solex_mxu_frame_stride": (_L, [_I]),
+    "solex_plan_limits": (_I, [_P]),
 }
 
 #: the sorted hybrid of the row statistics (numpy sorts the masked rows,
@@ -173,12 +190,14 @@ def library_path() -> Path:
     # what -march=native means here: a library built on another machine
     # may hold instructions this one lacks
     h.update(_compiler_output([*CXX_FLAGS, "-Q", "--help=target"]).encode())
-    h.update(SOURCE.read_bytes())
+    for src in (SOURCE, PLANS, PLANS.with_suffix(".cuh")):
+        h.update(src.read_bytes())
     return build_dir() / f"solex_torch_ser_io_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile csrc/ser_io.cpp into the shared library, unless it exists."""
+    """Compile csrc/ser_io.cpp and csrc/plans.cpp into the shared library,
+    unless it exists."""
     global build_seconds
     so = library_path()
     if so.exists():
@@ -188,7 +207,8 @@ def build() -> Path:
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
     try:
-        _compiler_output([*CXX_FLAGS, "-o", str(tmp), str(SOURCE)])
+        _compiler_output([*CXX_FLAGS, "-o", str(tmp), str(SOURCE),
+                          str(PLANS)])
         os.replace(tmp, so)
     finally:
         build_seconds = time.perf_counter() - t0

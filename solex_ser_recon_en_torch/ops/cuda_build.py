@@ -73,9 +73,9 @@ _SIGNATURES = {
     "solex_hresample": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # img, elem_bytes, h, w, tiles_y, tiles_x, hist_size, out, stream
     "solex_tile_hist": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
-    # frames, ind_l, left_w, sum, max, disks, S, F, ih, iw, stream
-    "solex_shg_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # the same arguments
+    # frames, ind_l, left_w, sum, max, disks, S, F, ih, iw, stream, int* bulk
+    "solex_shg_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # the same arguments but the last
     "solex_shg_fused_mxu": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # frames, S, F, ih, iw, out[12]: kernel B1's launch geometry
     "solex_shg_fused_plan": [_P, _I, _I, _I, _I, _P],

@@ -18,15 +18,24 @@ the sum/max consumer that B1 and B6 use, with no shifts).  The JAX package
 leaves these reductions to XLA (solex_ser_recon_en_tpu/ops/fused.py:33-34);
 ``mean_max`` also stands for its frames-in-memory reduction
 (solex_ser_recon_en_tpu/ops/reduce.py), which the spectral analyser runs.
+
+The three kernels' launch plans and their limits are written once, in
+csrc/plans.cuh: the kernel library plans each launch with it on the card,
+and the host library (io/native.py) builds the same code, through which
+``sum_max_plan``, ``fused_plan``, ``fused_mxu_plan`` and ``PLAN_LIMITS``
+answer without a card.  ``*_plan_cuda`` read the kernel library's plan at
+the card's own block slots.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
 
+from ..io import native
 from . import cuda_build
 from .dtypes import as_int16, to_u16, widen
 from .recon import recon_plain
@@ -36,11 +45,42 @@ MAX_FRAMES = 32767
 #: longer stacks spill the int32 sum into an int64 fold every 2**15 frames
 #: (65535 * 2**15 < 2**31; solex_ser_recon_en_tpu/ops/reduce.py)
 SPILL_FRAMES = 1 << 15
-#: B6 holds whole rows of 8 frames in shared memory: rows up to 3072
-#: columns (csrc/fused_mxu.cu)
-MXU_MAX_IW = 3072
 
 Step = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+#: the names of solex_plan_limits' values (csrc/plans.cpp), in its order
+_LIMITS = ("threads", "max_smem", "bar_bytes", "max_stages", "split_frames",
+           "sum_max_max_run", "sum_max_min_owned_run", "sum_max_owned_max_k",
+           "b1_max_run", "b6_max_iw")
+
+
+@functools.cache
+def _plan_limits() -> dict:
+    n, v = _host_plan("solex_plan_limits", len(_LIMITS), ctypes.c_longlong)
+    if n != len(_LIMITS):
+        raise RuntimeError(f"solex_plan_limits wrote {n} limits, not "
+                           f"{len(_LIMITS)}")
+    return dict(zip(_LIMITS, v))
+
+
+def __getattr__(name: str):
+    """``PLAN_LIMITS``: the limits of csrc/plans.cuh named in ``_LIMITS``,
+    read from the host library at first use, so that importing this module
+    builds nothing."""
+    if name == "PLAN_LIMITS":
+        return _plan_limits()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def _host_plan(entry: str, n: int, ctype, *args):
+    """(return code, out[n]) of a plan entry point of the host library
+    (csrc/plans.cpp); a negative code is an argument the kernel library
+    refuses."""
+    out = (ctype * n)()
+    rc = getattr(native.get_lib(), entry)(*args, out)
+    if rc < 0:
+        raise ValueError(f"{entry}{args}: an argument is out of range")
+    return rc, list(out)
 
 
 def _check(frames: torch.Tensor, ind_l: torch.Tensor,
@@ -99,22 +139,6 @@ def _sum_max_check(frames: torch.Tensor, name: str) -> None:
                          "int32 frame sum would overflow)")
 
 
-#: pass A's launch geometry (csrc/sum_max.cu, csrc/ring.cuh; the ring's most
-#: stages and barrier bytes are B1's, below): a block's run is at most this
-#: many bytes of a frame (16-byte chunks a thread x threads)
-SUM_MAX_MAX_RUN = 16 * 4 * 256
-#: the shortest run (bytes) the owned plan gives a block; a frame below
-#: this many bytes a block slot takes the split plan
-SUM_MAX_MIN_OWNED_RUN = 1024
-SUM_MAX_MAX_K = 8
-#: an owned plan's most frames a stage
-SUM_MAX_OWNED_MAX_K = 16
-SUM_MAX_STAGE_TARGET, SUM_MAX_RING_TARGET = 16 * 1024, 100 * 1024
-#: an owned plan's stage, bytes (its ring within the split ring's memory)
-SUM_MAX_OWNED_STAGE_TARGET = 64 * 1024
-#: frames of a split plan's frame range come in multiples of this
-SPLIT_FRAMES = 32
-
 #: pass A's launches by plan ("owned": every block owns a run of pixels
 #: over all frames of the launch, plain merge; "split": runs over frame
 #: splits, atomic merge), as the kernel library reports them; reset by
@@ -122,71 +146,24 @@ SPLIT_FRAMES = 32
 SUM_MAX_PLANS = {"owned": 0, "split": 0}
 
 
-def _frames_per_block(tiles: int, slots: int, F: int) -> int:
-    """csrc/ring.cuh:frames_per_block: frames a block takes (a multiple of
-    SPLIT_FRAMES) so that the last wave is as full as it can be, then the
-    split with fewer blocks."""
-    nfb = -(-F // SPLIT_FRAMES)
-    top = min(nfb, 4 * (-(-slots // tiles)))
-    best, best_blocks, best_cap = SPLIT_FRAMES * nfb, 0, 1
-    for sp in range(1, top + 1):
-        fper = SPLIT_FRAMES * (-(-nfb // sp))
-        blocks = tiles * (-(-F // fper))
-        cap = -(-blocks // slots) * slots
-        if sp == 1 or blocks * best_cap > best_blocks * cap:
-            best, best_blocks, best_cap = fper, blocks, cap
-    return best
-
-
-def _sum_max_ring(granules: int, stage: int, max_k: int, cap: int):
-    """csrc/sum_max.cu:size_ring: (K frames a stage, D stages, shared bytes
-    a block) for runs of ``granules`` 16-byte granules, stages towards
-    ``stage`` bytes of at most ``max_k`` frames, the ring within ``cap``
-    bytes."""
-    fst = 16 * granules + 16
-    K = min(max_k, max(1, stage // fst))
-    K = 1 << (K.bit_length() - 1)
-    while K > 1 and 2 * K * fst > cap:
-        K //= 2
-    D = min(B1_MAX_D, max(2, cap // (K * fst)))
-    return K, D, B1_BAR_BYTES + D * K * fst
-
-
 def sum_max_plan(data_ptr: int, elem_bytes: int, F: int, npix: int,
                  sms: int, blocks_per_sm: int) -> dict:
-    """csrc/sum_max.cu:make_plan in Python: pass A's launch plan for F
-    frames of ``npix`` elements of ``elem_bytes`` at ``data_ptr`` on a card
-    of ``sms`` SMs that holds ``blocks_per_sm`` blocks of the kernel at the
-    split ring's shared memory: owned where every slot gets a run of
-    SUM_MAX_MIN_OWNED_RUN bytes.  A dict: plan ("owned" or "split"), path
-    ("bulk" or "element"), K frames a stage, D stages, base granules
-    (16 bytes) of a block's run and rem runs that take one more, smem bytes
-    a block, blocks across a frame, fper frames a block, grid.  The wrapper
-    does not call it: tests hold it to the library's plan
-    (``sum_max_plan_cuda``)."""
-    frame_b = npix * elem_bytes
-    G = -(-frame_b // 16)
-    max_g = SUM_MAX_MAX_RUN // 16
-    min_g = SUM_MAX_MIN_OWNED_RUN // 16
-    slots = sms * blocks_per_sm
-    base, rem = min(G, max_g), 0
-    K, D, smem = _sum_max_ring(base, SUM_MAX_STAGE_TARGET, SUM_MAX_MAX_K,
-                               SUM_MAX_RING_TARGET)
-    blocks = -(-G // base)
-    if G >= slots * min_g:
-        plan = "owned"
-        blocks = slots * (-(-G // (slots * max_g)))
-        base, rem = divmod(G, blocks)
-        K, D, _ = _sum_max_ring(base + (rem > 0), SUM_MAX_OWNED_STAGE_TARGET,
-                                SUM_MAX_OWNED_MAX_K, smem - B1_BAR_BYTES)
-        fper = F
-    else:
-        plan = "split"
-        fper = _frames_per_block(blocks, slots, F)
-    bulk = data_ptr % 16 == 0 and frame_b % 16 == 0
-    return dict(plan=plan, path="bulk" if bulk else "element", K=K, D=D,
-                base=base, rem=rem, smem=smem, blocks=blocks, fper=fper,
-                grid=(blocks, -(-F // fper)))
+    """Pass A's launch plan (csrc/plans.cuh, through the host library) for
+    F frames of ``npix`` elements of ``elem_bytes`` at ``data_ptr`` on a
+    card of ``sms`` SMs that holds ``blocks_per_sm`` blocks of the kernel
+    at the split ring's shared memory: owned where every slot gets a run of
+    ``PLAN_LIMITS["sum_max_min_owned_run"]`` bytes.  A dict: plan ("owned"
+    or "split"), path ("bulk" or "element"), K frames a stage, D stages,
+    base granules (16 bytes) of a block's run and rem runs that take one
+    more, smem bytes a block, blocks across a frame, fper frames a block,
+    grid.  The kernel library plans each launch itself; tests hold this to
+    its plan (``sum_max_plan_cuda``)."""
+    _, v = _host_plan("solex_sum_max_plan_host", 10, ctypes.c_longlong,
+                      data_ptr, elem_bytes, F, npix, sms * blocks_per_sm)
+    return dict(plan="owned" if v[0] else "split",
+                path="bulk" if v[1] else "element", K=v[2], D=v[3],
+                base=v[4], rem=v[5], smem=v[6], blocks=v[7], fper=v[9],
+                grid=(v[7], v[8]))
 
 
 def sum_max_plan_cuda(frames: torch.Tensor) -> dict:
@@ -302,132 +279,48 @@ def shg_fused_mxu_plain(frames: torch.Tensor, ind_l: torch.Tensor,
     return mean, mx, out.permute(1, 2, 0).contiguous()
 
 
-#: kernel B1's launch geometry (csrc/fused.cu: kThreads, kChunks, ...)
-B1_THREADS = 256
-B1_MAX_RUN = 8 * 4 * B1_THREADS      # elements a block holds of a frame
-B1_MAX_ROWS, B1_MAX_K, B1_MAX_D = 64, 8, 8
-B1_STAGE_TARGET, B1_RING_TARGET = 16 * 1024, 72 * 1024
-B1_MAX_SMEM = 232448                 # opt-in shared memory of a block
-B1_BAR_BYTES = 8 * B1_MAX_D
-
 #: B1 launches by copy path ("bulk": TMA bulk copies of whole runs;
-#: "element": 16-byte cp.async granules); reset by callers that count a run
+#: "element": 16-byte cp.async granules), as the kernel library reports
+#: them; reset by callers that count a run
 FUSED_PATHS = {"bulk": 0, "element": 0}
 
 
-def _align16(n: int) -> int:
-    return (n + 15) & ~15
-
-
 def fused_plan(data_ptr: int, S: int, ih: int, iw: int):
-    """csrc/fused.cu:make_plan in Python: kernel B1's copy path and ring
-    for frames at ``data_ptr`` of shape (F, ih, iw) and S shifts, as a dict
-    (path, yb rows a block owns, xw its columns, K frames a stage, D stages
-    in the ring, fb frames a disk store, smem bytes a block), or None where
-    even the smallest ring does not fit (the launch then fails)."""
-    aligned = data_ptr % 16 == 0 and ih * iw % 8 == 0
-    xw = B1_MAX_RUN - 1 if iw > B1_MAX_RUN else iw
-    yb = 1
-    if xw == iw:
-        # a bulk-aligned run first, then the larger share of the threads'
-        # 16-byte chunk slots used, then more rows
-        best = None
-        for rows in range(1, min(ih, B1_MAX_ROWS, B1_MAX_RUN // iw) + 1):
-            n = rows * iw
-            P = -(-n // (8 * B1_THREADS))
-            b = aligned and n % 8 == 0
-            if best is None or (b and not best[0]) or (
-                    b == best[0] and n * best[2] >= best[1] * P):
-                best, yb = (b, n, P), rows
-    want_bulk = xw == iw and aligned and yb * iw % 8 == 0
-
-    def run(rows):
-        return xw + 1 if xw < iw else rows * iw
-
-    def smem(rows, K, D, fb):
-        return (B1_BAR_BYTES + D * K * (_align16(2 * run(rows)) + 16)
-                + _align16(2 * S * rows * fb) + 4 * S * rows + 4 * rows)
-
-    fst = _align16(2 * run(yb)) + 16
-    K = min(B1_MAX_K, max(1, B1_STAGE_TARGET // fst))
-    K = 1 << (K.bit_length() - 1)
-    D = min(B1_MAX_D, max(2, B1_RING_TARGET // (K * fst)))
-    fb = 32
-    while smem(yb, K, D, fb) > B1_MAX_SMEM:
-        if D > 2:
-            D -= 1
-        elif K > 1:
-            K //= 2
-        elif yb > 1:
-            yb -= 1
-            while yb > 1 and want_bulk and yb * iw % 8:
-                yb -= 1
-        elif fb > 8:
-            fb //= 2
-        else:
-            return None
-    bulk = xw == iw and aligned and yb * iw % 8 == 0
-    return dict(path="bulk" if bulk else "element", yb=yb, xw=xw, K=K, D=D,
-                fb=fb, smem=smem(yb, K, D, fb))
-
-
-#: kernel B6's launch geometry (csrc/fused_mxu.cu); the ring's own limits
-#: (barrier bytes, most stages, a block's shared memory) are B1's, above
-B6_MAX_ROWS, B6_M = 8, 8             # rows a block owns; frames a stage
-B6_STAGE_TARGET, B6_RING_TARGET = 20 * 1024, 60 * 1024
+    """Kernel B1's copy path and ring (csrc/plans.cuh, through the host
+    library) for frames at ``data_ptr`` of shape (F, ih, iw) and S shifts,
+    as a dict (path, yb rows a block owns, xw its columns, K frames a
+    stage, D stages in the ring, fb frames a disk store, smem bytes a
+    block), or None where even the smallest ring does not fit (the launch
+    then fails)."""
+    ok, v = _host_plan("solex_shg_fused_plan_host", 7, ctypes.c_int,
+                       data_ptr, S, ih, iw)
+    if not ok:
+        return None
+    return dict(path="bulk" if v[0] else "element", yb=v[1], xw=v[2],
+                K=v[3], D=v[4], fb=v[5], smem=v[6])
 
 
 def mxu_frame_stride(n: int) -> int:
     """Bytes between two frames of a B6 stage that holds runs of n u16
-    (csrc/fused_mxu.cu:frame_stride): 16 more than a multiple of 128."""
-    return ((2 * n + 16 + 127) & ~127) + 16
+    (csrc/plans.cuh: frame_stride): 16 more than a multiple of 128."""
+    return native.get_lib().solex_mxu_frame_stride(n)
 
 
 def fused_mxu_plan(data_ptr: int, S: int, ih: int, iw: int):
-    """csrc/fused_mxu.cu:make_plan in Python: kernel B6's copy path and ring
-    for frames at ``data_ptr`` of shape (F, ih, iw), iw <= MXU_MAX_IW, and S
-    shifts, as a dict (path, yb rows a block owns, D stages of 8 frames in
-    the ring, fb frames a disk store, stride bytes between two frames of a
-    stage, smem bytes a block), or None where even the smallest plan does
-    not fit (several thousand shifts; the kernel library then refuses the
-    launch).  The wrapper does not call it: tests and the smoke run hold it
-    to the library's plan (``fused_mxu_plan_cuda``)."""
-    aligned = data_ptr % 16 == 0 and ih * iw % 8 == 0
-    nsg = -(-S // 8)
-    # a bulk-aligned run first, then the longest run whose stage stays
-    # within the target (the shortest, if none does)
-    best, yb = None, 1
-    for rows in range(1, min(ih, B6_MAX_ROWS, MXU_MAX_IW // iw) + 1):
-        n = rows * iw
-        b = aligned and n % 8 == 0
-        key = n if B6_M * mxu_frame_stride(n) <= B6_STAGE_TARGET else -n
-        if best is None or (b and not best[0]) or (b == best[0]
-                                                   and key > best[1]):
-            best, yb = (b, key), rows
-    want_bulk = best[0]
-
-    def smem(rows, D, fb):
-        return (B1_BAR_BYTES + D * B6_M * mxu_frame_stride(rows * iw)
-                + _align16(2 * S * rows * fb) + 16 * rows + 8 * rows * nsg
-                + 32 * rows * nsg)
-
-    D = min(B1_MAX_D, max(2, B6_RING_TARGET
-                          // (B6_M * mxu_frame_stride(yb * iw))))
-    fb = 32
-    while smem(yb, D, fb) > B1_MAX_SMEM:
-        if D > 2:
-            D -= 1
-        elif yb > 1:
-            yb -= 1
-            while yb > 1 and want_bulk and yb * iw % 8:
-                yb -= 1
-        elif fb > 8:
-            fb //= 2
-        else:
-            return None
-    bulk = aligned and yb * iw % 8 == 0
-    return dict(path="bulk" if bulk else "element", yb=yb, D=D, fb=fb,
-                stride=mxu_frame_stride(yb * iw), smem=smem(yb, D, fb))
+    """Kernel B6's copy path and ring (csrc/plans.cuh, through the host
+    library) for frames at ``data_ptr`` of shape (F, ih, iw), iw <=
+    ``PLAN_LIMITS["b6_max_iw"]``, and S shifts, as a dict (path, yb rows a
+    block owns, D stages of 8 frames in the ring, fb frames a disk store,
+    stride bytes between two frames of a stage, smem bytes a block), or
+    None where even the smallest plan does not fit (several thousand
+    shifts; the kernel library then refuses the launch).  Tests and the
+    smoke run hold it to the library's plan (``fused_mxu_plan_cuda``)."""
+    ok, v = _host_plan("solex_shg_fused_mxu_plan_host", 6, ctypes.c_int,
+                       data_ptr, S, ih, iw)
+    if not ok:
+        return None
+    return dict(path="bulk" if v[0] else "element", yb=v[1], D=v[2],
+                fb=v[3], stride=v[4], smem=v[5])
 
 
 def fused_mxu_plan_cuda(frames: torch.Tensor, S: int) -> dict:
@@ -465,7 +358,7 @@ def fused_plan_cuda(frames: torch.Tensor, S: int) -> dict:
 
 
 def _launch(entry: str, frames: torch.Tensor, ind_l: torch.Tensor,
-            left_w: torch.Tensor) -> Step:
+            left_w: torch.Tensor, *extra) -> Step:
     F, ih, iw = frames.shape
     S = ind_l.shape[0]
     dev = frames.device
@@ -476,8 +369,7 @@ def _launch(entry: str, frames: torch.Tensor, ind_l: torch.Tensor,
         rc = getattr(cuda_build.lib(), "solex_" + entry)(
             frames.data_ptr(), ind_l.data_ptr(), left_w.data_ptr(),
             total.data_ptr(), mx.data_ptr(), disks.data_ptr(), S, F, ih, iw,
-            cuda_build.stream_handle(dev),
-        )
+            cuda_build.stream_handle(dev), *extra)
     cuda_build.check(rc, entry)
     cuda_build.count_launch(entry)
     # as in the JAX package, the mean division and the u16 casts sit
@@ -488,15 +380,17 @@ def _launch(entry: str, frames: torch.Tensor, ind_l: torch.Tensor,
 def shg_fused_mxu(frames: torch.Tensor, ind_l: torch.Tensor,
                   left_w: torch.Tensor) -> Step:
     """Kernel B6 on CUDA tensors, ``shg_fused_mxu_plain`` on CPU tensors;
-    the contract of ``shg_fused``, for iw <= MXU_MAX_IW.  On the card the
-    shift count is bounded by the block's shared memory (its staging tile
-    and tap columns grow with S): past several thousand shifts the kernel
-    library refuses the launch (cudaErrorInvalidValue, raised by
-    ``cuda_build.check``); ``fused_mxu_plan`` says whether a plan exists."""
+    the contract of ``shg_fused``, for iw <= ``PLAN_LIMITS["b6_max_iw"]``
+    (3072).  On the card the shift count is bounded by the block's shared
+    memory (its staging tile and tap columns grow with S): past several
+    thousand shifts the kernel library refuses the launch
+    (cudaErrorInvalidValue, raised by ``cuda_build.check``);
+    ``fused_mxu_plan`` says whether a plan exists."""
     _check(frames, ind_l, left_w, "shg_fused_mxu")
     F, ih, iw = frames.shape
-    if iw > MXU_MAX_IW:
-        raise ValueError(f"shg_fused_mxu: iw={iw} > {MXU_MAX_IW} (B6 holds "
+    max_iw = _plan_limits()["b6_max_iw"]
+    if iw > max_iw:
+        raise ValueError(f"shg_fused_mxu: iw={iw} > {max_iw} (B6 holds "
                          "whole rows in shared memory)")
     if frames.device.type == "cpu":
         return shg_fused_mxu_plain(frames, ind_l, left_w)
@@ -511,15 +405,15 @@ def shg_fused(frames: torch.Tensor, ind_l: torch.Tensor,
     The contract of solex_ser_recon_en_tpu/ops/fused_pallas.py:326-337:
     ``mxu`` selects kernel B6 (``shg_fused_mxu``), else kernel B1, whose
     tap columns are clipped to [0, iw-2] as build_shift_indices does.
-    Each B1 launch adds one to ``FUSED_PATHS`` under its copy path.
+    Each B1 launch adds one to ``FUSED_PATHS`` under the copy path the
+    kernel library took.
     """
     if mxu:
         return shg_fused_mxu(frames, ind_l, left_w)
     _check(frames, ind_l, left_w)
     if frames.device.type == "cpu":
         return shg_fused_plain(frames, ind_l, left_w)
-    F, ih, iw = frames.shape
-    plan = fused_plan(frames.data_ptr(), ind_l.shape[0], ih, iw)
-    out = _launch("shg_fused", frames, ind_l, left_w)
-    FUSED_PATHS[plan["path"]] += 1
+    bulk = ctypes.c_int(0)
+    out = _launch("shg_fused", frames, ind_l, left_w, ctypes.byref(bulk))
+    FUSED_PATHS["bulk" if bulk.value else "element"] += 1
     return out

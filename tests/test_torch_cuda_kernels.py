@@ -32,7 +32,6 @@ from solex_ser_recon_en_torch.ops.clahe import (
 )
 from solex_ser_recon_en_torch.ops.fused import RawScanProcessor
 from solex_ser_recon_en_torch.ops.fused_cuda import (
-    B1_MAX_RUN,
     FUSED_PATHS,
     fused_mxu_plan,
     fused_mxu_plan_cuda,
@@ -368,8 +367,9 @@ def _b1_inputs(rng, device, F, ih, iw, S, frames=None):
     ind_l[0, : min(ih, 2)] = iw - 2            # taps at the last columns
     if iw > 2048 and ih >= 4:
         ind_l[0, 2:4] = (2046, 2047)
-    if iw > B1_MAX_RUN:                        # around a column-chunk edge
-        ind_l[:2, 1] = (B1_MAX_RUN - 2, B1_MAX_RUN - 1)
+    max_run = fused_cuda.PLAN_LIMITS["b1_max_run"]
+    if iw > max_run:                           # around a column-chunk edge
+        ind_l[:2, 1] = (max_run - 2, max_run - 1)
     left_w = rng.random(ih).astype(np.float32)
     return frames, t(ind_l, device), t(left_w, device)
 
@@ -407,11 +407,25 @@ def test_fused_kernel_unaligned_view(rng, cuda_device):
     _check_b1(_b1_inputs(rng, cuda_device, F, ih, iw, S, frames), "element")
 
 
+def test_fused_paths_count_the_library_path(rng, cuda_device):
+    """A B1 launch counts FUSED_PATHS under the copy path the kernel
+    library reports for its frames: bulk on an aligned slab, element on a
+    view 2 bytes into it."""
+    F, ih, iw, S = 64, 64, 300, 2
+    flat = t(rng.integers(0, 65536, F * ih * iw + 1).astype(np.uint16),
+             cuda_device)
+    for frames, path in ((flat[:-1].view(F, ih, iw), "bulk"),
+                         (flat[1:].view(F, ih, iw), "element")):
+        assert fused_plan_cuda(frames, S)["path"] == path
+        _check_b1(_b1_inputs(rng, cuda_device, F, ih, iw, S, frames), path)
+
+
 @pytest.mark.parametrize("F,ih,iw,S", B1_SHAPES + [(2000, 2048, 300, 2),
                                                    (2000, 2048, 300, 7)])
 def test_fused_plan_matches_kernel_library(cuda_device, F, ih, iw, S):
-    """The wrapper's Python plan (which counts FUSED_PATHS) is the one the
-    kernel library launches, on aligned and unaligned frames."""
+    """B1's plan from the host library (csrc/plans.cuh built by g++) is the
+    one the kernel library (the same header built by nvcc) launches, on
+    aligned and unaligned frames."""
     flat = torch.empty(F * ih * iw + 1, dtype=torch.uint16,
                        device=cuda_device)
     for off in (0, 1):
@@ -515,8 +529,9 @@ def test_fused_mxu_partial_last_stage(rng, cuda_device, F, ih, iw, S):
 @pytest.mark.parametrize("F,ih,iw,S", B6_SHAPES + [(2000, 2048, 300, 2),
                                                    (2000, 2048, 300, 7)])
 def test_fused_mxu_plan_matches_kernel_library(cuda_device, F, ih, iw, S):
-    """The Python mirror of B6's launch plan is the one the kernel library
-    launches, on aligned and unaligned frames."""
+    """B6's plan from the host library (csrc/plans.cuh built by g++) is the
+    one the kernel library (the same header built by nvcc) launches, on
+    aligned and unaligned frames."""
     flat = torch.empty(F * ih * iw + 1, dtype=torch.uint16,
                        device=cuda_device)
     for off in (0, 1):
@@ -693,9 +708,10 @@ def _card_frames(F, shape, dtype, device, seed=20):
 ])
 def test_sum_max_plan_matches_kernel_library(cuda_device, name, F, shape,
                                              dtype, aligned):
-    """The library's launch plan for pass A is its Python mirror's at the
-    card's own slots; the bench chunks and the resident slab take one full
-    owned wave, small frames the split plan."""
+    """Pass A's plan from the host library (csrc/plans.cuh built by g++) at
+    the card's own slots is the one the kernel library (the same header
+    built by nvcc) launches; the bench chunks and the resident slab take
+    one full owned wave, small frames the split plan."""
     n = F * shape[0] * shape[1]
     buf = torch.empty(n + 1, dtype=dtype, device=cuda_device)
     frames = buf[:n] if aligned else buf[1:]

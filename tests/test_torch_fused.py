@@ -51,12 +51,9 @@ from solex_ser_recon_en_torch.models.shg import (
     shg_forward,
     shg_forward_plain,
 )
-from solex_ser_recon_en_torch.ops import cuda_build
+from solex_ser_recon_en_torch.ops import cuda_build, fused_cuda
 from solex_ser_recon_en_torch.ops.fused import RawScanProcessor
 from solex_ser_recon_en_torch.ops.fused_cuda import (
-    B1_MAX_RUN,
-    B1_MAX_SMEM,
-    B1_THREADS,
     MAX_FRAMES,
     fused_plan,
     mean_max,
@@ -244,7 +241,7 @@ def _old_b1_accepts(S, iw):
             + 4 * yb
     while yb > 1 and smem(yb) > 48 * 1024:
         yb -= 1
-    return smem(yb) <= B1_MAX_SMEM
+    return smem(yb) <= fused_cuda.PLAN_LIMITS["max_smem"]
 
 
 @pytest.mark.parametrize("iw", [2, 60, 300, 2048, 2049, 2500, 8192, 9001,
@@ -254,6 +251,8 @@ def test_fused_plan_geometry(iw):
     opt-in shared memory, keeps a thread's work within its 4 chunks, uses
     the bulk path only where the copies are 16-byte multiples, and refuses
     nothing the previous kernel took."""
+    limits = fused_cuda.PLAN_LIMITS
+    max_smem, max_run = limits["max_smem"], limits["b1_max_run"]
     for ptr in (4096, 4098):
         for ih in (1, 3, 13, 70, 2048):
             for S in (1, 2, 7, 121, 800, 3000, 3500, 5000, 12000):
@@ -262,9 +261,9 @@ def test_fused_plan_geometry(iw):
                     assert not _old_b1_accepts(S, iw)
                     continue
                 run = plan["xw"] + 1 if plan["xw"] < iw else plan["yb"] * iw
-                assert plan["smem"] <= B1_MAX_SMEM
-                assert run <= B1_MAX_RUN == 8 * 4 * B1_THREADS
-                assert 1 <= plan["yb"] <= ih and plan["xw"] <= B1_MAX_RUN
+                assert plan["smem"] <= max_smem
+                assert run <= max_run == 8 * 4 * limits["threads"]
+                assert 1 <= plan["yb"] <= ih and plan["xw"] <= max_run
                 assert plan["K"] in (1, 2, 4, 8) and 2 <= plan["D"] <= 8
                 assert plan["fb"] in (8, 16, 32)
                 if plan["xw"] < iw:

@@ -21,8 +21,9 @@ Tolerances:
 - ``warp_projective`` vs JAX: the FMA bound of tests/test_torch_warp_fast.py
   (5e-7 + 2 float32 ulp of the largest source coordinate); against the
   port's own ``warp_projective_u16`` on u16/65536 input: bit-identical.
-- B6's launch plan (``fused_mxu_plan``, the Python mirror of
-  csrc/fused_mxu.cu:make_plan): exact integer geometry.
+- B6's launch plan (``fused_mxu_plan``, the host build of
+  csrc/plans.cuh:solex_plans::fused_mxu::make_plan, which the kernel
+  library compiles too): exact integer geometry.
 """
 
 import json
@@ -40,10 +41,8 @@ from solex_ser_recon_en_tpu.ops.warp import (
 )
 from solex_ser_recon_en_torch import bench_kernels
 from solex_ser_recon_en_torch.models.shg import shg_forward_onehot
-from solex_ser_recon_en_torch.ops import cuda_build
+from solex_ser_recon_en_torch.ops import cuda_build, fused_cuda
 from solex_ser_recon_en_torch.ops.fused_cuda import (
-    B1_MAX_SMEM,
-    MXU_MAX_IW,
     fused_mxu_plan,
     mxu_frame_stride,
     shg_fused,
@@ -145,7 +144,8 @@ def test_mxu_switch_takes_plain_on_cpu():
 
 
 def test_mxu_rejects_rows_wider_than_its_tile():
-    frames = torch.zeros((2, 3, MXU_MAX_IW + 1), dtype=torch.uint16)
+    max_iw = fused_cuda.PLAN_LIMITS["b6_max_iw"]
+    frames = torch.zeros((2, 3, max_iw + 1), dtype=torch.uint16)
     ind_l = torch.zeros((1, 3), dtype=torch.int32)
     left_w = torch.zeros((3,), dtype=torch.float32)
     with pytest.raises(ValueError, match="shg_fused_mxu"):
@@ -193,8 +193,9 @@ def test_mxu_plan_geometry(ptr, F, ih, iw, S):
     16-byte multiple from a 16-byte aligned address."""
     plan = fused_mxu_plan(ptr, S, ih, iw)
     yb, D, fb = plan["yb"], plan["D"], plan["fb"]
-    assert plan["smem"] <= B1_MAX_SMEM == 232448
-    assert 1 <= yb <= min(ih, 8) and yb * iw <= MXU_MAX_IW
+    max_iw = fused_cuda.PLAN_LIMITS["b6_max_iw"]
+    assert plan["smem"] <= fused_cuda.PLAN_LIMITS["max_smem"] == 232448
+    assert 1 <= yb <= min(ih, 8) and yb * iw <= max_iw
     assert 2 <= D <= 8 and fb in (8, 16, 32)
     stride = plan["stride"]
     assert stride == mxu_frame_stride(yb * iw)
@@ -208,7 +209,7 @@ def test_mxu_plan_geometry(ptr, F, ih, iw, S):
         assert ptr % 16 == 0 and ih * iw % 8 == 0 and yb * iw % 8 == 0
     else:
         assert ptr % 16 or ih * iw % 8 or all(
-            r * iw % 8 for r in range(1, min(ih, 8, MXU_MAX_IW // iw) + 1))
+            r * iw % 8 for r in range(1, min(ih, 8, max_iw // iw) + 1))
 
 
 @pytest.mark.parametrize("iw", [2, 300, 3072])
@@ -318,15 +319,27 @@ def test_bench_kernels_needs_cuda_unless_cpu():
 ])
 def test_ring_probe_rewrites_each_constant_once(src, consts):
     """chip_ring_probe.py builds variants of the two ring kernels by writing
-    over constants of their sources: each must be there exactly once (the
-    script stops otherwise)."""
+    over constants of their plans (csrc/plans.cuh, in the kernel's
+    namespace, where each must be there exactly once: the script stops
+    otherwise) and the blocks an SM of their sources' __launch_bounds__;
+    the other kernels' plans are left as they are."""
     import chip_ring_probe
 
+    plans = (cuda_build.CSRC / "plans.cuh").read_text()
     text = (cuda_build.CSRC / src).read_text()
-    out = chip_ring_probe.with_constants(text, consts, 1)
+    kernel = src[:-3]
+    new_plans, out = chip_ring_probe.with_constants(plans, text, kernel,
+                                                    consts, 1)
+    ns = f"namespace {kernel} {{"
+    head, body = new_plans.split(ns)
+    old_head, old_body = plans.split(ns)
+    assert head == old_head
+    body = body.split(f"}}  // namespace {kernel}")[0]
     for name, value in consts.items():
-        assert f" {name} = {value};" in out
+        assert f" {name} = {value};" in body
+    assert new_plans.count("\n") == plans.count("\n")
     assert "__launch_bounds__(kThreads, 1)" in out
     assert out.count("\n") == text.count("\n")
-    with pytest.raises(SystemExit):
-        chip_ring_probe.with_constants(text, {"kNoSuchConstant": 1}, None)
+    with pytest.raises(SystemExit):          # B1's, in another namespace
+        chip_ring_probe.with_constants(plans, text, kernel, {"kMaxRun": 1},
+                                       None)

@@ -9,6 +9,7 @@ bit for bit.
 """
 
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -484,6 +485,21 @@ def test_stale_library_never_shadows_a_new_source(unbuilt, tmp_path,
     # a changed flag recipe is a new library too
     monkeypatch.setattr(native, "CXX_FLAGS", native.CXX_FLAGS + ["-DX=1"])
     assert native.library_path() not in (fresh, stale)
+
+
+@pytest.mark.parametrize("name", ["plans.cuh", "plans.cpp"])
+def test_an_edited_plan_is_a_new_library(tmp_path, monkeypatch, name):
+    """The launch plans (csrc/plans.cuh) and their host entry points
+    (csrc/plans.cpp) key the library's name as ser_io.cpp does: a library
+    built before either was edited is not loaded after."""
+    for src in ("ser_io.cpp", "plans.cpp", "plans.cuh"):
+        shutil.copy(native.CSRC / src, tmp_path / src)
+    monkeypatch.setattr(native, "SOURCE", tmp_path / "ser_io.cpp")
+    monkeypatch.setattr(native, "PLANS", tmp_path / "plans.cpp")
+    before = native.library_path()
+    with open(tmp_path / name, "a") as f:
+        f.write("// edited\n")
+    assert native.library_path() != before
 
 
 BUILD_SCRIPT = r"""

@@ -1,24 +1,21 @@
-"""Pass A's launch plan (csrc/sum_max.cu:make_plan), through its Python
-mirror ``ops/fused_cuda.py:sum_max_plan`` (CPU; the card's tests hold the
-library's plan to it, tests/test_torch_cuda_kernels.py).
+"""Pass A's launch plan (csrc/plans.cuh: solex_plans::sum_max), the code
+the kernel library plans each launch with, here through its host build
+``ops/fused_cuda.py:sum_max_plan`` (CPU; the card's tests hold the host
+build's plan to the kernel library's, tests/test_torch_cuda_kernels.py).
 
 An H100 SXM has 132 SMs and holds 2 blocks of the kernel an SM at the split
 ring's shared memory.  The owned plan splits a frame's 16-byte granules
 evenly over every block slot, each block reading every frame for its run;
-frames too small for runs of SUM_MAX_MIN_OWNED_RUN bytes take the split
-plan (16 KB runs over frame splits, atomic merge)."""
-
-import re
+frames too small for runs of ``PLAN_LIMITS["sum_max_min_owned_run"]``
+bytes take the split plan (16 KB runs over frame splits, atomic merge)."""
 
 import pytest
 import torch
 
-from solex_ser_recon_en_torch.ops import cuda_build, fused_cuda
+from solex_ser_recon_en_torch.io import native
+from solex_ser_recon_en_torch.ops import fused_cuda
 from solex_ser_recon_en_torch.ops.fused_cuda import (
-    SUM_MAX_MAX_RUN,
-    SUM_MAX_MIN_OWNED_RUN,
     SUM_MAX_PLANS,
-    _frames_per_block,
     sum_max,
     sum_max_plan,
 )
@@ -33,6 +30,11 @@ BENCH = {"u16 chunk": (81, 300 * 2048, 2), "u16 tail": (56, 300 * 2048, 2),
          "u8 chunk": (163, 300 * 2048, 1), "u8 tail": (44, 300 * 2048, 1),
          "slab": (2000, 2048 * 300, 2), "mesh piece": (14, 300 * 2048, 2),
          "mesh piece 21": (21, 300 * 2048, 2)}
+
+
+def limit(name):
+    """A limit of csrc/plans.cuh, read from the host library."""
+    return fused_cuda.PLAN_LIMITS[name]
 
 
 def runs(plan, npix, eb):
@@ -78,7 +80,7 @@ def test_bench_chunk_ring(eb, run_b, K, D):
 
 @pytest.mark.parametrize("granules", [64, 100, 146, 291, 437, 500, 700, 1024])
 def test_owned_ring_within_the_split_ring(granules):
-    """An owned run of any length between SUM_MAX_MIN_OWNED_RUN and 16 KB
+    """An owned run of any length between the shortest owned run and 16 KB
     gets a ring of at least two stages of a power of two frames within the
     split ring's shared memory, so the card's slots stay those counted."""
     npix = granules * 8 * SMS * BPS
@@ -87,21 +89,22 @@ def test_owned_ring_within_the_split_ring(granules):
     fst = 16 * granules + 16
     assert plan["D"] >= 2 and plan["K"] & (plan["K"] - 1) == 0
     assert 64 + plan["D"] * plan["K"] * fst <= plan["smem"] == 98464
-    assert plan["K"] <= fused_cuda.SUM_MAX_OWNED_MAX_K
+    assert plan["K"] <= limit("sum_max_owned_max_k")
 
 
 @pytest.mark.parametrize("F,h,w,eb", [(200, 448, 96, 2), (200, 448, 96, 1),
                                       (150, 96, 448, 2), (37, 100, 60, 2),
                                       (5, 3, 2, 1)])
 def test_small_frames_take_the_split_plan(F, h, w, eb):
-    """Frames below a run of SUM_MAX_MIN_OWNED_RUN bytes a slot (the small
+    """Frames below the shortest owned run a slot (the small
     session scans' 448 x 96) keep the split plan: runs of up to 16 KB over
     frame ranges that are multiples of 32 frames."""
     npix = h * w
-    assert npix * eb < SMS * BPS * SUM_MAX_MIN_OWNED_RUN
+    assert npix * eb < SMS * BPS * limit("sum_max_min_owned_run")
     plan = sum_max_plan(ALIGNED, eb, F, npix, SMS, BPS)
     assert plan["plan"] == "split" and plan["rem"] == 0
-    assert plan["base"] == min(-(-npix * eb // 16), SUM_MAX_MAX_RUN // 16)
+    assert plan["base"] == min(-(-npix * eb // 16),
+                               limit("sum_max_max_run") // 16)
     assert plan["fper"] % 32 == 0
     assert plan["grid"][1] == -(-F // plan["fper"])
 
@@ -143,16 +146,16 @@ def test_every_pixel_exactly_once(sms, bps):
         at = 0
         for p0, n in rs:
             assert p0 == at and n > 0, (F, npix, eb, plan)
-            assert n * eb <= SUM_MAX_MAX_RUN
+            assert n * eb <= limit("sum_max_max_run")
             at += n
         assert at == npix, (F, npix, eb, plan)
         if plan["plan"] == "owned":
             assert plan["blocks"] % (sms * bps) == 0 and plan["fper"] == F
             assert min(n for _, n in rs[:-1] or rs) * eb >= \
-                SUM_MAX_MIN_OWNED_RUN - 16
+                limit("sum_max_min_owned_run") - 16
         else:
             assert plan["grid"][1] * plan["fper"] >= F
-            assert npix * eb < sms * bps * SUM_MAX_MIN_OWNED_RUN
+            assert npix * eb < sms * bps * limit("sum_max_min_owned_run")
         assert plan["D"] >= 2 and plan["K"] & (plan["K"] - 1) == 0
         fst = 16 * (plan["base"] + (plan["rem"] > 0)) + 16
         assert 64 + plan["D"] * plan["K"] * fst <= plan["smem"]
@@ -164,40 +167,41 @@ def test_large_frames_take_more_owned_waves():
     plan = sum_max_plan(ALIGNED, 2, 3, 4096 * 4096, SMS, BPS)
     assert plan["plan"] == "owned"
     assert plan["blocks"] == 8 * SMS * BPS
-    assert 16 * (plan["base"] + 1) <= SUM_MAX_MAX_RUN
+    assert 16 * (plan["base"] + 1) <= limit("sum_max_max_run")
 
 
 @pytest.mark.parametrize("tiles,F,want", [(75, 81, 32), (38, 163, 32),
                                           (6, 200, 32), (1, 5, 32)])
 def test_frames_per_block_mirror(tiles, F, want):
-    """csrc/ring.cuh:frames_per_block in Python: the parent plan's split of
-    the bench chunk (75 runs x 32, 32, 17 frames) and of the u8 chunk (38
-    runs x 32 x 5 + 3)."""
-    assert _frames_per_block(tiles, SMS * BPS, F) == want
+    """csrc/plans.cuh:frames_per_block through the host library: the
+    parent plan's split of the bench chunk (75 runs x 32, 32, 17 frames)
+    and of the u8 chunk (38 runs x 32 x 5 + 3)."""
+    assert native.get_lib().solex_frames_per_block(tiles, SMS * BPS, F) == \
+        want
 
 
-def test_mirror_constants_match_the_sources():
-    """The mirror's constants are the kernel's: csrc/sum_max.cu and
-    csrc/ring.cuh."""
-    src = (cuda_build.CSRC / "sum_max.cu").read_text()
-    ring = (cuda_build.CSRC / "ring.cuh").read_text()
-
-    def const(text, name):
-        m = re.search(rf"constexpr \w+ {name} = ([^;]+);", text)
-        return eval(m.group(1), {"kThreads": 256, "kChunks": 4})
-
-    assert const(ring, "kThreads") == 256
-    assert 16 * const(src, "kChunks") * 256 == SUM_MAX_MAX_RUN
-    assert const(src, "kMinOwnedRun") == SUM_MAX_MIN_OWNED_RUN
-    assert const(src, "kOwnedMaxK") == fused_cuda.SUM_MAX_OWNED_MAX_K
-    assert const(src, "kMaxK") == fused_cuda.SUM_MAX_MAX_K
-    assert const(ring, "kMaxD") == fused_cuda.B1_MAX_D
-    assert const(src, "kStageTarget") == fused_cuda.SUM_MAX_STAGE_TARGET
-    assert const(src, "kRingTarget") == fused_cuda.SUM_MAX_RING_TARGET
-    assert const(src, "kOwnedStageTarget") == \
-        fused_cuda.SUM_MAX_OWNED_STAGE_TARGET
-    assert const(ring, "kSplitFrames") == fused_cuda.SPLIT_FRAMES
-    assert fused_cuda.B1_BAR_BYTES == 8 * const(ring, "kMaxD")
+def test_plan_limits_are_the_kernels():
+    """PLAN_LIMITS holds the values the kernels are built with (the design
+    notes of csrc/sum_max.cu, csrc/fused.cu and csrc/fused_mxu.cu: 256
+    threads, an H100 block's 227 KB of opt-in shared memory, rings of at
+    most 8 stages with an 8-byte barrier each, 32-frame splits, 4 16-byte
+    chunks a thread in pass A and B1, B6's rows of up to 3072 u16), and
+    frames_per_block is the frame split of every split plan of pass A."""
+    assert fused_cuda.PLAN_LIMITS == {
+        "threads": 256, "max_smem": 232448, "bar_bytes": 64,
+        "max_stages": 8, "split_frames": 32,
+        "sum_max_max_run": 16 * 4 * 256, "sum_max_min_owned_run": 1024,
+        "sum_max_owned_max_k": 16, "b1_max_run": 8 * 4 * 256,
+        "b6_max_iw": 3072}
+    fpb = native.get_lib().solex_frames_per_block
+    split = 0
+    for F, npix, eb in _shapes():
+        for sms, bps in ((132, 2), (114, 2), (8, 1)):
+            plan = sum_max_plan(ALIGNED, eb, F, npix, sms, bps)
+            if plan["plan"] == "split":
+                split += 1
+                assert plan["fper"] == fpb(plan["blocks"], sms * bps, F)
+    assert split >= 10
 
 
 def test_cpu_sum_max_counts_no_plan():
