@@ -10,9 +10,12 @@ the CLI once to build the kernels and warm the allocator, then once more
 under torch.profiler, and prints: that run's wall time (profiler on) and
 its StageTimer stages, the device-busy time (the union of the kernel, copy
 and memset intervals of the trace) with the card's idle share of the wall
-time, the device time by kernel or copy name, and the launches and device
-time of kernels B3, B4 and B5 (``recon_chunks_kernel``,
-``hresample_kernel``, ``hist_kernel``), and the host side of the feed in
+time, the kernel launches, memsets and copies, the device time by kernel
+or copy name and the compute's by the program range (``stage:``) that
+launched it, and the launches and device time of kernels B3, B4 and B5
+(``recon_chunks_kernel``, ``hresample_kernel``, ``hist_kernel``) and of
+the Canny's two (``gradient_kernel``, ``hysteresis_kernel``), and the
+host side of the feed in
 that run (io/feeder.py:FEED): the copy threads' busy time, what the
 producer and the consumer each waited for, and the uploads' device time,
 so that the idle share can be read against the side that waits.  It then
@@ -39,9 +42,10 @@ import chip_smoke
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 #: the kernels of the -cw0 run summed by name (csrc/recon.cu, csrc/warp.cu,
-#: csrc/hist.cu)
+#: csrc/hist.cu, csrc/canny.cu)
 KERNEL_NAMES = {"B3": "recon_chunks_kernel", "B4": "hresample_kernel",
-                "B5": "hist_kernel"}
+                "B5": "hist_kernel", "Canny gradients": "gradient_kernel",
+                "Canny hysteresis": "hysteresis_kernel"}
 
 
 def busy_us(intervals) -> float:
@@ -54,13 +58,62 @@ def busy_us(intervals) -> float:
     return total
 
 
+def by_stage(trace_events, device_events) -> dict:
+    """{innermost ``stage:`` range of the launching call: [launches, us]}
+    of the kernels and memsets: each matched to its runtime call by the
+    trace's correlation id, the call to its thread through the CPU event
+    that shares its external id (the runtime calls of a thread other than
+    the profiler's carry another thread id than its CPU events, on torch
+    2.11), then to
+    the shortest program range around it on that thread ("(none)" outside
+    every range)."""
+    ranges = collections.defaultdict(list)
+    thread_of = {}
+    for e in trace_events:
+        if e.get("cat") not in ("cpu_op", "user_annotation"):
+            continue
+        if "External id" in e.get("args", {}):
+            thread_of[e["args"]["External id"]] = e.get("tid")
+        if e["cat"] == "user_annotation" and e["name"].startswith("stage:"):
+            ranges[e.get("tid")].append((e["ts"], e["ts"] + e["dur"],
+                                         e["name"][len("stage:"):]))
+    calls = {e["args"]["correlation"]: e for e in trace_events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {})}
+    # a launch from native code (the ctypes kernels) has no CPU event: its
+    # thread is the one its call's thread id maps to most often
+    seen = collections.defaultdict(collections.Counter)
+    for call in calls.values():
+        cpu = thread_of.get(call["args"].get("External id"))
+        if cpu is not None:
+            seen[call.get("tid")][cpu] += 1
+    remap = {t: c.most_common(1)[0][0] for t, c in seen.items()}
+    out = collections.defaultdict(lambda: [0, 0.0])
+    for e in device_events:
+        if e["cat"] == "gpu_memcpy":
+            continue
+        call = calls.get(e.get("args", {}).get("correlation"))
+        name = "(none)"
+        if call is not None:
+            tid = thread_of.get(call["args"].get("External id"),
+                                remap.get(call.get("tid"), call.get("tid")))
+            around = [r for r in ranges[tid] if r[0] <= call["ts"] <= r[1]]
+            if around:
+                name = min(around, key=lambda r: r[1] - r[0])[2]
+        out[name][0] += 1
+        out[name][1] += e["dur"]
+    return out
+
+
 def report(prof, trace: str, wall_ms: float, label: str, card: str) -> None:
     """Print the device-busy time, idle share and device time by name of a
-    finished profile (its Chrome trace written to ``trace``)."""
+    finished profile (its Chrome trace written to ``trace``), and the
+    compute's launches and device time by the program range that launched
+    them."""
     prof.export_chrome_trace(trace)
     with open(trace) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("cat") in DEVICE_CATS]
+        trace_events = json.load(f)["traceEvents"]
+    events = [e for e in trace_events if e.get("cat") in DEVICE_CATS]
     if not events:
         chip_smoke.fail(f"{label}: the profiler recorded no device activity")
     busy_ms = busy_us((e["ts"], e["ts"] + e["dur"]) for e in events) / 1e3
@@ -68,11 +121,18 @@ def report(prof, trace: str, wall_ms: float, label: str, card: str) -> None:
     for e in events:
         by_name[e["name"]][0] += 1
         by_name[e["name"]][1] += e["dur"]
+    cats = collections.Counter(e["cat"] for e in events)
     print(f"{label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
-          f"idle {100 * (1 - busy_ms / wall_ms):.1f}% [{card}]")
+          f"idle {100 * (1 - busy_ms / wall_ms):.1f}%; kernel launches "
+          f"{cats['kernel']}, memsets {cats['gpu_memset']}, copies "
+          f"{cats['gpu_memcpy']} [{card}]")
     print("device time by name (us, launches):")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
         print(f"  {us:10.1f} {n:5d}  {name[:100]}")
+    print("kernels and memsets by launching range (us, launches):")
+    for name, (n, us) in sorted(by_stage(trace_events, events).items(),
+                                key=lambda kv: -kv[1][1]):
+        print(f"  {us:10.1f} {n:5d}  {name}")
     return by_name
 
 
@@ -94,7 +154,12 @@ def main(argv) -> int:
             chip_smoke.fail("warm-up run failed")
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
+        # every thread: the CLI post-processes on a pool thread, whose
+        # ranges and launches the profiler drops otherwise
+        every_thread = torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)
+        with torch.profiler.profile(activities=acts,
+                                    experimental_config=every_thread) as prof:
             t0 = time.perf_counter()
             rc = cli_main.main(args)
             torch.cuda.synchronize()

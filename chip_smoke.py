@@ -20,7 +20,9 @@ Phases; any failure exits non-zero before the final result line:
    (tile_hist) exactly twice (the CLAHE tiles, the CLAHE image's value
    histogram), B4 (hresample) at least once and the transversalium row
    statistics' kernel (csrc/rowstats.cu) exactly once with no plain call
-   (``ops.rowstats.ROW_STATS_LAUNCHES``), and the host library's
+   (``ops.rowstats.ROW_STATS_LAUNCHES``), the ellipse fit's Canny through
+   its kernels (csrc/canny.cu) with no plain call
+   (``ops.canny.CANNY_LAUNCHES``), and the host library's
    ``ser_read``, ``box_blur_u16_exact`` and ``png_encode_stored_band``
    must have been called (``io.native.CALLS``); the feed's line gives its
    copy threads, ring depth, wall time, the uploads' device time and the
@@ -167,7 +169,13 @@ Phases; any failure exits non-zero before the final result line:
    The ellipse fit's small ops on the card and on the CPU (the blurs, the
    flood threshold, Canny's magnitude, sector and edge map, the edge points
    and the ellipse) must be equal; each feed's ellipse-fit stage is
-   printed.
+   printed.  The Canny on the main scan's flooded image must take the
+   kernel path (one ``kernel`` call in ``CANNY_LAUNCHES``) and equal the
+   plain twin on the CPU bit for bit (magnitude bits, sector, edge map);
+   the kernel path, the twin's ops on the card (the path before the
+   kernels) and the twin on the CPU are timed, with both card routes'
+   device time and kernel launches from a profiler trace (the
+   ``canny`` entry of the ``kernels`` line).
    A 7-shift ``-cw-9:9:3 --feed host`` sweep: no launch, one
    ``warp_u16_u16_batch`` call, shift 0's ``_clahe.png`` byte-identical to
    ``--feed host -cw0``'s.  B3 on the band run's chunks against its plain
@@ -311,6 +319,10 @@ REPLACES = {
     "row_stats": ("solex_ser_recon_en_torch/csrc/rowstats.cu",
                   "solex_ser_recon_en_tpu/ops/rowstats.py:24 (jnp.sort, "
                   "not a Pallas kernel)"),
+    # the ellipse fit's Canny: XLA on the TPU side
+    "canny": ("solex_ser_recon_en_torch/csrc/canny.cu",
+              "solex_ser_recon_en_tpu/ops/canny.py (XLA, not a Pallas "
+              "kernel)"),
 }
 #: the kernels of each driven path: phase 4 (-cw0), phase 6 (resident) and
 #: phase 7 (the shoot-out)
@@ -434,6 +446,32 @@ def device_ms(fn, reps: int) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def profiled_kernels(fn, reps: int):
+    """(device ms a call, launches a call) of ``fn()``: the kernels' and
+    memsets' durations and count in a torch.profiler trace of ``reps`` warm
+    calls (for a route that synchronises the host, which ``device_ms``
+    cannot queue)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        trace = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("cat") in ("kernel", "gpu_memset")]
+    if not events:
+        fail("the profiler recorded no kernel")
+    return sum(e["dur"] for e in events) / 1e3 / reps, len(events) / reps
 
 
 def make_scan(path: str):
@@ -1536,12 +1574,14 @@ def png_diff(a, b):
     return int(d.max()), float((d > 0).mean())
 
 
-def small_ops_diff(disk, dev, card) -> None:
+def small_ops_diff(disk, dev, card) -> dict:
     """The ellipse fit's small ops (geometry/edges.py) on the card and on
     the CPU, stage by stage, for one disk (the fit shift's): the blurs, the
     flood threshold, Canny's magnitude, sector and edge map, the edge
     points and the ellipses.  The band and host feeds run them on the CPU,
-    so each must be equal on both; all are printed before the gate."""
+    so each must be equal on both; all are printed before the gate.  Then
+    the Canny on the card's flooded image: the kernel path against the
+    plain twin, and timed; returns its entry of the ``kernels`` line."""
     import torch
 
     from solex_ser_recon_en_torch.geometry import edges
@@ -1589,23 +1629,64 @@ def small_ops_diff(disk, dev, card) -> None:
     if any(differ.values()):
         fail(f"the ellipse fit's small ops differ on the card and the CPU: "
              f"{ {n: v for n, v in differ.items() if v} }")
-    # the Canny alone on the flooded image, warm (host clock, synchronised)
+    # the Canny on the flooded image: the kernel path, which CANNY_LAUNCHES
+    # must count, against the twin on the CPU bit for bit; then the kernel
+    # path, the twin's ops on the card (the route before csrc/canny.cu) and
+    # the twin on the CPU timed
     low = float(np.median(a["blur5"])) / 10
-    times = {}
-    for role, d in (("card", dev), ("cpu", cpu)):
-        f = torch.from_numpy(a["flooded"]).to(d)
-        runs = []
-        for _ in range(6):
-            t0 = time.perf_counter()
-            canny_mod.canny(f, 2.0, low, 1.5 * low)
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
-            runs.append(time.perf_counter() - t0)
-        times[role] = statistics.median(runs[1:])
+    f_cpu = torch.from_numpy(a["flooded"])
+    f_card = f_cpu.to(dev)
+    for k in canny_mod.CANNY_LAUNCHES:
+        canny_mod.CANNY_LAUNCHES[k] = 0
+    canny_mod.CANNY_ROUNDS.update(rounds=0, most=0)
+    edges_k = canny_mod.canny(f_card, 2.0, low, 1.5 * low).cpu()
+    counted = dict(canny_mod.CANNY_LAUNCHES)
+    rounds = canny_mod.CANNY_ROUNDS["rounds"]
+    edges_t = canny_mod.canny(f_cpu, 2.0, low, 1.5 * low)
+    err = (int(np.count_nonzero(a["mag"].view(np.int32)
+                                != b["mag"].view(np.int32)))
+           + int(np.count_nonzero(a["sector"] != b["sector"]))
+           + int((edges_k != edges_t).sum().item()))
     print(f"small ops: Canny on the {a['flooded'].shape} flooded image, "
-          f"median of 5 warm runs: card {1e3 * times['card']:.2f} ms, CPU "
-          f"({torch.get_num_threads()} threads) {1e3 * times['cpu']:.2f} ms "
-          f"[{card}]", flush=True)
+          f"calls {counted}, {rounds} hysteresis round(s), "
+          f"{int(edges_k.sum())} edge pixels; magnitude bits, sectors and "
+          f"edges differing from "
+          f"the twin on the CPU: {err} [{card}]", flush=True)
+    if counted != {"kernel": 1, "plain": 0} or err:
+        fail(f"the Canny on the card's flooded image: calls {counted} (not "
+             f"one kernel), {err} elements off the twin")
+
+    def kernel():
+        return canny_mod.canny(f_card, 2.0, low, 1.5 * low)
+
+    def plain_card():
+        return canny_mod._canny_plain(f_card, 2.0, low, 1.5 * low)
+
+    reps = 20
+    ms = cuda_ms(kernel, reps)
+    pms = cuda_ms(plain_card, reps)
+    dms, launches = profiled_kernels(kernel, reps)
+    pdms, plaunches = profiled_kernels(plain_card, 5)
+    cpu_runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        canny_mod.canny(f_cpu, 2.0, low, 1.5 * low)
+        cpu_runs.append(time.perf_counter() - t0)
+    h, w = a["flooded"].shape
+    # bound: the image read and the edge map written once, the classes
+    # written and read back once; about 150 float32 operations a pixel
+    # (the two 17-tap blurs and the support norm's, the rest)
+    bnd = bound(h * w * (4 + 1 + 2), {"f32": 150 * h * w})
+    return dict(
+        name="canny", kernel="canny", launches=counted["kernel"], err=err,
+        ms=ms, plain_ms=pms, library_ms=None, bound=bnd,
+        note=f"the fit disk's {h} x {w} flooded downscale, sigma 2; device "
+             f"{dms:.4f} ms profiled ({launches:.0f} launches, {rounds} "
+             f"hysteresis round(s)), {100 * bnd[0] / dms:.1f}% of bound; "
+             f"plain: the twin's torch ops on the card, device {pdms:.4f} ms "
+             f"profiled ({plaunches:.0f} launches); the twin on the CPU "
+             f"({torch.get_num_threads()} threads) "
+             f"{1e3 * statistics.median(cpu_runs):.2f} ms")
 
 
 def feeds_phase(path, tmp, png4, card, dev, res, wall2):
@@ -1865,7 +1946,7 @@ def feeds_phase(path, tmp, png4, card, dev, res, wall2):
         if f.read() != g.read():
             fail("the host sweep's shift 0 differs from --feed host -cw0")
 
-    small_ops_diff(scan4.disk_list[0], dev, card)
+    canny_rec = small_ops_diff(scan4.disk_list[0], dev, card)
 
     # kernel B3 on the band run's chunks against its plain version
     reps = 20
@@ -1895,7 +1976,7 @@ def feeds_phase(path, tmp, png4, card, dev, res, wall2):
         err=err, ms=ms, plain_ms=pms, library_ms=None, bound=b3,
         note=f"{len(rc_args)} launch over {len(rc_args[0][0])} band chunks "
              f"of {tuple(rc_args[0][0][0].shape)}; device {dms:.4f} ms, "
-             f"{100 * b3[0] / dms:.1f}% of bound")]
+             f"{100 * b3[0] / dms:.1f}% of bound"), canny_rec]
     del rc_args, got["band"]
 
     # the host library's newly driven entry points, on the host run's
@@ -3343,6 +3424,7 @@ def main() -> int:
         from solex_ser_recon_en_torch.geometry import linefit
         from solex_ser_recon_en_torch.io import feeder
         from solex_ser_recon_en_torch.ops import clahe, fused, fused_cuda
+        from solex_ser_recon_en_torch.ops import canny as canny_mod
         from solex_ser_recon_en_torch.ops import rowstats, warp_fast
         from solex_ser_recon_en_torch.pipeline import run as run_mod
 
@@ -3421,6 +3503,9 @@ def main() -> int:
             fused_cuda.SUM_MAX_PLANS[k] = 0
         for k in rowstats.ROW_STATS_LAUNCHES:
             rowstats.ROW_STATS_LAUNCHES[k] = 0
+        for k in canny_mod.CANNY_LAUNCHES:
+            canny_mod.CANNY_LAUNCHES[k] = 0
+        canny_mod.CANNY_ROUNDS.update(rounds=0, most=0)
         t0 = time.perf_counter()
         rc = cli_main.main(args)
         torch.cuda.synchronize()
@@ -3428,6 +3513,8 @@ def main() -> int:
         launches = dict(cuda_build.LAUNCHES)
         plans2 = dict(fused_cuda.SUM_MAX_PLANS)
         row_stats2 = dict(rowstats.ROW_STATS_LAUNCHES)
+        canny2 = (dict(canny_mod.CANNY_LAUNCHES),
+                  dict(canny_mod.CANNY_ROUNDS))
         calls = dict(native.CALLS)
         feed2 = dict(feeder.FEED)
         if rc != 0:
@@ -3457,6 +3544,12 @@ def main() -> int:
         if row_stats2 != {"kernel": 1, "plain": 0}:
             fail(f"the row statistics ran {row_stats2} on the -cw0 path, "
                  "not one kernel launch")
+        # the ellipse fit's Canny: the kernels, once a fit
+        print(f"Canny in run 2: {canny2[0]}, hysteresis rounds "
+              f"{canny2[1]}", flush=True)
+        if canny2[0]["kernel"] < 1 or canny2[0]["plain"] != 0:
+            fail(f"the Canny ran {canny2[0]} on the -cw0 path, not the "
+                 "kernels alone")
 
         print(f"host library calls in run 2: {calls}", flush=True)
         for name in HOST_ENTRY_POINTS:

@@ -1,16 +1,17 @@
-"""ctypes bindings of the port's native host library (csrc/ser_io.cpp and
-csrc/plans.cpp).
+"""ctypes bindings of the port's native host library (csrc/ser_io.cpp,
+csrc/plans.cpp and csrc/canny.cpp).
 
 Counterpart of solex_ser_recon_en_tpu/io/native.py.  ``csrc/ser_io.cpp`` is
 the port's own copy of the JAX package's ``native/ser_io.cpp``, held to it
 byte for byte by the tests; ``csrc/plans.cpp`` holds the host entry points
-of the kernels' launch plans (``csrc/plans.cuh``).  Both are compiled at
-first use with the system C++ compiler into the directory of the CUDA
-kernels (``build/solex_torch_kernels/``, ``SOLEX_TORCH_BUILD_DIR``
-overrides), the way ops/cuda_build.py builds those: the file name carries a
-hash of the sources and plans.cuh, the flags, the compiler's version line
-and the instruction set ``-march=native`` resolves to on this machine, so
-an edited source or
+of the kernels' launch plans (``csrc/plans.cuh``), ``csrc/canny.cpp`` those
+of the device Canny's per-pixel arithmetic (``csrc/canny.cuh``).  All three
+are compiled at first use with the system C++ compiler into the directory
+of the CUDA kernels (``build/solex_torch_kernels/``,
+``SOLEX_TORCH_BUILD_DIR`` overrides), the way ops/cuda_build.py builds
+those: the file name carries a hash of the sources and their headers, the
+flags, the compiler's version line and the instruction set
+``-march=native`` resolves to on this machine, so an edited source or
 another machine builds anew and a stale library is never loaded; the
 library is written under a temporary name and ``os.replace``d, so
 processes that build at once never load a half-written file.
@@ -41,7 +42,9 @@ Every entry point of the library is bound:
   (``png_pack``), ``png_encode_stored_band`` (``png_encode_band``) and
   ``fits_pack_u16`` (the FITS writer's payload);
 - the launch plans (``solex_*``, called by ops/fused_cuda.py and not
-  counted).
+  counted);
+- the device Canny's arithmetic (``solex_canny_*_host``, called by the
+  tests and not counted).
 """
 
 from __future__ import annotations
@@ -61,6 +64,8 @@ from ..ops.cuda_build import CSRC, build_dir
 SOURCE = CSRC / "ser_io.cpp"
 #: the launch plans' host entry points; they include plans.cuh beside them
 PLANS = CSRC / "plans.cpp"
+#: the device Canny's per-pixel arithmetic; it includes canny.cuh beside it
+CANNY = CSRC / "canny.cpp"
 #: the C++ compiler, by name (looked up on PATH)
 CXX = "g++"
 CXX_FLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-shared", "-fPIC"]
@@ -137,6 +142,16 @@ _SIGNATURES = {
     "solex_frames_per_block": (_I, [_L, _L, _I]),
     "solex_mxu_frame_stride": (_L, [_I]),
     "solex_plan_limits": (_I, [_P]),
+    # a, b, c f32, n, out f32: a * b + c rounded once
+    "solex_canny_fma_host": (_I, [_P, _P, _P, _L, _P]),
+    # y, x f32, n, out (f32; the sector's int32)
+    "solex_canny_hypot_host": (_I, [_P, _P, _L, _P]),
+    "solex_canny_atan2f_host": (_I, [_P, _P, _L, _P]),
+    "solex_canny_sector_host": (_I, [_P, _P, _L, _P]),
+    # img (h, w) f32, h, w, taps f32, n, low, high, mag f32, sector i32,
+    # classes u8 (each or NULL), edges u8
+    "solex_canny_host": (_I, [_P, _I, _I, _P, _I, ctypes.c_float,
+                              ctypes.c_float, _P, _P, _P, _P]),
 }
 
 #: the sorted hybrid of the row statistics (numpy sorts the masked rows,
@@ -190,14 +205,15 @@ def library_path() -> Path:
     # what -march=native means here: a library built on another machine
     # may hold instructions this one lacks
     h.update(_compiler_output([*CXX_FLAGS, "-Q", "--help=target"]).encode())
-    for src in (SOURCE, PLANS, PLANS.with_suffix(".cuh")):
+    for src in (SOURCE, PLANS, PLANS.with_suffix(".cuh"), CANNY,
+                CANNY.with_suffix(".cuh")):
         h.update(src.read_bytes())
     return build_dir() / f"solex_torch_ser_io_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile csrc/ser_io.cpp and csrc/plans.cpp into the shared library,
-    unless it exists."""
+    """Compile csrc/ser_io.cpp, csrc/plans.cpp and csrc/canny.cpp into the
+    shared library, unless it exists."""
     global build_seconds
     so = library_path()
     if so.exists():
@@ -208,7 +224,7 @@ def build() -> Path:
     t0 = time.perf_counter()
     try:
         _compiler_output([*CXX_FLAGS, "-o", str(tmp), str(SOURCE),
-                          str(PLANS)])
+                          str(PLANS), str(CANNY)])
         os.replace(tmp, so)
     finally:
         build_seconds = time.perf_counter() - t0

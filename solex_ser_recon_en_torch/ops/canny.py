@@ -30,16 +30,44 @@ multiply by its reciprocal), and what XLA:CPU does besides is written out:
 - ``jnp.arctan2`` is a call of libm's atan2f: ``_atan2f`` is glibc's
   (fdlibm's) float algorithm, step for step; the sector's floor division
   by pi/4 is exact, so it is compared against the exact multiples.
+
+``canny`` and ``gradients`` are the entry points: on CUDA tensors the
+hand-written kernels of csrc/canny.cu (one launch for the gradients, the
+suppression and the thresholds; one a hysteresis round, the host reading
+one flag a round), whose per-pixel arithmetic (csrc/canny.cuh) is this
+twin's with the rounding written as CUDA's _rn intrinsics; on CPU tensors
+the plain twin below; any other device raises.  ``CANNY_LAUNCHES`` counts
+the calls by path and ``CANNY_ROUNDS`` the kernel path's hysteresis
+rounds.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
+import threading
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from . import cuda_build
+
+#: calls of ``canny`` and ``gradients`` by path: ``kernel`` (CUDA tensors)
+#: or ``plain`` (CPU tensors); reset by callers that count one run
+CANNY_LAUNCHES = {"kernel": 0, "plain": 0}
+#: the kernel path's hysteresis rounds (one launch each): their sum and the
+#: most that one call took
+CANNY_ROUNDS = {"rounds": 0, "most": 0}
+_count_lock = threading.Lock()
+
+
+def _count(path: str, rounds: int = 0) -> None:
+    with _count_lock:          # a session posts from its pool thread
+        CANNY_LAUNCHES[path] += 1
+        CANNY_ROUNDS["rounds"] += rounds
+        CANNY_ROUNDS["most"] = max(CANNY_ROUNDS["most"], rounds)
 
 # fdlibm s_atanf.c / e_atan2f.c (glibc sysdeps/ieee754/flt-32)
 _ATANHI = (4.6364760399e-01, 7.8539812565e-01, 9.8279368877e-01,
@@ -272,8 +300,7 @@ def _dilate(m: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def gradients(image: torch.Tensor, sigma: float = 2.0):
-    """(magnitude, sector) of the blurred image, as the JAX Canny's."""
+def _gradients_plain(image: torch.Tensor, sigma: float):
     img = image.to(torch.float32)
     k = _gaussian_kernel_1d(sigma)
     sm = _conv1d(_conv1d(img, k, 0), k, 1)
@@ -283,12 +310,10 @@ def gradients(image: torch.Tensor, sigma: float = 2.0):
     return _hypot32(gy, gx), _sector(gy, gx)
 
 
-def canny(image: torch.Tensor, sigma: float = 2.0,
-          low_threshold: float = 0.1, high_threshold: float = 0.2
-          ) -> torch.Tensor:
-    """Boolean edge map (H, W) on ``image``'s device."""
-    mag, sector = gradients(image, sigma)
-
+def _classes(mag: torch.Tensor, sector: torch.Tensor, low_threshold: float,
+             high_threshold: float):
+    """(low, strong): the pixels that survive the non-maximum suppression,
+    the border and the floor, at or above each threshold."""
     pad = F.pad(mag, (1, 1, 1, 1))
 
     def nb(dy, dx):
@@ -307,12 +332,84 @@ def canny(image: torch.Tensor, sigma: float = 2.0,
     border[1:-1, 1:-1] = True
     # tiny absolute magnitude floor: a constant image yields no edges
     keep = keep & border & (mag > 1e-3)
+    return keep & (mag >= low_threshold), keep & (mag >= high_threshold)
 
-    low = keep & (mag >= low_threshold)
-    cur = _dilate(keep & (mag >= high_threshold)) & low
+
+def _canny_plain(image: torch.Tensor, sigma: float, low_threshold: float,
+                 high_threshold: float) -> torch.Tensor:
+    mag, sector = _gradients_plain(image, sigma)
+    low, strong = _classes(mag, sector, low_threshold, high_threshold)
+    cur = _dilate(strong) & low
     # hysteresis: grow the strong edges through the weak mask
     while True:
         nxt = _dilate(cur) & low
         if torch.equal(nxt, cur):
             return cur
         cur = nxt
+
+
+def _launch_canny(image: torch.Tensor, sigma: float, low_threshold: float,
+                  high_threshold: float, detail: bool = False):
+    """csrc/canny.cu on a CUDA image: the edge map, or with ``detail`` the
+    (magnitude, sector) of the gradient kernel alone."""
+    img = image.to(torch.float32).contiguous()
+    h, w = img.shape
+    taps = np.ascontiguousarray(_gaussian_kernel_1d(sigma))
+    if not 3 <= len(taps) <= 2 * cuda_build.CANNY_MAX_RADIUS + 1:
+        raise ValueError(f"canny: sigma {sigma} gives {len(taps)} taps; the "
+                         "kernel takes a radius of 1 to "
+                         f"{cuda_build.CANNY_MAX_RADIUS}")
+    if h < 2 or w < 2:
+        raise ValueError(f"canny: a {h} x {w} image has no reflected border")
+    dev = img.device
+    cls = torch.empty((h, w), dtype=torch.uint8, device=dev)
+    flag = torch.empty((1,), dtype=torch.int32, device=dev)
+    mag = torch.empty((h, w), dtype=torch.float32, device=dev) if detail \
+        else None
+    sec = torch.empty((h, w), dtype=torch.int32, device=dev) if detail \
+        else None
+    rounds = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        lib = cuda_build.lib()
+        stream = cuda_build.stream_handle(dev)
+        rc = lib.solex_canny_gradients(
+            img.data_ptr(), h, w, taps.ctypes.data, len(taps),
+            low_threshold, high_threshold, cls.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in (mag, sec)),
+            flag.data_ptr(), stream)
+        cuda_build.check(rc, "canny_gradients")
+        if detail:
+            _count("kernel")
+            return mag, sec
+        edges = torch.empty((h, w), dtype=torch.bool, device=dev)
+        rc = lib.solex_canny_hysteresis(cls.data_ptr(), edges.data_ptr(), h,
+                                        w, flag.data_ptr(),
+                                        ctypes.byref(rounds), stream)
+        cuda_build.check(rc, "canny_hysteresis")
+    _count("kernel", rounds.value)
+    return edges
+
+
+def _check_plain(image: torch.Tensor) -> None:
+    if image.device.type != "cpu":
+        raise ValueError(f"canny: unsupported device {image.device}")
+    _count("plain")
+
+
+def gradients(image: torch.Tensor, sigma: float = 2.0):
+    """(magnitude, sector) of the blurred image, as the JAX Canny's: float32
+    and int32 (H, W) on ``image``'s device."""
+    if image.device.type == "cuda":
+        return _launch_canny(image, sigma, 0.0, 0.0, detail=True)
+    _check_plain(image)
+    return _gradients_plain(image, sigma)
+
+
+def canny(image: torch.Tensor, sigma: float = 2.0,
+          low_threshold: float = 0.1, high_threshold: float = 0.2
+          ) -> torch.Tensor:
+    """Boolean edge map (H, W) on ``image``'s device."""
+    if image.device.type == "cuda":
+        return _launch_canny(image, sigma, low_threshold, high_threshold)
+    _check_plain(image)
+    return _canny_plain(image, sigma, low_threshold, high_threshold)

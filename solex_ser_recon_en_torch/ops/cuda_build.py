@@ -37,7 +37,7 @@ NVCC_FLAGS = [
 #: kernel launches per wrapper (ops/recon_cuda.py, ops/warp_fast.py,
 #: ops/clahe.py, ops/fused_cuda.py), added by ``count_launch``; reset by
 #: callers that want to count one run (ops/rowstats.py counts its own in
-#: ``ROW_STATS_LAUNCHES``)
+#: ``ROW_STATS_LAUNCHES``, ops/canny.py in ``CANNY_LAUNCHES``)
 LAUNCHES = {"recon": 0, "hresample": 0, "tile_hist": 0, "shg_fused": 0,
             "shg_fused_mxu": 0, "sum_max": 0}
 _launches_lock = threading.Lock()
@@ -57,6 +57,10 @@ RECON_MAX_CHUNKS = 256
 #: (csrc/rowstats.cu:kStageFloats; checked when the library loads); wider
 #: rows need an (H, W) float32 workspace
 ROW_STATS_STAGE_FLOATS = 8192
+
+#: the widest blur the device Canny takes, as a radius (csrc/canny.cuh:
+#: kMaxRadius; checked when the library loads): sigma up to 2.0
+CANNY_MAX_RADIUS = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -90,6 +94,13 @@ _SIGNATURES = {
     "solex_row_stats": [_P, _I, _I, _I] + [ctypes.c_float] * 7
     + [_P, _P, _P, _P, _P, _P],
     "solex_row_stats_stage_floats": [],
+    # img, H, W, taps (host floats), taps, low, high, classes, mag, sector,
+    # flag, stream
+    "solex_canny_gradients": [_P, _I, _I, _P, _I, ctypes.c_float,
+                              ctypes.c_float, _P, _P, _P, _P, _P],
+    # classes, edges, H, W, flag, rounds (host int out), stream
+    "solex_canny_hysteresis": [_P, _P, _I, _I, _P, ctypes.POINTER(_I), _P],
+    "solex_canny_max_radius": [],
 }
 
 _lock = threading.Lock()
@@ -194,6 +205,11 @@ def lib() -> ctypes.CDLL:
                     "csrc/rowstats.cu stages rows of "
                     f"{handle.solex_row_stats_stage_floats()} floats, not "
                     f"{ROW_STATS_STAGE_FLOATS}")
+            if handle.solex_canny_max_radius() != CANNY_MAX_RADIUS:
+                raise RuntimeError(
+                    "csrc/canny.cuh takes a radius of "
+                    f"{handle.solex_canny_max_radius()}, not "
+                    f"{CANNY_MAX_RADIUS}")
             _lib = handle
         return _lib
 

@@ -1302,29 +1302,42 @@ def test_frame_mesh_on_distinct_cards_equals_one_card(two_cards, tmp_path):
 
 
 # ---- the ellipse fit's small ops: the card equals the CPU -----------------
-# (no kernel of the port's own: plain torch ops that both devices round
-# correctly, ops/canny.py and ops/blur.py:box_blur; the CPU side is held to
-# the JAX package in tests/test_torch_canny.py)
+# (the Canny on the card is csrc/canny.cu, held bit for bit to the plain
+# twin of ops/canny.py on the CPU; ops/blur.py:box_blur and the twin's
+# float steps are plain torch ops that both devices round correctly; the CPU
+# side is held to the JAX package in tests/test_torch_canny.py)
 
 
-@pytest.mark.parametrize("shape", [(257, 256), (512, 500)],
+def _canny_kernel_vs_twin(img, sigma, low, high, device):
+    """The kernel's magnitude (as int32 bits), sector and edge map on the
+    card against the twin's on the CPU; returns the card's edge map."""
+    from solex_ser_recon_en_torch.ops import canny
+
+    x = torch.from_numpy(np.ascontiguousarray(img, dtype=np.float32))
+    mag_k, sec_k = canny.gradients(x.to(device), sigma)
+    mag_t, sec_t = canny.gradients(x, sigma)
+    assert torch.equal(mag_k.cpu().view(torch.int32), mag_t.view(torch.int32))
+    assert torch.equal(sec_k.cpu(), sec_t)
+    edges = canny.canny(x.to(device), sigma, low, high).cpu()
+    assert torch.equal(edges, canny.canny(x, sigma, low, high))
+    return edges
+
+
+CANNY_THRESHOLDS = {"flooded": (0.05, 0.075), "graded": (650.0, 975.0)}
+
+
+@pytest.mark.parametrize("shape", [(257, 256), (512, 500), (600, 560)],
                          ids=lambda s: f"{s[0]}x{s[1]}")
 @pytest.mark.parametrize("kind", ["flooded", "graded"])
 def test_canny_on_the_card_equals_the_cpu(cuda_device, kind, shape):
-    from solex_ser_recon_en_torch.ops import canny
-
+    """The Canny's kernels (csrc/canny.cu) on the card against the twin on
+    the CPU: magnitude bits, sector and edge map."""
     from torch_parity import flooded_ellipse, graded_ellipse
 
     make = flooded_ellipse if kind == "flooded" else graded_ellipse
-    low, high = (0.05, 0.075) if kind == "flooded" else (650.0, 975.0)
-    img = torch.from_numpy(make(*shape, 0))
-    for got, want in zip(canny.gradients(img.to(cuda_device)),
-                         canny.gradients(img)):
-        assert torch.equal(got.cpu(), want)
-    edges = canny.canny(img, 2.0, low, high)
+    edges = _canny_kernel_vs_twin(make(*shape, 0), 2.0,
+                                  *CANNY_THRESHOLDS[kind], cuda_device)
     assert edges.any()
-    assert torch.equal(canny.canny(img.to(cuda_device), 2.0, low, high).cpu(),
-                       edges)
 
 
 def test_canny_float_steps_on_the_card_equal_the_cpu(rng, cuda_device):
@@ -1340,6 +1353,88 @@ def test_canny_float_steps_on_the_card_equal_the_cpu(rng, cuda_device):
     assert torch.equal(canny._fma32(y.to(cuda_device), x.to(cuda_device),
                                     c.to(cuda_device)).cpu(),
                        canny._fma32(y, x, c))
+
+
+@pytest.mark.parametrize("sigma", [1.5, 1.0, 0.5])
+@pytest.mark.parametrize("kind", ["flooded", "graded"])
+def test_canny_kernel_retry_sigmas_equal_the_twin(cuda_device, kind, sigma):
+    """get_edge_list's retries: 13, 9 and 5 taps."""
+    from torch_parity import flooded_ellipse, graded_ellipse
+
+    make = flooded_ellipse if kind == "flooded" else graded_ellipse
+    assert _canny_kernel_vs_twin(make(512, 500, 2), sigma,
+                                 *CANNY_THRESHOLDS[kind], cuda_device).any()
+
+
+def test_canny_kernel_where_the_twin_redoes_a_pass(cuda_device, monkeypatch):
+    """The 0/65536 ellipse: the twin's float64 sums fall halfway and it
+    redoes both blur passes; the kernel's fused multiply-adds agree."""
+    from solex_ser_recon_en_torch.ops import canny
+
+    from torch_parity import halfway_ellipse
+
+    calls = []
+    round_sum = canny._round_sum
+    monkeypatch.setattr(canny, "_round_sum",
+                        lambda p, c: calls.append(1) or round_sum(p, c))
+    img = halfway_ellipse(300, 280, 5)
+    assert _canny_kernel_vs_twin(img, 2.0, 0.05, 0.075, cuda_device).any()
+    assert len(calls) >= 2 * 16
+
+
+@pytest.mark.parametrize("shape", [(33, 65), (97, 130), (65, 64), (130, 31),
+                                   (5, 3), (2, 2), (40, 7), (7, 40)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_canny_kernel_on_odd_shapes(cuda_device, shape):
+    """Shapes that are no multiple of either kernel's tile, and shapes
+    narrower than the blur's halo, down to the reflected border's least."""
+    from torch_parity import graded_ellipse
+
+    img = graded_ellipse(*shape, 3)
+    img[:, shape[1] // 2:] += 20000.0
+    _canny_kernel_vs_twin(img, 2.0, 650.0, 975.0, cuda_device)
+
+
+@pytest.mark.parametrize("value", [0.0, 1.0, 100.0])
+def test_canny_kernel_of_a_constant_image_has_no_edges(cuda_device, value):
+    img = np.full((200, 190), value, dtype=np.float32)
+    assert not _canny_kernel_vs_twin(img, 2.0, 0.05, 0.075,
+                                     cuda_device).any()
+
+
+def test_canny_kernel_hysteresis_follows_a_weak_snake(cuda_device):
+    """A weak band winding over the image from one strong segment: the
+    edge map is the twin's, it reaches the last band, and the tiles took
+    several rounds; with the thresholds swapped, strong pixels below the
+    low threshold seed their neighbours only."""
+    from solex_ser_recon_en_torch.ops import canny
+
+    from torch_parity import weak_snake
+
+    img, (low, high), rows = weak_snake()
+    canny.CANNY_ROUNDS.update(rounds=0, most=0)
+    edges = _canny_kernel_vs_twin(img, 1.0, low, high, cuda_device)
+    assert edges[rows[-1] - 3:rows[-1] + 8].any()
+    assert canny.CANNY_ROUNDS["most"] >= 3, canny.CANNY_ROUNDS
+    _canny_kernel_vs_twin(img, 1.0, high, low, cuda_device)
+
+
+def test_canny_launches_count_the_kernel(cuda_device):
+    """CANNY_LAUNCHES counts a card's call as ``kernel`` and CANNY_ROUNDS
+    its rounds; a blur wider than the kernel's radius raises."""
+    from solex_ser_recon_en_torch.ops import canny
+
+    from torch_parity import flooded_ellipse
+
+    img = torch.from_numpy(flooded_ellipse(512, 500, 0)).to(cuda_device)
+    for k in canny.CANNY_LAUNCHES:
+        canny.CANNY_LAUNCHES[k] = 0
+    canny.CANNY_ROUNDS.update(rounds=0, most=0)
+    canny.canny(img, 2.0, 0.05, 0.075)
+    assert canny.CANNY_LAUNCHES == {"kernel": 1, "plain": 0}
+    assert canny.CANNY_ROUNDS["rounds"] >= 1
+    with pytest.raises(ValueError, match="taps"):
+        canny.canny(img, 2.5)
 
 
 @pytest.mark.parametrize("kx,ky", [(5, 5), (2, 2), (7, 3)])

@@ -51,6 +51,32 @@ def graded_ellipse(h: int, w: int, seed: int) -> np.ndarray:
     return np.clip(g, 0, None).astype(np.float32)
 
 
+def halfway_ellipse(h: int, w: int, seed: int) -> np.ndarray:
+    """The flooded ellipse at 0/65536: its blur's float64 sums fall halfway
+    between two float32 values, so the twin redoes both passes exactly
+    (ops/canny.py:_conv1d)."""
+    return (flooded_ellipse(h, w, seed) > 0).astype(np.float32) * 65536.0
+
+
+def weak_snake(h: int = 300, w: int = 600):
+    """(image, thresholds, band rows): a 4-pixel band of 1.0 winding across
+    the image in rows 24 apart, joined at alternate ends, ramped up to 4.0
+    over its first 60 pixels.  At sigma 1.0 and the thresholds only the
+    ramp's edges are strong; every other edge is weak, joined to them along
+    the whole band, so the hysteresis must cross the image many times."""
+    band, pitch = 4, 24
+    img = np.zeros((h, w), np.float32)
+    rows = list(range(20, h - 20 - band, pitch))
+    for j, y in enumerate(rows):
+        img[y:y + band, 20:w - 20] = 1.0
+        if j + 1 < len(rows):
+            x = 20 if j % 2 else w - 20 - band
+            img[y:rows[j + 1] + band, x:x + band] = 1.0
+    img[rows[0]:rows[0] + band, 20:80] = np.linspace(4.0, 1.0, 60,
+                                                     dtype=np.float32)
+    return img, (1.0, 5.0), rows
+
+
 def limb_darkened_disk(h: int, w: int, seed: int) -> np.ndarray:
     """A uint16 disk image of the bench scan's kind: an ellipse of Y/X
     1.08 tilted by up to 10 degrees, limb-darkened (0.4 + 0.6 mu) on a
