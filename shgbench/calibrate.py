@@ -1,16 +1,18 @@
 """Readings that the limits of ``correct`` are set from, in one process:
 
     python3 shgbench/calibrate.py --cells A,B --seeds 12 --control-seeds 3 \\
-        --seconds 2 [--out FILE]
+        --seconds 2 [--out FILE] [--pending]
 
 For each cell, runs of the timed path on ``--seeds`` seeds, each with a
 short window, give the program's readings of every compared number (the
-lower readings: the largest over the seeds).  For each configuration, the
-control, the reference on samples cut to the configuration's
-``control_bits`` most significant bits, is compared with the reference on
-the whole samples, at the cell's own size, on ``--control-seeds`` seeds
-(the upper readings: the smallest).  Each reading is one JSON line;
-the summary is printed last.
+lower readings: the largest over the seeds).  For each configuration and
+set of requested shifts, the control, the reference on samples cut to the
+configuration's ``control_bits`` most significant bits, is compared with
+the reference on the whole samples, each shift's product with that
+shift's, at the cell's own size, on ``--control-seeds`` seeds (the upper
+readings: the smallest).  Each reading is one JSON line; the summary is
+printed last.  ``--pending`` also finds the cells defined under
+``shgbench/pending/``.
 """
 
 import time
@@ -45,6 +47,8 @@ def main(argv=None) -> int:
     ap.add_argument("--salt", type=int, default=0)
     ap.add_argument("--out", default="")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--pending", action="store_true",
+                    help="the cells under shgbench/pending/ as well")
     ap.add_argument("--override", default="",
                     help="JSON of configuration keys to replace (a small "
                          "rehearsal on the CPU)")
@@ -54,7 +58,8 @@ def main(argv=None) -> int:
 
     from shgbench import compare
     from shgbench.generator import ScanFile, ScanModel
-    from shgbench.harness import load_cell, load_reference, run_cell
+    from shgbench.harness import (bench_with_pending, load_cell,
+                                  load_reference, run_cell)
 
     device = torch.device(args.device)
     sink = open(args.out, "a") if args.out else None
@@ -67,10 +72,16 @@ def main(argv=None) -> int:
             sink.flush()
 
     override = json.loads(args.override) if args.override else None
+    bench = bench_with_pending() if args.pending else None
+    cells = [load_cell(name, bench, override)
+             for name in args.cells.split(",")]
+
+    def control_key(cell):
+        return cell.config_name, tuple(cell.mix["options"]["shift"])
+
     prog, ctl = {}, {}
-    done_configs = set()
-    for name in args.cells.split(","):
-        cell = load_cell(name, override=override)
+    for cell in cells:
+        name = cell.name
         for s in seeds(args.seeds, args.salt):
             rec = {}
             t0 = time.perf_counter()
@@ -82,34 +93,35 @@ def main(argv=None) -> int:
                   "seconds": time.perf_counter() - t0})
             for k, v in (rec.get("numbers") or {}).items():
                 prog.setdefault(name, {}).setdefault(k, []).append(v)
-        if cell.config_name in done_configs:
+        key = control_key(cell)
+        if key in ctl:
             continue
-        done_configs.add(cell.config_name)
+        ctl[key] = {}
         ref_mod = load_reference(cell.config)
         model = ScanModel.from_config(cell.config)
+        shifts = list(cell.mix["options"]["shift"])
+        fit = int(cell.config["fit_shift"])
         for s in seeds(args.control_seeds, args.salt + 1000):
             t0 = time.perf_counter()
             tmp = tempfile.mkdtemp(prefix="shgbench_control_")
             scan = ScanFile(model, s, device, os.path.join(tmp, "scan.ser"))
             try:
-                ref = ref_mod.run(scan.path, fit_shift=cell.config["fit_shift"])
-                low = ref_mod.run(scan.path, fit_shift=cell.config["fit_shift"],
+                ref = ref_mod.run(scan.path, shifts=shifts, fit_shift=fit)
+                low = ref_mod.run(scan.path, shifts=shifts, fit_shift=fit,
                                   bits=int(cell.config["control_bits"]))
             finally:
                 scan.close()
                 os.rmdir(tmp)
-            p = compare.reference_as_program(low)
-            nums = compare.scan_numbers(p, ref)
-            nums.update(compare.image_numbers(p["clahe"], ref["clahe"], "png"))
-            emit({"config": cell.config_name, "kind": "control", "seed": s,
-                  "numbers": nums, "seconds": time.perf_counter() - t0})
+            nums = compare.control_numbers(low, ref)
+            emit({"config": cell.config_name, "shifts": shifts,
+                  "kind": "control", "seed": s, "numbers": nums,
+                  "seconds": time.perf_counter() - t0})
             for k, v in nums.items():
-                ctl.setdefault(cell.config_name, {}).setdefault(k, []).append(v)
-    for name in args.cells.split(","):
-        cfg = load_cell(name, override=override).config_name
-        for k, vals in sorted(prog.get(name, {}).items()):
-            up = ctl.get(cfg, {}).get(k)
-            emit({"summary": name, "number": k, "lower": max(vals),
+                ctl[key].setdefault(k, []).append(v)
+    for cell in cells:
+        for k, vals in sorted(prog.get(cell.name, {}).items()):
+            up = ctl[control_key(cell)].get(k)
+            emit({"summary": cell.name, "number": k, "lower": max(vals),
                   "program": vals, "upper": min(up) if up else None})
     if sink:
         sink.close()

@@ -70,8 +70,9 @@ def image_numbers(img: np.ndarray, ref: np.ndarray, prefix: str = "png"
 def scan_numbers(prog: Dict[str, object], ref: Dict[str, object]
                  ) -> Dict[str, float]:
     """Pass A's mean, the line fit, pass B's disks, the ellipse geometry,
-    the circularised disk and the transversalium row gain of one scan
-    against the reference's."""
+    and each requested shift's circularised disk and transversalium row
+    gain (``products``, by shift) of one scan against the reference's; the
+    warp and gain numbers are the worst over the reference's shifts."""
     mean = np.asarray(prog["mean"]).astype(np.int64)
     d = np.abs(np.asarray(prog["disks"]).astype(np.int64)
                - ref["disks"].astype(np.int64))
@@ -85,18 +86,32 @@ def scan_numbers(prog: Dict[str, object], ref: Dict[str, object]
         "ratio_rel": float(abs(prog["ratio"] / geo["ratio"] - 1.0)),
         "tilt_deg": float(abs(prog["tilt_deg"] - np.degrees(geo["phi"]))),
     }
-    # a stage whose output the run did not capture reads as infinitely far
-    if "warped" in prog:
-        out.update(image_numbers(prog["warped"], ref["warped"], "warp"))
-    else:
-        out["warp_off_pct"] = float("inf")
-    if "gain" in prog:
-        g, r = np.asarray(prog["gain"]), np.asarray(ref["gain"])
-        n = min(len(g), len(r))       # rows of the common area
-        out["gain_max"] = float(np.abs(g[:n] - r[:n]).max())
-    else:
-        out["gain_max"] = float("inf")
+    rows = []
+    for shift, r in ref["products"].items():
+        p = prog["products"].get(shift, {})
+        # a stage whose output the run did not capture reads as infinitely
+        # far
+        if "warped" in p:
+            row = image_numbers(p["warped"], r["warped"], "warp")
+        else:
+            row = {"warp_off_pct": float("inf")}
+        if "gain" in p:
+            g, rg = np.asarray(p["gain"]), np.asarray(r["gain"])
+            n = min(len(g), len(rg))       # rows of the common area
+            row["gain_max"] = float(np.abs(g[:n] - rg[:n]).max())
+        else:
+            row["gain_max"] = float("inf")
+        rows.append(row)
+    out.update(worst(rows))
     return out
+
+
+def product_numbers(images: Dict[int, np.ndarray], ref: Dict[str, object]
+                    ) -> Dict[str, float]:
+    """Each shift's product image (``images``, by shift) against the
+    reference's of that shift, the worst over shifts under ``png_*``."""
+    return worst(image_numbers(img, ref["products"][s]["clahe"], "png")
+                 for s, img in images.items())
 
 
 def reference_as_program(ref: Dict[str, object]) -> Dict[str, object]:
@@ -105,8 +120,17 @@ def reference_as_program(ref: Dict[str, object]) -> Dict[str, object]:
     return {"mean": ref["mean"], "curve": ref["fit"]["curve"],
             "disks": ref["disks"], "ratio": geo["ratio"],
             "tilt_deg": float(np.degrees(geo["phi"])),
-            "warped": ref["warped"], "gain": ref["gain"],
-            "clahe": ref["clahe"]}
+            "products": ref["products"]}
+
+
+def control_numbers(low: Dict[str, object], ref: Dict[str, object]
+                    ) -> Dict[str, float]:
+    """Every compared number of the control (``low``, the reference on cut
+    samples) in the program's place, against the reference."""
+    nums = scan_numbers(reference_as_program(low), ref)
+    nums.update(product_numbers(
+        {s: p["clahe"] for s, p in low["products"].items()}, ref))
+    return nums
 
 
 def checks(numbers: Dict[str, float], limits: Dict[str, float]

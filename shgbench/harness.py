@@ -60,6 +60,26 @@ class Cell:
     per_layer: List[dict]
 
 
+def bench_with_pending() -> dict:
+    """BENCHMARK.json with the configurations, cells and metrics defined
+    under ``shgbench/pending/`` added, as a later change would add them:
+    the entries appended, and each pending cell's name added to the
+    ``workloads`` of the metrics it ``reports``."""
+    bench = load_json(ROOT / "BENCHMARK.json")
+    pendings = [load_json(p)
+                for p in sorted((BENCH_DIR / "pending").glob("*.json"))]
+    for pending in pendings:
+        for key in ("configs", "workloads", "end_to_end", "per_layer"):
+            bench[key] = bench[key] + pending.get(key, [])
+    metrics = {m["name"]: m for m in bench["end_to_end"] + bench["per_layer"]}
+    for pending in pendings:
+        for cell in pending.get("workloads", []):
+            for name in pending.get("reports", []):
+                if "workloads" in metrics[name]:
+                    metrics[name]["workloads"].append(cell["name"])
+    return bench
+
+
 def load_cell(name: str, bench: Optional[dict] = None,
               override: Optional[dict] = None) -> Cell:
     """The cell ``name`` of BENCHMARK.json with its configuration, mix,
@@ -216,46 +236,74 @@ def _tracing_timer_class():
 
 @contextlib.contextmanager
 def _post_outputs():
-    """Keep the circularised disk and the transversalium row gain of the
-    last scan that ``pipeline.run`` post-processed, as that scan's own
-    calls returned them (the calls themselves unchanged)."""
+    """Keep each requested shift's circularised disk and transversalium row
+    gain of the last scan that ``pipeline.run`` post-processed, as that
+    scan's own calls returned them (the calls themselves unchanged):
+    ``single_image_process``, which ``_process_shifts`` calls once a
+    requested shift with the circularised frame and a ``basefich`` that ends
+    in ``_shift=S``, and the ``transversalium_gain`` it calls; by shift,
+    under ``"products"``."""
     from solex_ser_recon_en_torch.pipeline import run as run_mod
 
-    seen: Dict[str, object] = {}
-    warp_fixed, gain = run_mod._warp_fixed, run_mod.transversalium_gain
+    seen: Dict[str, Dict[int, dict]] = {}
+    single, gain = run_mod.single_image_process, run_mod.transversalium_gain
+    current: List[dict] = []
 
-    def _warp_fixed(*a, **k):
-        seen["warped"] = warp_fixed(*a, **k)
-        return seen["warped"]
+    def single_image_process(frame, hdr, options, circle, borders, basefich,
+                             *a, **k):
+        shift = int(basefich.rsplit("_shift=", 1)[1])
+        current.append({"warped": frame})
+        seen.setdefault("products", {})[shift] = current[-1]
+        try:
+            return single(frame, hdr, options, circle, borders, basefich,
+                          *a, **k)
+        finally:
+            current.pop()
 
     def transversalium_gain(*a, **k):
         out = gain(*a, **k)
-        seen["gain"] = out[0]
+        if current:
+            current[-1]["gain"] = out[0]
         return out
 
-    run_mod._warp_fixed = _warp_fixed
+    run_mod.single_image_process = single_image_process
     run_mod.transversalium_gain = transversalium_gain
     try:
         yield seen
     finally:
-        run_mod._warp_fixed = warp_fixed
+        run_mod.single_image_process = single
         run_mod.transversalium_gain = gain
 
 
 def _program_outputs(scan, opts, results, post) -> Dict[str, object]:
-    """The timed path's results of one scan, brought to host arrays."""
+    """The timed path's results of one scan, brought to host arrays; each
+    requested shift's circularised disk and row gain under ``products``."""
     import torch
 
+    def host(p):
+        h = {}
+        if "warped" in p:
+            h["warped"] = p["warped"].view(torch.int16).cpu().numpy().view(
+                np.uint16)
+        if "gain" in p:
+            h["gain"] = np.asarray(p["gain"], np.float64)
+        return h
+
     disks = scan.disk_list.view(torch.int16).cpu().numpy().view(np.uint16)
-    out = {"mean": np.array(scan.mean_img), "curve": np.array(
+    return {"mean": np.array(scan.mean_img), "curve": np.array(
         scan.linefit.curve), "disks": disks, "shifts": list(scan.shifts),
-        "ratio": float(opts.ratio_fixe), "tilt_deg": float(opts.slant_fix)}
-    if "warped" in post:
-        out["warped"] = post["warped"].view(torch.int16).cpu().numpy().view(
-            np.uint16)
-    if "gain" in post:
-        out["gain"] = np.asarray(post["gain"], np.float64)
-    return out
+        "ratio": float(opts.ratio_fixe), "tilt_deg": float(opts.slant_fix),
+        "products": {s: host(p) for s, p in post.get("products", {}).items()}}
+
+
+def product_pngs(folder: Path) -> Dict[str, Dict[int, Path]]:
+    """The ``*_clahe.png`` of ``folder`` by scan (the name before
+    ``_shift=``) and shift (the ``S`` of ``_shift=S_clahe.png``)."""
+    found: Dict[str, Dict[int, Path]] = {}
+    for p in sorted(folder.glob("*_clahe.png")):
+        stem, shift = p.name[:-len("_clahe.png")].rsplit("_shift=", 1)
+        found.setdefault(stem, {})[int(shift)] = p
+    return found
 
 
 def drive_serial(path: str, out_dir: Path, options: dict, device,
@@ -472,7 +520,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
                   kind=(torch.cuda.get_device_name(device)
                         if device.type == "cuda" else "cpu"))
         attempted = failed = 0
-        pngs: List[str] = []
+        requested = list(dict.fromkeys(options["shift"]))
+        # the product PNGs compared, one {shift: path} a scan
+        pngs: List[Dict[int, Path]] = []
         progs: List[Dict[str, object]] = []
         if kind == "serial":
             records, _, sample, last = res
@@ -480,7 +530,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
             attempted, failed = len(records), sum(not r.ok for r in records)
             for entry in {id(e): e for e in (sample, last) if e}.values():
                 progs.append(_program_outputs(*entry[:4]))
-                pngs.append(str(next(entry[4].glob("*_clahe.png"))))
+                pngs.extend(product_pngs(entry[4]).values() or [{}])
             entry = sample = last = res = None
         else:
             records, _, last_dir, last = res
@@ -489,9 +539,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
             failed = attempted - sum(s.done for s in records)
             if last is not None:
                 progs.append(_program_outputs(*last))
-            pngs = sorted(str(p) for p in last_dir.glob("*_clahe.png"))
-            if len(pngs) != len(links):
-                failed += len(links) - len(pngs)
+            found = product_pngs(last_dir)
+            pngs = [found.pop(Path(ln).stem, {}) for ln in links]
+            failed += sum(not set(requested) <= set(p) for p in pngs)
+            pngs += found.values()      # PNGs of no file of the session
             last = res = None
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -513,17 +564,23 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         ref_mod = load_reference(cell.config)
         ref = ref_mod.run(scan_file.path, shifts=list(options["shift"]),
                           fit_shift=int(cell.config["fit_shift"]))
-        numbers: Dict[str, float] = {}
-        rows = []
-        for p in progs:
-            rows.append(compare.scan_numbers(p, ref))
-        for p in pngs:
-            img = compare.read_png(p)
-            run.product_shape = img.shape
-            rows.append(compare.image_numbers(img, ref["clahe"], "png"))
+        rows = [compare.scan_numbers(p, ref) for p in progs]
+        strays = []
+        for found in pngs:
+            # each requested shift's product against the reference's of that
+            # shift; a missing one, or one of a shift nobody asked for, makes
+            # the run not correct
+            if set(found) != set(requested):
+                strays.append(found)
+            imgs = {s: compare.read_png(str(p)) for s, p in found.items()
+                    if s in requested}
+            for img in imgs.values():
+                run.product_shape = img.shape
+            rows.append(compare.product_numbers(imgs, ref))
         numbers = compare.worst(rows)
         chk = compare.checks(numbers, cell.limits)
-        correct = bool(pngs) and failed == 0 and compare.passed(chk)
+        correct = (bool(pngs) and not strays and failed == 0
+                   and compare.passed(chk))
 
         metrics = {}
         for m in (cell.per_layer if trace else cell.e2e):
@@ -562,6 +619,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
                     / sum(f["fill_s"] for f in feeds) / 1e9)
             print(f"shgbench: stages a scan {stages or 'not timed'}; the "
                   f"feed's host copy {rate:.2f} GB/s", file=err)
+        for found in strays:
+            print(f"shgbench: products of shifts {sorted(found)} where "
+                  f"{requested} were requested "
+                  f"({', '.join(p.name for p in found.values()) or 'none'})",
+                  file=err)
         for k, v in numbers.items():
             if k not in chk:
                 print(f"number {k} {v!r} (not limited)", file=err)

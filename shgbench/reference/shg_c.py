@@ -26,6 +26,9 @@ the program.  It reads the SER file with its own reader.
   bins, OpenCV's algorithm) and a linear stretch between the CLAHE
   image's 10th percentile and its maximum.
 
+The circularisation, transversalium and the product run for every
+requested shift, with the one geometry of the fit shift's disk.
+
 ``bits`` runs the whole chain on samples cut to their ``bits`` most
 significant bits: the control of the benchmark's comparison.
 """
@@ -555,20 +558,29 @@ def clahe_product(img: np.ndarray, gain: np.ndarray) -> np.ndarray:
 
 # -- the whole scan --------------------------------------------------------------
 
-def post(disks: np.ndarray, shifts: List[int], shift: int
-         ) -> Dict[str, object]:
-    """The ellipse fit on the first disk, then the product of ``shift``'s."""
-    geo = geometry(disks[0])
-    warped = warp(disks[shifts.index(shift)], geo["mat3"], geo["out_h"],
-                  geo["out_w"])
+def product(disk: np.ndarray, geo: Dict[str, object]) -> Dict[str, object]:
+    """One shift's circularised disk, its row gain and its product."""
+    warped = warp(disk, geo["mat3"], geo["out_h"], geo["out_w"])
     gain = transversalium_gain(warped, geo["circle"], geo["borders"])
-    return {"geometry": geo, "warped": warped, "gain": gain,
+    return {"warped": warped, "gain": gain,
             "clahe": clahe_product(warped, gain)}
+
+
+def post(disks: np.ndarray, shifts: List[int], requested: List[int]
+         ) -> Dict[str, object]:
+    """The ellipse fit on the first disk, then the product of every
+    requested shift (``products``, by shift); the first requested shift's
+    also at the top level."""
+    geo = geometry(disks[0])
+    products = {s: product(disks[shifts.index(s)], geo)
+                for s in dict.fromkeys(requested)}
+    return {"geometry": geo, **products[requested[0]], "products": products}
 
 
 def run(path: str, shifts=(0,), fit_shift: int = 10,
         bits: Optional[int] = None) -> Dict[str, object]:
-    """Everything ``shg -c`` computes for the first requested shift."""
+    """Everything ``shg -c`` computes for each requested shift, the ellipse
+    fit once on the fit shift's disk."""
     frames, depth, rotate = read_ser(path)
     try:
         mean, mx = mean_max(frames, depth, rotate, bits)
@@ -580,5 +592,5 @@ def run(path: str, shifts=(0,), fit_shift: int = 10,
         del frames
     out = {"mean": mean, "max": mx, "fit": fit, "shifts": all_shifts,
            "disks": disks}
-    out.update(post(disks, all_shifts, shifts[0]))
+    out.update(post(disks, all_shifts, list(shifts)))
     return out

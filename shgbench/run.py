@@ -2,7 +2,8 @@
 
     python3 shgbench/run.py --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
-(or ``python3 -m shgbench.run ...``) from the root of a checkout.  The
+(or ``python3 -m shgbench.run ...``) from the root of a checkout;
+``--pending`` also finds the cells defined under ``shgbench/pending/``.  The
 last line of standard output is the run's JSON result; the numbers
 compared against the reference are the last lines of standard error.
 Without CUDA, or with fewer cards than the cell asks for, it prints no
@@ -37,6 +38,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    ap.add_argument("--pending", action="store_true",
+                    help="the cells under shgbench/pending/ as well")
     args = ap.parse_args(argv)
     _environment()
     if str(ROOT) not in sys.path:
@@ -44,9 +47,10 @@ def main(argv=None) -> int:
 
     import torch
 
-    from shgbench.harness import load_cell, run_cell
+    from shgbench.harness import bench_with_pending, load_cell, run_cell
 
-    cell = load_cell(args.workload)
+    cell = load_cell(args.workload,
+                     bench_with_pending() if args.pending else None)
     if not torch.cuda.is_available():
         print("shgbench: CUDA is not available; no result", file=sys.stderr)
         return 3

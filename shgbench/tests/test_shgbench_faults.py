@@ -19,7 +19,8 @@ from solex_ser_recon_en_torch.pipeline import run as run_mod
 from .conftest import small_cell, small_override
 
 CPU = torch.device("cpu")
-CELLS = ["fulldisk16.single", "fulldisk8.single", "fulldisk16.session"]
+CELLS = ["fulldisk16.single", "fulldisk8.single", "fulldisk16.session",
+         "fulldisk16.sweep5"]
 
 
 def _run(name, seed=2 ** 31 + 99):
@@ -125,19 +126,21 @@ def test_broken_timed_path_is_not_correct(monkeypatch, name, fault):
     assert not res["correct"], res["checks"]
 
 
-@pytest.mark.parametrize("name", ["fulldisk16.single", "fulldisk8.single"])
+@pytest.mark.parametrize("name", ["fulldisk16.single", "fulldisk8.single",
+                                  "fulldisk16.sweep5"])
 def test_control_fails_the_limits(tmp_path, name):
     """The reference on samples cut to the configuration's control bits,
-    in the program's place, fails the cell's limits."""
+    in the program's place, fails the cell's limits: each requested
+    shift's products against the reference's of that shift."""
     cell = small_cell(name)
     ref_mod = load_reference(cell.config)
     scan = ScanFile(ScanModel.from_config(cell.config), 2 ** 31 + 3, CPU,
                     str(tmp_path / "s.ser"))
-    ref = ref_mod.run(scan.path)
-    low = ref_mod.run(scan.path, bits=int(cell.config["control_bits"]))
-    p = compare.reference_as_program(low)
-    nums = compare.scan_numbers(p, ref)
-    nums.update(compare.image_numbers(p["clahe"], ref["clahe"], "png"))
+    shifts = list(cell.mix["options"]["shift"])
+    ref = ref_mod.run(scan.path, shifts=shifts)
+    low = ref_mod.run(scan.path, shifts=shifts,
+                      bits=int(cell.config["control_bits"]))
+    nums = compare.control_numbers(low, ref)
     chk = compare.checks(nums, cell.limits)
     assert not compare.passed(chk)
     assert chk["passa_mean_lsb"]["value"] > 0
