@@ -60,23 +60,40 @@ class Cell:
     per_layer: List[dict]
 
 
-def bench_with_pending() -> dict:
-    """BENCHMARK.json with the configurations, cells and metrics defined
-    under ``shgbench/pending/`` added, as a later change would add them:
-    the entries appended, and each pending cell's name added to the
-    ``workloads`` of the metrics it ``reports``."""
-    bench = load_json(ROOT / "BENCHMARK.json")
+def bench_with_pending(bench: Optional[dict] = None) -> dict:
+    """``bench`` (by default BENCHMARK.json) with what the files under
+    ``shgbench/pending/`` define and it lacks, as a later change would add
+    it: each configuration, cell and metric of a name it does not hold
+    appended, and each pending cell's name added to the ``workloads`` of
+    the metrics it ``reports`` where it is not there yet.  A pending cell
+    that ``bench`` already holds thus adds nothing; one that it holds with
+    another configuration, traffic or number of chips (not another
+    ``why``) raises ``ValueError``.  ``bench`` itself is not changed."""
+    bench = (load_json(ROOT / "BENCHMARK.json") if bench is None
+             else json.loads(json.dumps(bench)))
     pendings = [load_json(p)
                 for p in sorted((BENCH_DIR / "pending").glob("*.json"))]
     for pending in pendings:
         for key in ("configs", "workloads", "end_to_end", "per_layer"):
-            bench[key] = bench[key] + pending.get(key, [])
+            held = {e["name"]: e for e in bench[key]}
+            for entry in pending.get(key, []):
+                if entry["name"] not in held:
+                    bench[key].append(entry)
+                elif key == "workloads":
+                    keys = ("config", "traffic", "chips")
+                    have = {k: held[entry["name"]][k] for k in keys}
+                    want = {k: entry[k] for k in keys}
+                    if have != want:
+                        raise ValueError(
+                            f"workload {entry['name']!r} in BENCHMARK.json "
+                            f"is {have}, its pending file defines {want}")
     metrics = {m["name"]: m for m in bench["end_to_end"] + bench["per_layer"]}
     for pending in pendings:
         for cell in pending.get("workloads", []):
             for name in pending.get("reports", []):
-                if "workloads" in metrics[name]:
-                    metrics[name]["workloads"].append(cell["name"])
+                cells = metrics[name].get("workloads")
+                if cells is not None and cell["name"] not in cells:
+                    cells.append(cell["name"])
     return bench
 
 
