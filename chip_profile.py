@@ -13,9 +13,10 @@ and memset intervals of the trace) with the card's idle share of the wall
 time, the kernel launches, memsets and copies, the device time by kernel
 or copy name and the compute's by the program range (``stage:``) that
 launched it, and the launches and device time of kernels B3, B4 and B5
-(``recon_chunks_kernel``, ``hresample_kernel``, ``hist_kernel``) and of
-the Canny's two (``gradient_kernel``, ``hysteresis_kernel``), and the
-host side of the feed in
+(``recon_chunks_kernel``, ``hresample_kernel``, ``hist_kernel``), of
+the Canny's two (``gradient_kernel``, ``hysteresis_kernel``) and of the
+product chain's five (csrc/products.cu), the ``products`` stage's card
+time and launches, and the host side of the feed in
 that run (io/feeder.py:FEED): the copy threads' busy time, what the
 producer and the consumer each waited for, and the uploads' device time,
 so that the idle share can be read against the side that waits.  It then
@@ -24,8 +25,13 @@ scan resident and normalised (bench_device.resident_frames) and profiles
 one warm call of the fused step (models/shg.py:shg_forward, kernel B1,
 shifts [10, 0]) the same way, one of the same step on kernel B6
 (``shg_fused(..., mxu=True)``) and one of pass A's sum/max kernel on the
-same slab (ops/fused_cuda.py:mean_max).  The Chrome trace of the -cw0 run
-is copied to ``trace.json`` when a path is given.
+same slab (ops/fused_cuda.py:mean_max).  Before those, the product
+chain of the -cw0 run (pipeline/products.py:_products_core_gained, its
+input captured in the warm-up run) is profiled twice: on the kernels, and
+as the plain twin's torch ops on the card (the route before
+csrc/products.cu), with its device time and launches each, and each
+wrapper of the kernel path is timed alone.  The Chrome trace of the -cw0
+run is copied to ``trace.json`` when a path is given.
 """
 
 from __future__ import annotations
@@ -45,7 +51,12 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 #: csrc/hist.cu, csrc/canny.cu)
 KERNEL_NAMES = {"B3": "recon_chunks_kernel", "B4": "hresample_kernel",
                 "B5": "hist_kernel", "Canny gradients": "gradient_kernel",
-                "Canny hysteresis": "hysteresis_kernel"}
+                "Canny hysteresis": "hysteresis_kernel",
+                "row gain": "row_gain_kernel",
+                "CLAHE LUTs": "clahe_lut_kernel",
+                "CLAHE blend": "clahe_blend_kernel",
+                "stretch limits": "stretch_params_kernel",
+                "stretches": "stretch_kernel"}
 
 
 def busy_us(intervals) -> float:
@@ -130,9 +141,13 @@ def report(prof, trace: str, wall_ms: float, label: str, card: str) -> None:
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
         print(f"  {us:10.1f} {n:5d}  {name[:100]}")
     print("kernels and memsets by launching range (us, launches):")
-    for name, (n, us) in sorted(by_stage(trace_events, events).items(),
-                                key=lambda kv: -kv[1][1]):
+    stages = by_stage(trace_events, events)
+    for name, (n, us) in sorted(stages.items(), key=lambda kv: -kv[1][1]):
         print(f"  {us:10.1f} {n:5d}  {name}")
+    if "products" in stages:
+        n, us = stages["products"]
+        print(f"{label}: products stage {us:.1f} us of card time in {n} "
+              f"launches [{card}]")
     return by_name
 
 
@@ -145,13 +160,28 @@ def main(argv) -> int:
     sys.path.insert(0, chip_smoke.ROOT)
     from solex_ser_recon_en_torch.cli import main as cli_main
 
+    from solex_ser_recon_en_torch.pipeline import products
+
     tmp = tempfile.mkdtemp(prefix="solex_profile_")
     try:
         path = os.path.join(tmp, "scan.ser")
         chip_smoke.make_scan(path)
         args = ["-cw0", path, "--output-dir", os.path.join(tmp, "out")]
-        if cli_main.main(args) != 0:
-            chip_smoke.fail("warm-up run failed")
+        chain = {}
+        core = products._products_core_gained
+
+        def capture(fj, gain, want=(True, True)):
+            chain["args"] = (fj.clone(), gain.clone(), want)
+            return core(fj, gain, want)
+
+        products._products_core_gained = capture
+        try:
+            if cli_main.main(args) != 0:
+                chip_smoke.fail("warm-up run failed")
+        finally:
+            products._products_core_gained = core
+        for k in products.PRODUCTS_LAUNCHES:
+            products.PRODUCTS_LAUNCHES[k] = 0
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         # every thread: the CLI post-processes on a pool thread, whose
@@ -168,6 +198,8 @@ def main(argv) -> int:
             chip_smoke.fail("profiled run failed")
         trace = os.path.join(tmp, "trace.json")
         by_name = report(prof, trace, wall_ms, "profiled run", card)
+        print(f"product chain calls in the profiled run: "
+              f"{products.PRODUCTS_LAUNCHES}", flush=True)
         from solex_ser_recon_en_torch.io.feeder import FEED
 
         print(f"feed of the profiled run: wall {1e3 * FEED['wall_s']:.1f} ms "
@@ -193,6 +225,56 @@ def main(argv) -> int:
                   f"device {sum(us for _, us in hits) / 1e3:.4f} ms [{card}]")
         if argv:
             shutil.copy(trace, argv[0])
+
+        # the -cw0 run's product chain alone: the kernels, then the plain
+        # twin's torch ops on the card
+        from solex_ser_recon_en_torch.ops.rowstats import (
+            _apply_row_gain_plain,
+        )
+
+        fj, gain, want = chain["args"]
+
+        def plain(fj, gain, want):
+            detrans = _apply_row_gain_plain(fj, gain)
+            return (detrans,) + products._products_body_plain(detrans, want)
+
+        for label, fn in (("kernels", core), ("plain twin", plain)):
+            fn(fj, gain, want)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                fn(fj, gain, want)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            report(prof, trace, wall_ms, f"product chain on the "
+                   f"{tuple(fj.shape)} product, want {want}, {label}", card)
+
+        # each wrapper of the kernel path alone, CUDA events (median of 20)
+        from solex_ser_recon_en_torch.ops import clahe, rowstats
+
+        h, w = fj.shape
+        _, _, _, clip, scale = clahe._clahe_plan(h, w, 0.8, 2, 2, 65536)
+        detrans = core(fj, gain, want)[0]
+        hist = clahe.image_tile_histograms(detrans, 2, 2, 65536)
+        luts, _ = clahe._launch_clahe_lut(hist, clip, scale, False)
+        cl1 = clahe._launch_clahe_blend(detrans, luts, 2, 2)
+        hist_c = clahe.value_histogram(cl1, 65536)
+        steps = {
+            "row gain": lambda: rowstats.apply_row_gain(fj, gain),
+            "B5 (2 x 2 tiles)": lambda: clahe.image_tile_histograms(
+                detrans, 2, 2, 65536),
+            "CLAHE LUTs": lambda: clahe._launch_clahe_lut(hist, clip, scale,
+                                                          False),
+            "CLAHE blend": lambda: clahe._launch_clahe_blend(detrans, luts,
+                                                             2, 2),
+            "stretch limits + stretches": lambda: products._launch_stretches(
+                cl1, hist_c, detrans, None, (False, False)),
+            "the chain": lambda: core(fj, gain, want),
+            "the plain twin": lambda: plain(fj, gain, want),
+        }
+        for name, fn in steps.items():
+            print(f"wrapper {name}: {chip_smoke.cuda_ms(fn, 20):.4f} ms "
+                  f"[{card}]", flush=True)
 
         import numpy as np
 

@@ -22,7 +22,10 @@ Phases; any failure exits non-zero before the final result line:
    statistics' kernel (csrc/rowstats.cu) exactly once with no plain call
    (``ops.rowstats.ROW_STATS_LAUNCHES``), the ellipse fit's Canny through
    its kernels (csrc/canny.cu) with no plain call
-   (``ops.canny.CANNY_LAUNCHES``), and the host library's
+   (``ops.canny.CANNY_LAUNCHES``), the product chain once through its
+   kernels (csrc/products.cu: the row gain, the CLAHE LUTs, the blend, the
+   stretch limits and the stretches once each; one ``kernel`` call in
+   ``pipeline.products.PRODUCTS_LAUNCHES``), and the host library's
    ``ser_read``, ``box_blur_u16_exact`` and ``png_encode_stored_band``
    must have been called (``io.native.CALLS``); the feed's line gives its
    copy threads, ring depth, wall time, the uploads' device time and the
@@ -55,7 +58,11 @@ Phases; any failure exits non-zero before the final result line:
    twin: chord bounds, medians, MADs and kept counts bit for bit, the two
    means within 1e-6 of the row's mean |log ratio|, two launches the same
    bits; the kernel, its queued device time, the twin and the twin's two
-   ``torch.sort`` calls alone timed.  The
+   ``torch.sort`` calls alone timed.  The product chain on the same frame
+   and its row gain: the kernels against the twin on the CPU, every
+   product bit for bit for both ``want``s, then ``-c``'s chain on the
+   kernels and as the twin's torch ops on the card timed, each with its
+   profiled device time and launches (the ``products`` entry).  The
    rows of B1 and B6 and pass A's second row are taken
    after phase 6, on the normalised slab phase 6 left resident: B1 at
    S = 2, B6 at S = 2 and at the S = 7 sweep of the shoot-out (both
@@ -323,10 +330,17 @@ REPLACES = {
     "canny": ("solex_ser_recon_en_torch/csrc/canny.cu",
               "solex_ser_recon_en_tpu/ops/canny.py (XLA, not a Pallas "
               "kernel)"),
+    # the product chain around B5: XLA on the TPU side
+    "products": ("solex_ser_recon_en_torch/csrc/products.cu",
+                 "solex_ser_recon_en_tpu/pipeline/products.py, ops/clahe.py "
+                 "(XLA around B5, not Pallas kernels)"),
 }
+#: the product chain's kernels (csrc/products.cu), once each a -cw0 scan
+CHAIN_KERNELS = ("row_gain", "clahe_lut", "clahe_blend", "stretch_params",
+                 "stretch")
 #: the kernels of each driven path: phase 4 (-cw0), phase 6 (resident) and
 #: phase 7 (the shoot-out)
-CW0_KERNELS = ("sum_max", "recon", "hresample", "tile_hist")
+CW0_KERNELS = ("sum_max", "recon", "hresample", "tile_hist") + CHAIN_KERNELS
 RESIDENT_KERNELS = ("sum_max", "shg_fused", "hresample", "tile_hist")
 SHOOTOUT_KERNELS = ("shg_fused", "shg_fused_mxu", "recon", "hresample",
                     "tile_hist")
@@ -1687,6 +1701,59 @@ def small_ops_diff(disk, dev, card) -> dict:
              f"profiled ({plaunches:.0f} launches); the twin on the CPU "
              f"({torch.get_num_threads()} threads) "
              f"{1e3 * statistics.median(cpu_runs):.2f} ms")
+
+
+def products_record(img, circle, borders, opts, counted, card) -> dict:
+    """The product chain on the frame and row gain the -cw0 path gave it
+    (the transversalium's input, its gain computed again): the kernels
+    against the plain twin on the CPU, every product bit for bit, for
+    ``want`` (False, False) and (True, True); then the -c chain timed on
+    the kernels and as the twin's torch ops on the card, each with its
+    profiled device time and launches; returns its entry of the
+    ``kernels`` line."""
+    import torch
+
+    from solex_ser_recon_en_torch.ops.rowstats import _apply_row_gain_plain
+    from solex_ser_recon_en_torch.pipeline import products
+    from solex_ser_recon_en_torch.pipeline.run import transversalium_gain
+
+    c, _, _, _ = transversalium_gain(img, circle, borders,
+                                     opts.trans_strength)
+    gain = torch.as_tensor(c, dtype=torch.float32, device=img.device)
+    err = 0
+    for want in ((False, False), (True, True)):
+        got = products._products_core_gained(img, gain, want)
+        ref = products._products_core_gained(img.cpu(), gain.cpu(), want)
+        err += sum(int((a.cpu().to(torch.int32) != b.to(torch.int32)).sum())
+                   for a, b in zip(got, ref) if a is not None)
+    print(f"product chain on the {tuple(img.shape)} frame, card vs the twin "
+          f"on the CPU: {err} pixels differ [{card}]", flush=True)
+
+    def kernel():
+        return products._products_core_gained(img, gain, (False, False))
+
+    def plain_card():
+        detrans = _apply_row_gain_plain(img, gain)
+        return (detrans,) + products._products_body_plain(detrans,
+                                                          (False, False))
+
+    reps = 20
+    ms = cuda_ms(kernel, reps)
+    pms = cuda_ms(plain_card, reps)
+    dms, launches = profiled_kernels(kernel, reps)
+    pdms, plaunches = profiled_kernels(plain_card, 5)
+    h, w = img.shape
+    # bound: the frame read once, the gained image, the CLAHE image and its
+    # stretch written once, the gain read once; B5's 5 x 65536 bins
+    bnd = bound(h * w * 2 * 4 + 4 * h + 5 * 65536 * 4, {"f32": 40 * h * w})
+    return dict(
+        name="products", kernel="products", launches=counted["kernel"],
+        err=err, ms=ms, plain_ms=pms, library_ms=None, bound=bnd,
+        note=f"-c's chain on the {h} x {w} frame with its row gain: device "
+             f"{dms:.4f} ms profiled ({launches:.0f} launches with B5's), "
+             f"{100 * bnd[0] / dms:.1f}% of bound; plain: the twin's torch "
+             f"ops on the card, device {pdms:.4f} ms profiled "
+             f"({plaunches:.0f} launches)")
 
 
 def feeds_phase(path, tmp, png4, card, dev, res, wall2):
@@ -3426,6 +3493,7 @@ def main() -> int:
         from solex_ser_recon_en_torch.ops import clahe, fused, fused_cuda
         from solex_ser_recon_en_torch.ops import canny as canny_mod
         from solex_ser_recon_en_torch.ops import rowstats, warp_fast
+        from solex_ser_recon_en_torch.pipeline import products as products_mod
         from solex_ser_recon_en_torch.pipeline import run as run_mod
 
         res = {}
@@ -3506,6 +3574,8 @@ def main() -> int:
         for k in canny_mod.CANNY_LAUNCHES:
             canny_mod.CANNY_LAUNCHES[k] = 0
         canny_mod.CANNY_ROUNDS.update(rounds=0, most=0)
+        for k in products_mod.PRODUCTS_LAUNCHES:
+            products_mod.PRODUCTS_LAUNCHES[k] = 0
         t0 = time.perf_counter()
         rc = cli_main.main(args)
         torch.cuda.synchronize()
@@ -3515,6 +3585,7 @@ def main() -> int:
         row_stats2 = dict(rowstats.ROW_STATS_LAUNCHES)
         canny2 = (dict(canny_mod.CANNY_LAUNCHES),
                   dict(canny_mod.CANNY_ROUNDS))
+        products2 = dict(products_mod.PRODUCTS_LAUNCHES)
         calls = dict(native.CALLS)
         feed2 = dict(feeder.FEED)
         if rc != 0:
@@ -3530,7 +3601,8 @@ def main() -> int:
         # value histogram
         n_chunks = len(caps["recon"][0][0])
         for name, n in (("sum_max", n_chunks), ("recon", 1),
-                        ("tile_hist", 2)):
+                        ("tile_hist", 2)) + tuple((k, 1)
+                                                  for k in CHAIN_KERNELS):
             if launches[name] != n:
                 fail(f"kernel {name} was launched {launches[name]} times "
                      f"by the -cw0 path, not {n}")
@@ -3550,6 +3622,11 @@ def main() -> int:
         if canny2[0]["kernel"] < 1 or canny2[0]["plain"] != 0:
             fail(f"the Canny ran {canny2[0]} on the -cw0 path, not the "
                  "kernels alone")
+        # the product chain: its kernels, once a scan
+        print(f"product chain in run 2: {products2}", flush=True)
+        if products2 != {"kernel": 1, "plain": 0}:
+            fail(f"the product chain ran {products2} on the -cw0 path, not "
+                 "once on the kernels")
 
         print(f"host library calls in run 2: {calls}", flush=True)
         for name in HOST_ENTRY_POINTS:
@@ -3797,6 +3874,8 @@ def main() -> int:
                  f"{100 * brs[0] / dms:.1f}% of bound; means within "
                  f"{sum_err:.3g} of the row's mean |log ratio|; library: "
                  f"the twin's two torch.sort calls alone"))
+        records.append(products_record(rs_img, rs_circle, rs_borders,
+                                       res["opts"], products2, card))
         del rs_img, valid, rat, big, f32, mass
 
         # 6. the resident path on the phase-3 scan

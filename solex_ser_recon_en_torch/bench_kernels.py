@@ -45,7 +45,7 @@ import torch
 
 from .geometry.ellipse import get_correction_matrix
 from .models.shg import shg_forward_onehot
-from .ops.clahe import _clahe
+from .ops.clahe import clahe_levels
 from .ops.fused_cuda import shg_fused
 from .ops.recon import build_shift_indices, recon_onehot
 from .ops.recon_cuda import recon
@@ -139,7 +139,7 @@ def run(frames: int = 2000, ih: int = 2048, iw: int = 300, reps: int = 10,
     imgf = img.to(torch.int32).to(torch.float32) / 65536.0
 
     bench(f"CLAHE 2x2 u16 ({H}x{W})",
-          lambda: _clahe(img, 0.8, 2, 2, 65536))
+          lambda: clahe_levels(img, 0.8, 2, 2, 65536))
     bench("fused product core (gain+CLAHE+stretches)",
           lambda: _products_core_gained(img, gain))
     bench("warp: float 4-tap gathers",

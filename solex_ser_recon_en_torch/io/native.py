@@ -1,13 +1,14 @@
 """ctypes bindings of the port's native host library (csrc/ser_io.cpp,
-csrc/plans.cpp and csrc/canny.cpp).
+csrc/plans.cpp, csrc/canny.cpp and csrc/products.cpp).
 
 Counterpart of solex_ser_recon_en_tpu/io/native.py.  ``csrc/ser_io.cpp`` is
 the port's own copy of the JAX package's ``native/ser_io.cpp``, held to it
 byte for byte by the tests; ``csrc/plans.cpp`` holds the host entry points
 of the kernels' launch plans (``csrc/plans.cuh``), ``csrc/canny.cpp`` those
-of the device Canny's per-pixel arithmetic (``csrc/canny.cuh``).  All three
-are compiled at first use with the system C++ compiler into the directory
-of the CUDA kernels (``build/solex_torch_kernels/``,
+of the device Canny's per-pixel arithmetic (``csrc/canny.cuh``),
+``csrc/products.cpp`` those of the product chain's (``csrc/products.cuh``).
+All four are compiled at first use with the system C++ compiler into the
+directory of the CUDA kernels (``build/solex_torch_kernels/``,
 ``SOLEX_TORCH_BUILD_DIR`` overrides), the way ops/cuda_build.py builds
 those: the file name carries a hash of the sources and their headers, the
 flags, the compiler's version line and the instruction set
@@ -44,7 +45,11 @@ Every entry point of the library is bound:
 - the launch plans (``solex_*``, called by ops/fused_cuda.py and not
   counted);
 - the device Canny's arithmetic (``solex_canny_*_host``, called by the
-  tests and not counted).
+  tests and not counted);
+- the product chain's arithmetic (``solex_row_gain_host``,
+  ``solex_clahe_lut_host``, ``solex_clahe_blend_host``,
+  ``solex_stretch_params_host``, ``solex_stretch_host``, called by the tests
+  and not counted).
 """
 
 from __future__ import annotations
@@ -66,6 +71,8 @@ SOURCE = CSRC / "ser_io.cpp"
 PLANS = CSRC / "plans.cpp"
 #: the device Canny's per-pixel arithmetic; it includes canny.cuh beside it
 CANNY = CSRC / "canny.cpp"
+#: the product chain's arithmetic; it includes products.cuh beside it
+PRODUCTS = CSRC / "products.cpp"
 #: the C++ compiler, by name (looked up on PATH)
 CXX = "g++"
 CXX_FLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-shared", "-fPIC"]
@@ -152,6 +159,20 @@ _SIGNATURES = {
     # classes u8 (each or NULL), edges u8
     "solex_canny_host": (_I, [_P, _I, _I, _P, _I, ctypes.c_float,
                               ctypes.c_float, _P, _P, _P, _P]),
+    # the card's entry points of csrc/products.cu less the stream: img,
+    # elem_bytes, h, w, gain, out
+    "solex_row_gain_host": (_I, [_P, _I, _I, _I, _P, _P]),
+    # hist, tiles, hist_size, clip, scale, lut, full or NULL
+    "solex_clahe_lut_host": (_I, [_P, _I, _I, _I, ctypes.c_float, _P, _P]),
+    # img, elem_bytes, h, w, tiles_y, tiles_x, hist_size, lut, out
+    "solex_clahe_blend_host": (_I, [_P, _I, _I, _I, _I, _I, _I, _P, _P]),
+    # hist, k0, k1, low_w, high_w, full or NULL, f0, f1, f_low_w, f_high_w,
+    # params out
+    "solex_stretch_params_host": (_I, [_P, _I, _I, ctypes.c_float,
+                                       ctypes.c_float, _P, _I, _I,
+                                       ctypes.c_float, ctypes.c_float, _P]),
+    # cl1, img or NULL, n, params, cc, hc or NULL, pr or NULL
+    "solex_stretch_host": (_I, [_P, _P, _L, _P, _P, _P, _P]),
 }
 
 #: the sorted hybrid of the row statistics (numpy sorts the masked rows,
@@ -206,14 +227,15 @@ def library_path() -> Path:
     # may hold instructions this one lacks
     h.update(_compiler_output([*CXX_FLAGS, "-Q", "--help=target"]).encode())
     for src in (SOURCE, PLANS, PLANS.with_suffix(".cuh"), CANNY,
-                CANNY.with_suffix(".cuh")):
+                CANNY.with_suffix(".cuh"), PRODUCTS,
+                PRODUCTS.with_suffix(".cuh")):
         h.update(src.read_bytes())
     return build_dir() / f"solex_torch_ser_io_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile csrc/ser_io.cpp, csrc/plans.cpp and csrc/canny.cpp into the
-    shared library, unless it exists."""
+    """Compile csrc/ser_io.cpp, csrc/plans.cpp, csrc/canny.cpp and
+    csrc/products.cpp into the shared library, unless it exists."""
     global build_seconds
     so = library_path()
     if so.exists():
@@ -224,7 +246,7 @@ def build() -> Path:
     t0 = time.perf_counter()
     try:
         _compiler_output([*CXX_FLAGS, "-o", str(tmp), str(SOURCE),
-                          str(PLANS), str(CANNY)])
+                          str(PLANS), str(CANNY), str(PRODUCTS)])
         os.replace(tmp, so)
     finally:
         build_seconds = time.perf_counter() - t0

@@ -15,7 +15,11 @@ to the final uint16 disk (solex_util.py:532-533).  OpenCV's algorithm:
 ``image_tile_histograms`` (step 2 on the image itself, padding included)
 and ``tile_histograms`` (on a (T, n) int32 tile tensor) launch kernel B5
 (csrc/hist.cu) for CUDA tensors and take their plain versions for CPU
-tensors.
+tensors.  ``clahe_levels`` is the whole CLAHE as integer levels: on CUDA
+tensors kernel B5, then csrc/products.cu's ``clahe_lut_kernel`` (steps 3
+and 4, one launch over the tiles) and ``clahe_blend_kernel`` (step 5, one
+pass), bit for bit the plain twin ``_clahe`` as it runs on the CPU, which
+CPU tensors take.
 """
 
 from __future__ import annotations
@@ -201,31 +205,49 @@ def value_histogram(img: torch.Tensor, hist_size: int) -> torch.Tensor:
     return image_tile_histograms(img, 1, 1, hist_size)[0]
 
 
-def _clahe(img: torch.Tensor, clip_limit: float, tiles_x: int,
-                tiles_y: int, hist_size: int, return_full_hist: bool = False):
-    """cv2 CLAHE of an integer image -> float32 values (and, on request,
-    the image's exact value histogram when the grid needs no padding,
-    else None)."""
-    h, w = img.shape
+def _clahe_plan(h: int, w: int, clip_limit: float, tiles_x: int,
+                tiles_y: int, hist_size: int):
+    """(padded, th, tw, clip, lut_scale) of cv2's CLAHE of an (h, w) image:
+    whether the grid pads it, the tile's size, the clip in counts (0: no
+    clipping) and the LUT's float32 scale."""
     pad_r = (-w) % tiles_x
     pad_b = (-h) % tiles_y
     th, tw = (h + pad_b) // tiles_y, (w + pad_r) // tiles_x
     tile_area = th * tw
     lut_scale = _f32(np.float32(hist_size - 1) / np.float32(tile_area))
     clip = max(int(clip_limit * tile_area / hist_size), 1) if clip_limit > 0 else 0
+    return bool(pad_r or pad_b), th, tw, clip, lut_scale
+
+
+def _clahe_luts_plain(hist: torch.Tensor, clip: int, lut_scale: float,
+                      hist_size: int) -> torch.Tensor:
+    """Steps 3 and 4 on (T, hist_size) int32 tile histograms: the clip
+    (none when ``clip`` is 0), the redistribution, the cumsum and the
+    levels -> (T, hist_size) int32 LUTs (``clahe_lut_kernel``'s twin)."""
+    if clip > 0:
+        hist = _clip_redistribute(hist, clip, hist_size)
+    cdf = torch.cumsum(hist, dim=-1, dtype=torch.int32)
+    return torch.clamp(
+        torch.round(cdf.to(torch.float32) * lut_scale), 0, hist_size - 1
+    ).to(torch.int32)
+
+
+def _clahe(img: torch.Tensor, clip_limit: float, tiles_x: int,
+                tiles_y: int, hist_size: int, return_full_hist: bool = False):
+    """cv2 CLAHE of an integer image -> float32 values (and, on request,
+    the image's exact value histogram when the grid needs no padding,
+    else None): the plain twin of ``clahe_levels``' kernels."""
+    h, w = img.shape
+    padded, th, tw, clip, lut_scale = _clahe_plan(h, w, clip_limit, tiles_x,
+                                                  tiles_y, hist_size)
 
     # step 2 on the image in place: kernel B5 pads and tiles it itself
     hist = image_tile_histograms(img, tiles_y, tiles_x, hist_size)
     vals = widen(img)                                       # for the LUTs
     full_hist = None
-    if return_full_hist and pad_r == 0 and pad_b == 0:
+    if return_full_hist and not padded:
         full_hist = hist.sum(dim=0, dtype=torch.int32)
-    if clip > 0:
-        hist = _clip_redistribute(hist, clip, hist_size)
-    cdf = torch.cumsum(hist, dim=-1, dtype=torch.int32)
-    luts = torch.clamp(
-        torch.round(cdf.to(torch.float32) * lut_scale), 0, hist_size - 1
-    ).to(torch.int32)                                       # (T, hist_size)
+    luts = _clahe_luts_plain(hist, clip, lut_scale, hist_size)
 
     # bilinear interpolation of tile LUTs over the ORIGINAL grid
     x = torch.arange(w, dtype=torch.float32, device=img.device)
@@ -261,15 +283,82 @@ def _clahe(img: torch.Tensor, clip_limit: float, tiles_x: int,
     return out
 
 
+def _launch_clahe_lut(hist: torch.Tensor, clip: int, lut_scale: float,
+                      full: bool):
+    """One launch of csrc/products.cu's ``clahe_lut_kernel`` on kernel B5's
+    (T, hist_size) int32 tile histograms: the (T, hist_size) u16 LUTs and,
+    with ``full``, the (hist_size,) int32 sum of the tile histograms."""
+    tiles, hist_size = hist.shape
+    dev = hist.device
+    luts = torch.empty((tiles, hist_size), dtype=torch.uint16, device=dev)
+    full_hist = torch.empty((hist_size,), dtype=torch.int32, device=dev) \
+        if full else None
+    with torch.cuda.device(dev):
+        rc = cuda_build.lib().solex_clahe_lut(
+            hist.data_ptr(), tiles, hist_size, clip, lut_scale,
+            luts.data_ptr(),
+            None if full_hist is None else full_hist.data_ptr(),
+            cuda_build.stream_handle(dev))
+    cuda_build.check(rc, "clahe_lut")
+    cuda_build.count_launch("clahe_lut")
+    return luts, full_hist
+
+
+def _launch_clahe_blend(img: torch.Tensor, luts: torch.Tensor, tiles_y: int,
+                        tiles_x: int) -> torch.Tensor:
+    """One launch of csrc/products.cu's ``clahe_blend_kernel``: the (h, w)
+    image's levels from its tiles' LUTs, in the image's type."""
+    h, w = img.shape
+    dev = img.device
+    out = torch.empty((h, w), dtype=img.dtype, device=dev)
+    with torch.cuda.device(dev):
+        rc = cuda_build.lib().solex_clahe_blend(
+            img.data_ptr(), img.element_size(), h, w, tiles_y, tiles_x,
+            luts.shape[1], luts.data_ptr(), out.data_ptr(),
+            cuda_build.stream_handle(dev))
+    cuda_build.check(rc, "clahe_blend")
+    cuda_build.count_launch("clahe_blend")
+    return out
+
+
+def clahe_levels(img: torch.Tensor, clip_limit: float, tiles_x: int,
+                 tiles_y: int, hist_size: int, return_full_hist: bool = False):
+    """cv2 CLAHE of an (h, w) u8 image with 256 bins or u16 image with 65536
+    as levels of the image's type (and, on request, the image's exact
+    (hist_size,) int32 value histogram when the grid needs no padding, else
+    None).  On CUDA tensors kernel B5, ``clahe_lut_kernel`` and
+    ``clahe_blend_kernel`` (csrc/products.cu); on CPU tensors the twin
+    ``_clahe``; the same bits."""
+    bins = {torch.uint8: 256, torch.uint16: 65536}
+    if img.ndim != 2 or bins.get(img.dtype) != hist_size:
+        raise TypeError(f"clahe_levels: an (h, w) u8 image with 256 bins or "
+                        f"u16 with 65536 expected, got {tuple(img.shape)} "
+                        f"{img.dtype} with {hist_size}")
+    if img.device.type == "cpu":
+        out = _clahe(img, clip_limit, tiles_x, tiles_y, hist_size,
+                     return_full_hist)
+        levels, full_hist = out if return_full_hist else (out, None)
+        levels = levels.to(torch.int32).to(img.dtype)
+        return (levels, full_hist) if return_full_hist else levels
+    _check_cuda(img, "clahe_levels")
+    h, w = img.shape
+    padded, _, _, clip, lut_scale = _clahe_plan(h, w, clip_limit, tiles_x,
+                                                tiles_y, hist_size)
+    hist = image_tile_histograms(img, tiles_y, tiles_x, hist_size)
+    full = return_full_hist and not padded
+    luts, full_hist = _launch_clahe_lut(hist, clip, lut_scale, full)
+    levels = _launch_clahe_blend(img, luts, tiles_y, tiles_x)
+    return (levels, full_hist) if return_full_hist else levels
+
+
 def clahe(img: torch.Tensor, clip_limit: float = 0.8, tiles=(2, 2)
           ) -> torch.Tensor:
     """cv2-compatible CLAHE of a (H, W) uint8 or uint16 image."""
     if img.dtype == torch.uint8:
-        hist_size, out_dtype = 256, torch.uint8
+        hist_size = 256
     elif img.dtype == torch.uint16:
-        hist_size, out_dtype = 65536, torch.uint16
+        hist_size = 65536
     else:
         raise TypeError(f"clahe expects uint8/uint16, got {img.dtype}")
-    out = _clahe(img, float(clip_limit), int(tiles[0]), int(tiles[1]),
-                      hist_size)
-    return out.to(torch.int32).to(out_dtype)
+    return clahe_levels(img, float(clip_limit), int(tiles[0]), int(tiles[1]),
+                        hist_size)

@@ -35,11 +35,15 @@ NVCC_FLAGS = [
 ]
 
 #: kernel launches per wrapper (ops/recon_cuda.py, ops/warp_fast.py,
-#: ops/clahe.py, ops/fused_cuda.py), added by ``count_launch``; reset by
-#: callers that want to count one run (ops/rowstats.py counts its own in
-#: ``ROW_STATS_LAUNCHES``, ops/canny.py in ``CANNY_LAUNCHES``)
+#: ops/clahe.py, ops/fused_cuda.py, ops/rowstats.py's row gain,
+#: pipeline/products.py's stretches), added by ``count_launch``; reset by
+#: callers that want to count one run (ops/rowstats.py counts its row
+#: statistics in ``ROW_STATS_LAUNCHES``, ops/canny.py in
+#: ``CANNY_LAUNCHES``, pipeline/products.py the product chain's calls in
+#: ``PRODUCTS_LAUNCHES``)
 LAUNCHES = {"recon": 0, "hresample": 0, "tile_hist": 0, "shg_fused": 0,
-            "shg_fused_mxu": 0, "sum_max": 0}
+            "shg_fused_mxu": 0, "sum_max": 0, "row_gain": 0, "clahe_lut": 0,
+            "clahe_blend": 0, "stretch_params": 0, "stretch": 0}
 _launches_lock = threading.Lock()
 
 
@@ -101,6 +105,18 @@ _SIGNATURES = {
     # classes, edges, H, W, flag, rounds (host int out), stream
     "solex_canny_hysteresis": [_P, _P, _I, _I, _P, ctypes.POINTER(_I), _P],
     "solex_canny_max_radius": [],
+    # img, elem_bytes (2 u16, 4 float32), h, w, gain, out, stream
+    "solex_row_gain": [_P, _I, _I, _I, _P, _P, _P],
+    # hist, tiles, hist_size, clip, scale, lut, full or NULL, stream
+    "solex_clahe_lut": [_P, _I, _I, _I, ctypes.c_float, _P, _P, _P],
+    # img, elem_bytes, h, w, tiles_y, tiles_x, hist_size, lut, out, stream
+    "solex_clahe_blend": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # hist, k0, k1, low_w, high_w, full or NULL, f0, f1, f_low_w, f_high_w,
+    # params, stream
+    "solex_stretch_params": [_P, _I, _I, ctypes.c_float, ctypes.c_float, _P,
+                             _I, _I, ctypes.c_float, ctypes.c_float, _P, _P],
+    # cl1, img or NULL, n, params, cc, hc or NULL, pr or NULL, stream
+    "solex_stretch": [_P, _P, _L, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

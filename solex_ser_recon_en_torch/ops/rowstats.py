@@ -14,7 +14,9 @@ NaN last), so the order statistics match the JAX package's exactly.
 csrc/rowstats.cu (the chord from the geometry, the log ratio, the medians
 by radix selection, the sums), on CPU tensors the plain twin
 ``strip_mask`` + ``row_log_ratio_stats``.  ``ROW_STATS_LAUNCHES`` counts
-the calls by path.
+the calls by path.  ``apply_row_gain`` multiplies the rows by the gain
+the statistics give: csrc/products.cu's row gain on CUDA tensors, its
+plain twin on CPU tensors.
 """
 
 from __future__ import annotations
@@ -165,8 +167,44 @@ def _launch_row_stats(img: torch.Tensor, circle, borders,
         "mdev": dbg_f[:, 1]}
 
 
-def apply_row_gain(img: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
-    """img * gain[:, None] in float32, clipped to uint16
-    (solex_util.py:489,515-516); ``img`` integer or float."""
+def _apply_row_gain_plain(img: torch.Tensor,
+                          gain: torch.Tensor) -> torch.Tensor:
+    """The row gain's plain twin: float32 multiply, clamp, truncation."""
     out = as_f32(img) * gain.to(torch.float32)[:, None]
     return to_u16(torch.clamp(out, 0, 65535))
+
+
+def _launch_row_gain(img: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
+    """One launch of csrc/products.cu's row gain on a CUDA image: u16 and
+    float32 read in place, any other dtype through ``as_f32`` (the twin's
+    float32 values)."""
+    src = img if img.dtype in (torch.uint16, torch.float32) else as_f32(img)
+    src = src.contiguous()
+    h, w = src.shape
+    dev = src.device
+    g = gain.to(device=dev, dtype=torch.float32).contiguous()
+    if g.shape != (h,):
+        raise ValueError(f"apply_row_gain: a gain of shape {tuple(g.shape)} "
+                         f"for {h} rows")
+    out = torch.empty((h, w), dtype=torch.uint16, device=dev)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = cuda_build.lib().solex_row_gain(
+            src.data_ptr(), src.element_size(), h, w, g.data_ptr(),
+            out.data_ptr(), cuda_build.stream_handle(dev))
+    cuda_build.check(rc, "row_gain")
+    cuda_build.count_launch("row_gain")
+    return out
+
+
+def apply_row_gain(img: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
+    """img * gain[:, None] in float32, clipped to uint16
+    (solex_util.py:489,515-516); ``img`` integer or float.  One kernel
+    launch on CUDA tensors (csrc/products.cu), the plain twin on CPU
+    tensors, bit for bit the same."""
+    if img.device.type == "cuda":
+        return _launch_row_gain(img, gain)
+    if img.device.type != "cpu":
+        raise ValueError(f"apply_row_gain: unsupported device {img.device}")
+    return _apply_row_gain_plain(img, gain)

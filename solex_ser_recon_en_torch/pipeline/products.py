@@ -10,6 +10,14 @@ percentile and its maximum, and two stretches of the disk itself against
 its 99.9999th percentile; the percentiles come from exact value histograms
 (ops/clahe.py, kernel B5) instead of sorts.
 
+On the card the chain is a handful of hand-written launches
+(csrc/products.cu) around kernel B5: the row gain (ops/rowstats.py), the
+tile histograms, one launch for CLAHE's LUTs, one pass for its blend, the
+CLAHE image's value histogram, one launch for the stretches' limits and
+one pass for the stretches; bit for bit the plain twin
+(``_products_body_plain``), which CPU tensors take.  ``PRODUCTS_LAUNCHES``
+counts the chain's calls by path.
+
 Every image stays on the frame's device until a file write needs host
 bytes: the crop, the protus disc and the rotation run there.  The writer
 pool (io/writers.py) brings each image down into pinned memory on its own
@@ -28,6 +36,7 @@ when the host pipeline is on, and a missing library raises.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional
 
 import numpy as np
@@ -39,11 +48,30 @@ from ..io import native
 from ..io.fits import write_fits
 from ..io.png import band_bounds, write_png_bands, write_png_streaming
 from ..io.writers import submit
-from ..ops.clahe import _clahe, percentile_from_hist, value_histogram
+from ..ops import cuda_build
+from ..ops.clahe import (
+    _clahe,
+    clahe_levels,
+    percentile_from_hist,
+    percentile_taps,
+    value_histogram,
+)
 from ..ops.dtypes import as_int16, to_u16, widen
 from ..ops.rowstats import apply_row_gain
 from ..utils.display import show_products
 from ..utils.placement import host_pipeline
+
+
+#: calls of the product chain (``_products_body``) by path: ``kernel``
+#: (CUDA tensors) or ``plain`` (CPU tensors); reset by callers that count
+#: one run
+PRODUCTS_LAUNCHES = {"kernel": 0, "plain": 0}
+_count_lock = threading.Lock()
+
+
+def _count(path: str) -> None:
+    with _count_lock:          # a session posts from its pool thread
+        PRODUCTS_LAUNCHES[path] += 1
 
 
 def _stretch(img: torch.Tensor, lo, hi) -> torch.Tensor:
@@ -51,10 +79,9 @@ def _stretch(img: torch.Tensor, lo, hi) -> torch.Tensor:
     return to_u16(torch.clamp(x, 0, 65535))
 
 
-def _products_body(fj: torch.Tensor, want=(True, True)):
-    """CLAHE + percentiles + stretches of a uint16 image -> (cl1, cc,
-    high_contrast, protus), uint16; the stretches ``want`` =
-    (high_contrast, protus) does not ask for come back as None."""
+def _products_body_plain(fj: torch.Tensor, want=(True, True)):
+    """The product chain's plain twin (``_products_body``'s CPU path; on a
+    CUDA tensor it runs as torch ops, kernel B5 but no other kernel)."""
     cl1, img_hist = _clahe(fj, 0.8, 2, 2, 65536, return_full_hist=True)
     cl1 = to_u16(cl1)
     dark_clahe = percentile_from_hist(value_histogram(cl1, 65536), cl1.numel(),
@@ -73,6 +100,76 @@ def _products_body(fj: torch.Tensor, want=(True, True)):
         if want[1]:
             frame_protus = _stretch(fj, 0.0, torch.clamp(bright * 0.18, min=1.0))
     return cl1, cc, frame_hc, frame_protus
+
+
+def _launch_stretches(cl1: torch.Tensor, hist_c: torch.Tensor,
+                      fj: torch.Tensor, img_hist, want):
+    """csrc/products.cu's stretch limits (one launch: the CLAHE image's
+    10th percentile and maximum from its histogram ``hist_c``, the disk's
+    99.9999th percentile from ``img_hist`` when a stretch of it is wanted)
+    and one pass for the stretches: (cc, high_contrast, protus)."""
+    dev = cl1.device
+    n = cl1.numel()
+    if n >= (1 << 31):
+        raise ValueError(f"the product chain: n={n} exceeds int32 counts")
+    lo, hi, lo_w, hi_w = percentile_taps(10.0, n)
+    f_lo, f_hi, f_lo_w, f_hi_w = percentile_taps(99.9999, n)
+    params = torch.empty((6,), dtype=torch.float32, device=dev)
+    cc = torch.empty_like(cl1)
+    hc = torch.empty_like(fj) if want[0] else None
+    pr = torch.empty_like(fj) if want[1] else None
+    with torch.cuda.device(dev):
+        lib = cuda_build.lib()
+        stream = cuda_build.stream_handle(dev)
+        rc = lib.solex_stretch_params(
+            hist_c.data_ptr(), lo + 1, hi + 1, lo_w, hi_w,
+            None if img_hist is None else img_hist.data_ptr(), f_lo + 1,
+            f_hi + 1, f_lo_w, f_hi_w, params.data_ptr(), stream)
+        cuda_build.check(rc, "stretch_params")
+        cuda_build.count_launch("stretch_params")
+        rc = lib.solex_stretch(
+            cl1.data_ptr(), None if img_hist is None else fj.data_ptr(), n,
+            params.data_ptr(), cc.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in (hc, pr)), stream)
+        cuda_build.check(rc, "stretch")
+        cuda_build.count_launch("stretch")
+    return cc, hc, pr
+
+
+def _products_body_kernels(fj: torch.Tensor, want=(True, True)):
+    """The product chain on a CUDA image: kernel B5 twice (three times for
+    an odd-sized image whose stretches are wanted) and four launches of
+    csrc/products.cu."""
+    if fj.dtype != torch.uint16 or fj.ndim != 2:
+        raise TypeError(f"the product chain: (h, w) uint16 image expected, "
+                        f"got {tuple(fj.shape)} {fj.dtype}")
+    fj = fj.contiguous()
+    img_hist = None
+    if want[0] or want[1]:
+        cl1, img_hist = clahe_levels(fj, 0.8, 2, 2, 65536,
+                                     return_full_hist=True)
+        if img_hist is None:  # odd-sized: padding taints the tiles' sum
+            img_hist = value_histogram(fj, 65536)
+    else:
+        cl1 = clahe_levels(fj, 0.8, 2, 2, 65536)
+    hist_c = value_histogram(cl1, 65536)
+    cc, frame_hc, frame_protus = _launch_stretches(cl1, hist_c, fj, img_hist,
+                                                   want)
+    return cl1, cc, frame_hc, frame_protus
+
+
+def _products_body(fj: torch.Tensor, want=(True, True)):
+    """CLAHE + percentiles + stretches of a uint16 image -> (cl1, cc,
+    high_contrast, protus), uint16; the stretches ``want`` =
+    (high_contrast, protus) does not ask for come back as None.  The
+    kernels on CUDA tensors, the plain twin on CPU tensors."""
+    if fj.device.type == "cuda":
+        _count("kernel")
+        return _products_body_kernels(fj, want)
+    if fj.device.type != "cpu":
+        raise ValueError(f"the product chain: unsupported device {fj.device}")
+    _count("plain")
+    return _products_body_plain(fj, want)
 
 
 def _products_core_gained(fj: torch.Tensor, gain: torch.Tensor, want=(True, True)):

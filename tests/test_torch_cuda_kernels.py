@@ -16,6 +16,8 @@ feed's chunks on the card and the PNG of an image that comes down in
 bands: bit-identical to the plain feed's and the plain encoder's.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1130,7 +1132,7 @@ def test_recon_on_a_normalised_slab_matches_plain(rng, cuda_device, F):
 def test_hist_kernel_u8_256_bins_by_tile_grid(rng, cuda_device, tiles, shape):
     """Kernel B5 as the CLAHE tool launches it on an 8-bit image: 256 bins,
     a square grid of 1-4 tiles, reflect padding where it does not divide
-    the image; the tool's CLAHE on the card against the CPU's."""
+    the image; the tool's CLAHE on the card equal to the CPU's."""
     from solex_ser_recon_en_torch.ops.clahe import clahe
 
     img = rng.integers(0, 256, shape).astype(np.uint8)
@@ -1138,8 +1140,7 @@ def test_hist_kernel_u8_256_bins_by_tile_grid(rng, cuda_device, tiles, shape):
     _check_image_hist(t(img, cuda_device), tiles, tiles, 256)
     got = clahe(t(img, cuda_device), 0.8, (tiles, tiles)).cpu().numpy()
     want = clahe(t(img), 0.8, (tiles, tiles)).numpy()
-    d = np.abs(got.astype(int) - want.astype(int))
-    assert d.max() <= 1 and (d > 0).mean() < 0.01
+    np.testing.assert_array_equal(got, want)
 
 
 def test_analyser_on_the_card_equals_the_cpu(cuda_device, tmp_path):
@@ -1210,9 +1211,29 @@ def _on_card_one_cases(rng, dev):
         fn(frames, total, mx)
         return total, mx
 
+    from solex_ser_recon_en_torch.ops import rowstats
+    from solex_ser_recon_en_torch.ops.clahe import clahe_levels
     from solex_ser_recon_en_torch.ops.fused_cuda import sum_max_plain
+    from solex_ser_recon_en_torch.pipeline import products
+
+    gain = t(rng.uniform(0.9, 1.1, 301).astype(np.float32), dev)
+
+    def on_cpu(fn, *args):
+        """The twin on CPU copies (the product chain's kernels equal it as
+        it runs there), brought to ``dev``."""
+        out = fn(*(a.cpu() for a in args))
+        return tuple(o.to(dev) for o in (out if isinstance(out, tuple)
+                                         else (out,)))
+
+    def levels(x):
+        return clahe_levels(x, 0.8, 2, 2, 65536)
 
     return [
+        ("row_gain", lambda: rowstats.apply_row_gain(img, gain),
+         lambda: on_cpu(rowstats.apply_row_gain, img, gain)),
+        ("clahe_blend", lambda: levels(img), lambda: on_cpu(levels, img)),
+        ("stretch", lambda: products._products_body(img),
+         lambda: on_cpu(products._products_body, img)),
         ("recon", lambda: recon_chunks([raw], ind_l, left_w, rotate, upscale),
          lambda: recon_chunks_plain([raw], ind_l, left_w, rotate, upscale)),
         ("hresample", lambda: hresample(*w_args),
@@ -1597,3 +1618,202 @@ def test_transversalium_gain_on_the_card_matches_the_cpu(cuda_device, name):
     np.testing.assert_allclose(got[0], want[0], rtol=1e-6)
     assert got[1:3] == want[1:3]
     assert np.abs(got[0] - 1).max() > 1e-4      # it corrects something
+
+
+# ---- the product chain (csrc/products.cu) against the plain twin on the
+# CPU: the row gain, CLAHE's LUTs and blend, the stretches' limits and the
+# stretches, bit for bit; kernel B5 twice a product, as before.
+
+_CHAIN_KERNELS = ("row_gain", "tile_hist", "clahe_lut", "clahe_blend",
+                  "stretch_params", "stretch")
+
+
+def _reset_chain_counts():
+    from solex_ser_recon_en_torch.pipeline import products
+
+    for k in cuda_build.LAUNCHES:
+        cuda_build.LAUNCHES[k] = 0
+    for k in products.PRODUCTS_LAUNCHES:
+        products.PRODUCTS_LAUNCHES[k] = 0
+
+
+def _same_outputs(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert g.is_cuda and g.dtype == w.dtype
+            assert torch.equal(g.cpu().view(torch.int16), w.view(torch.int16))
+
+
+@pytest.mark.parametrize("kind", ["f64", "u16", "f32", "bench"])
+def test_row_gain_kernel_equals_the_twin(cuda_device, kind):
+    """One launch; saturation at both ends, a zero and a negative gain,
+    NaN and infinities of a float image, a float64 image (the de-vignetted
+    frame) taken as float32, rows that do not hold a whole number of
+    eight-pixel runs (97 x 131), and the bench product."""
+    from solex_ser_recon_en_torch.ops import rowstats
+
+    from test_torch_products_kernel import row_gain_case
+    from torch_parity import bench_product
+
+    img, gain = bench_product(0) if kind == "bench" else row_gain_case(kind)
+    _reset_chain_counts()
+    got = rowstats.apply_row_gain(t(img, cuda_device), t(gain, cuda_device))
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["row_gain"] == 1
+    want = rowstats.apply_row_gain(t(img), t(gain))
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+def test_row_gain_kernel_on_an_unaligned_view(cuda_device):
+    """A view that starts one pixel into its storage takes the kernel's
+    pixel-by-pixel path."""
+    from solex_ser_recon_en_torch.ops import rowstats
+
+    from test_torch_products_kernel import row_gain_case
+
+    img, gain = row_gain_case("u16")
+    flat = t(img, cuda_device).reshape(-1)
+    base = torch.empty(flat.numel() + 1, dtype=torch.uint16,
+                       device=cuda_device)
+    base[1:] = flat
+    view = base[1:].view(img.shape)
+    got = rowstats.apply_row_gain(view, t(gain, cuda_device))
+    want = rowstats.apply_row_gain(t(img), t(gain))
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("clip_limit", [0.0, 0.8])
+@pytest.mark.parametrize("hist_size,grid,shape", [
+    (65536, (2, 2), (2048, 2204)), (65536, (2, 2), (301, 257)),
+    (65536, (3, 5), (600, 1024)), (65536, (1, 1), (300, 260)),
+    (256, (1, 1), (300, 260)), (256, (2, 2), (301, 257)),
+    (256, (3, 3), (300, 260)), (256, (4, 4), (301, 257))],
+    ids=lambda v: str(v))
+def test_clahe_kernels_equal_the_twin(cuda_device, hist_size, grid, shape,
+                                      clip_limit):
+    """clahe_levels on the card (B5, one LUT launch, one blend launch)
+    against the twin on the CPU: the levels, the LUTs and the whole
+    image's histogram where the grid pads nothing."""
+    from solex_ser_recon_en_torch.ops import clahe as clahe_mod
+
+    from test_torch_products_kernel import u8_image
+    from torch_parity import bench_product
+
+    ty, tx = grid
+    img = (u8_image(shape, ty) if hist_size == 256
+           else bench_product(1, *shape)[0])
+    _reset_chain_counts()
+    got, full = clahe_mod.clahe_levels(t(img, cuda_device), clip_limit, tx,
+                                       ty, hist_size, return_full_hist=True)
+    torch.cuda.synchronize()
+    assert {k: cuda_build.LAUNCHES[k] for k in
+            ("tile_hist", "clahe_lut", "clahe_blend")} == {
+        "tile_hist": 1, "clahe_lut": 1, "clahe_blend": 1}
+    want, want_full = clahe_mod.clahe_levels(t(img), clip_limit, tx, ty,
+                                             hist_size, return_full_hist=True)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert (full is None) == (want_full is None)
+    if full is not None:
+        assert torch.equal(full.cpu(), want_full)
+    h, w = shape
+    _, _, _, clip, scale = clahe_mod._clahe_plan(h, w, clip_limit, tx, ty,
+                                                 hist_size)
+    hist = clahe_mod.image_tile_histograms(t(img), ty, tx, hist_size)
+    luts, _ = clahe_mod._launch_clahe_lut(hist.to(cuda_device), clip, scale,
+                                          False)
+    assert torch.equal(luts.cpu().to(torch.int32),
+                       clahe_mod._clahe_luts_plain(hist, clip, scale,
+                                                   hist_size))
+
+
+@pytest.mark.parametrize("want", [(False, False), (True, True),
+                                  (True, False), (False, True)], ids=str)
+@pytest.mark.parametrize("shape", [(2048, 2204), (301, 257)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_product_chain_on_the_card_equals_the_cpu(cuda_device, shape, want):
+    """_products_body on the card, counted ``kernel``: cl1, cc and the
+    stretches asked for equal the twin's on the CPU; B5 twice (three times
+    for the odd shape's disk histogram when a stretch of it is wanted),
+    one launch of each of the LUTs, the blend, the limits and the
+    stretches."""
+    from solex_ser_recon_en_torch.pipeline import products
+
+    from torch_parity import bench_product
+
+    img, _ = bench_product(2, *shape)
+    _reset_chain_counts()
+    got = products._products_body(t(img, cuda_device), want)
+    torch.cuda.synchronize()
+    stretched = want[0] or want[1]
+    odd = shape[1] % 2 == 1
+    assert products.PRODUCTS_LAUNCHES == {"kernel": 1, "plain": 0}
+    assert {k: cuda_build.LAUNCHES[k] for k in _CHAIN_KERNELS} == {
+        "row_gain": 0, "tile_hist": 2 + (stretched and odd), "clahe_lut": 1,
+        "clahe_blend": 1, "stretch_params": 1, "stretch": 1}
+    _same_outputs(got, products._products_body(t(img), want))
+
+
+@pytest.mark.parametrize("want", [(False, False), (True, True)], ids=str)
+def test_gained_chain_on_the_card_equals_the_cpu(cuda_device, want):
+    """The scan's chain on the bench product: the row gain, then the
+    products, seven launches and B5's two."""
+    from solex_ser_recon_en_torch.pipeline import products
+
+    from torch_parity import bench_product
+
+    img, gain = bench_product(0)
+    _reset_chain_counts()
+    got = products._products_core_gained(t(img, cuda_device),
+                                          t(gain, cuda_device), want)
+    torch.cuda.synchronize()
+    assert {k: cuda_build.LAUNCHES[k] for k in _CHAIN_KERNELS} == {
+        "row_gain": 1, "tile_hist": 2, "clahe_lut": 1, "clahe_blend": 1,
+        "stretch_params": 1, "stretch": 1}
+    _same_outputs(got, products._products_core_gained(t(img), t(gain), want))
+
+
+def test_products_stage_of_a_scan_launches_at_most_10(cuda_device, tmp_path):
+    """A -cw0 scan under the profiler: the kernels and memsets its
+    ``products`` stage launched (chip_profile.by_stage) number at most 10,
+    and the chain ran on the kernels alone."""
+    import json
+    import sys
+
+    from solex_ser_recon_en_torch.cli import main as cli_main
+    from solex_ser_recon_en_torch.io.png import read_png
+    from solex_ser_recon_en_torch.io.synthetic import SyntheticScan
+    from solex_ser_recon_en_torch.pipeline import products
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    import chip_profile
+
+    p = str(tmp_path / "scan.ser")
+    SyntheticScan(ih=360, iw=300, frames=220, depth=16,
+                  line_poly=(150.0, 0.02, -1e-4, 0.0), disk_radius=90.0,
+                  squash_y=1.08, trans_stripes=0.08, noise=0.002,
+                  seed=4).write(p, transpose_to_wide=True)
+    args = ["-cw0", p, "--output-dir", str(tmp_path / "out")]
+    assert cli_main.main(args) == 0              # builds, warms the pools
+    _reset_chain_counts()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    every_thread = torch._C._profiler._ExperimentalConfig(
+        profile_all_threads=True)
+    with torch.profiler.profile(activities=acts,
+                                experimental_config=every_thread) as prof:
+        assert cli_main.main(args) == 0
+        torch.cuda.synchronize()
+    trace = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    device = [e for e in events if e.get("cat") in chip_profile.DEVICE_CATS]
+    stages = chip_profile.by_stage(events, device)
+    assert 0 < stages["products"][0] <= 10, dict(stages)
+    assert products.PRODUCTS_LAUNCHES["kernel"] > 0
+    assert products.PRODUCTS_LAUNCHES["plain"] == 0
+    assert read_png(str(tmp_path / "out" / "scan_shift=0_clahe.png")).max()

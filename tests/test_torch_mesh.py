@@ -578,7 +578,7 @@ def test_group_read_pieces(tmp_path, monkeypatch):
 
 
 WRAPPER_FILES = ("ops/fused_cuda.py", "ops/recon_cuda.py",
-                 "ops/warp_fast.py", "ops/clahe.py")
+                 "ops/warp_fast.py", "ops/clahe.py", "pipeline/products.py")
 
 
 def _launch_sites():
@@ -655,6 +655,9 @@ def test_every_wrapper_launches_under_its_inputs_device():
         ("ops/recon_cuda.py", "recon_chunks"),
         ("ops/warp_fast.py", "hresample"),
         ("ops/clahe.py", "_launch_hist"),
+        ("ops/clahe.py", "_launch_clahe_lut"),
+        ("ops/clahe.py", "_launch_clahe_blend"),
+        ("pipeline/products.py", "_launch_stretches"),
     }
     for rel, fn, dev, params, local, w in sites:
         assert _input_device(dev, params, local), (rel, fn, ast.unparse(dev))

@@ -488,18 +488,21 @@ def test_stale_library_never_shadows_a_new_source(unbuilt, tmp_path,
 
 
 @pytest.mark.parametrize("name", ["plans.cuh", "plans.cpp", "canny.cuh",
-                                  "canny.cpp"])
+                                  "canny.cpp", "products.cuh",
+                                  "products.cpp"])
 def test_an_edited_plan_is_a_new_library(tmp_path, monkeypatch, name):
-    """The launch plans (csrc/plans.cuh), the device Canny's arithmetic
-    (csrc/canny.cuh) and their host entry points (csrc/plans.cpp,
-    csrc/canny.cpp) key the library's name as ser_io.cpp does: a library
-    built before any was edited is not loaded after."""
+    """The launch plans (csrc/plans.cuh), the device Canny's and the
+    product chain's arithmetic (csrc/canny.cuh, csrc/products.cuh) and
+    their host entry points (csrc/plans.cpp, csrc/canny.cpp,
+    csrc/products.cpp) key the library's name as ser_io.cpp does: a
+    library built before any was edited is not loaded after."""
     for src in ("ser_io.cpp", "plans.cpp", "plans.cuh", "canny.cpp",
-                "canny.cuh"):
+                "canny.cuh", "products.cpp", "products.cuh"):
         shutil.copy(native.CSRC / src, tmp_path / src)
     monkeypatch.setattr(native, "SOURCE", tmp_path / "ser_io.cpp")
     monkeypatch.setattr(native, "PLANS", tmp_path / "plans.cpp")
     monkeypatch.setattr(native, "CANNY", tmp_path / "canny.cpp")
+    monkeypatch.setattr(native, "PRODUCTS", tmp_path / "products.cpp")
     before = native.library_path()
     with open(tmp_path / name, "a") as f:
         f.write("// edited\n")

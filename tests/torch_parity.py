@@ -94,3 +94,17 @@ def limb_darkened_disk(h: int, w: int, seed: int) -> np.ndarray:
     img = np.where(r2 <= 1, 30000 * (0.4 + 0.6 * mu), 600.0)
     img = img + rng.normal(0, 150, img.shape)
     return np.clip(np.round(img), 0, 65535).astype(np.uint16)
+
+
+def bench_product(seed: int, h: int = 2048, w: int = 2204):
+    """The bench scan's product and its row gain: ``limb_darkened_disk``
+    with row stripes of +-2% and a few saturated pixels, u16, and a
+    transversalium row gain of about 1 +- 0.03, float32."""
+    rng = np.random.default_rng(seed + 1000)
+    stripes = 1 + 0.02 * np.sin(np.arange(h) / 3.0)[:, None]
+    img = np.clip(np.round(limb_darkened_disk(h, w, seed) * stripes), 0,
+                  65535).astype(np.uint16)
+    img[rng.integers(0, h, 40), rng.integers(0, w, 40)] = 65535
+    gain = (1 + 0.03 * np.sin(np.arange(h) / 7.0)
+            + rng.normal(0, 0.002, h)).astype(np.float32)
+    return img, gain
